@@ -1,0 +1,477 @@
+"""Chip smoke: builds the port's CUDA kernels and drives HMGI's main path on
+one NVIDIA GPU (written for an H100).
+
+    python3 chip_smoke.py
+
+Phases (each prints one line; any failure exits non-zero):
+  1. device   — the card's name and power limit (nvidia-smi).
+  2. build    — nvcc time and ptxas' register/shared-memory/spill report.
+  3. kernels  — each kernel against its plain PyTorch version at the main
+                path's widths, then timed (CUDA events, L2 flushed between
+                launches) beside its bound, the plain version and a
+                library call. The delta kernel is measured again after
+                phase 4 at the delta size those searches scanned, when
+                ingest overflow grew the delta.
+  4. vector   — ingest → search → filtered search → update → delete at the
+                serve_1m shape (1,048,576 × 384, batch 256), recall@10
+                against an exact top-10 computed on the card, and 16
+                queries re-run on a CPU copy of the index.
+  5. hybrid   — ingest with a graph, hybrid_search (plain, typed, filtered)
+                at 131,072 nodes, checked against a CPU copy of the index.
+  6. the kernels line, then the contract line.
+
+It imports only torch, numpy and the port (``src/repro_torch``), and needs a
+CUDA device: without one it exits 1 and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
+# cores, and HBM3 bandwidth
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+VEC_N, HYB_N, DIM, BATCH = 1_048_576, 131_072, 384, 256
+# the hybrid phase's ingest runs the reference's host Louvain sweep, about
+# 0.3 ms per node on a CPU core: ~40 s here, ~5 min at 1,048,576 nodes
+HYB_CUT = ("hybrid phase at 131,072 nodes, not 1,048,576: host Louvain "
+           "(~0.3 ms/node) would take ~5 min of the 20 min limit")
+SCORE_ATOL = 1e-4     # fp32 sums over d=384 in another order (scores O(1))
+
+
+def line(tag: str, **kw) -> None:
+    print(f"[{tag}] " + json.dumps(kw, default=float), flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def cuda_ms(fn, reps: int, flush=None) -> float:
+    """Median per-call device time of ``fn`` over ``reps`` calls (after one
+    warm-up), with ``flush`` run outside the timed window before each."""
+    fn()
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def host_ms(fn, reps: int):
+    """(p50, p99) host-clock latency of ``fn`` (synchronised) in ms."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(out, 50)), float(np.percentile(out, 99))
+
+
+def profile_window(fn, top: int = 6) -> dict:
+    """Device time by kernel over one synchronised call of ``fn``
+    (torch.profiler / CUPTI): the ``top`` kernels by self device time, the
+    device-busy sum, the host wall time, and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    if busy <= 0:
+        return {"device_time": "not measured (the profiler saw no kernels)",
+                "wall_ms": wall}
+    def short(name: str) -> str:
+        name = name.replace("(anonymous namespace)::", "")
+        return name.removeprefix("void ").split("(")[0][:70]
+    return {"top_ms": [[short(e.key), e.self_device_time_total / 1e3]
+                       for e in kern[:top]],
+            "busy_ms": busy, "wall_ms": wall,
+            "idle_share": max(0.0, 1.0 - busy / wall)}
+
+
+def bound(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def agree_up_to_ties(sa, ia, sb, ib, atol: float) -> bool:
+    """Scores within atol position by position; every id whose score clears
+    the row's k-th score by more than atol is on both sides."""
+    sa, sb = np.asarray(sa, np.float64), np.asarray(sb, np.float64)
+    fa, fb = np.isfinite(sa), np.isfinite(sb)
+    if not (fa == fb).all() or np.abs(np.where(fa, sa - sb, 0)).max() > atol:
+        return False
+    for ra, rb, xa, xb in zip(ia, ib, sa, sb):
+        kth = np.min(np.where(np.isfinite(xa), xa, np.inf))
+        sure_a = {int(i) for i, s in zip(ra, xa) if s > kth + atol}
+        sure_b = {int(i) for i, s in zip(rb, xb) if s > kth + atol}
+        if not sure_a <= set(map(int, rb)) or not sure_b <= set(map(int, ra)):
+            return False
+    return True
+
+
+def phase_device():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
+                         "is False); this script measures the card only")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    line("device", name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda, nvidia_smi=smi.splitlines()[0])
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ivf_topk import ops
+    t0 = time.perf_counter()
+    ops._lib()
+    secs, log = _build.build_log["ivf_topk"]
+    # one entry per instantiation: "<16-byte vectors per thread>/<row map>:
+    # registers, spill bytes" (d = 384 runs the 3-vector instantiations)
+    ptxas, entry, spills = [], "", ""
+    for ln in log.splitlines():
+        if "Compiling entry" in ln:
+            m = re.search(r"scan_kernelILi(\d+)ENS_\d+(\w+?)E", ln)
+            entry = f"{m.group(1)}/{m.group(2)}" if m else ln.strip()
+        elif "spill" in ln:
+            spills = ln.strip()
+        elif "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln)
+            ptxas.append(f"{entry}: {regs.group(1) if regs else '?'} regs, "
+                         f"{spills}")
+    line("build", nvcc_s=secs, load_s=time.perf_counter() - t0,
+         arch="sm_90a", ptxas=ptxas)
+
+
+def quantized_slab(rows: int, gen: torch.Generator):
+    from repro_torch.core.quantization import quantize
+    data = torch.empty((rows, DIM), dtype=torch.int8, device="cuda")
+    vmin = torch.empty((rows,), device="cuda")
+    scale = torch.empty((rows,), device="cuda")
+    step = 1 << 20
+    for s in range(0, rows, step):
+        v = torch.randn((min(step, rows - s), DIM), device="cuda", generator=gen)
+        v /= v.norm(dim=1, keepdim=True)
+        qv = quantize(v, 8)
+        data[s:s + len(v)], vmin[s:s + len(v)] = qv.data, qv.vmin[:, 0]
+        scale[s:s + len(v)] = qv.scale[:, 0]
+    return data, vmin, scale
+
+
+def _flush_and_queries(seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flush_buf = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    q = torch.randn((BATCH, DIM), device="cuda", generator=gen)
+    q /= q.norm(dim=1, keepdim=True)
+    return gen, flush_buf.zero_, q          # zero_: 256 MB > the 50 MB L2
+
+
+def measure_probe() -> dict:
+    """ivf_probe_scan against its plain version at serve_1m: Q=256, d=384,
+    K=64, cap=32,769, n_probe=8, on a seeded slab of that shape."""
+    from repro_torch.kernels.ivf_topk import ops, ref
+    gen, flush, q = _flush_and_queries(0)
+    k_parts, cap, n_probe, chunk = 64, 32_769, 8, 16
+    slab, vmin, scale = quantized_slab(k_parts * cap, gen)
+    qsum = q.sum(dim=1)
+    aff = 128.0 * scale + vmin
+    live = torch.rand((k_parts * cap,), device="cuda", generator=gen) > 0.1
+    bias = torch.where(live, 0.0, ref.NEG).to(torch.float32)
+    probes = torch.argsort(torch.rand((BATCH, k_parts), device="cuda",
+                                      generator=gen), dim=1)[:, :n_probe]
+    probes = probes.to(torch.int32).contiguous()
+    args = (q, qsum, slab, aff, scale, bias, probes, cap, chunk)
+    km, ka = ops.probe_scan(*args)
+    pm, pa = ref.probe_scan(*args)
+    torch.cuda.synchronize()
+    err = float((km - pm).abs().max())
+    arg_eq = float((ka == pa).float().mean())
+    check(err <= SCORE_ATOL, f"probe_scan max |d score| {err} > {SCORE_ATOL}")
+    check(arg_eq >= 0.999, f"probe_scan argmax agreement {arg_eq}")
+    m = n_probe * cap
+    distinct = int(torch.unique(probes).numel())
+    flops = 2.0 * BATCH * m * DIM
+    nbytes = (distinct * cap * (DIM + 12) + BATCH * DIM * 4 + BATCH * n_probe * 4
+              + 2 * BATCH * (-(-m // chunk)) * 4)
+    bms, bby = bound(flops, nbytes)
+    kms = cuda_ms(lambda: ops.probe_scan(*args), 20, flush)
+    pms = cuda_ms(lambda: ref.probe_scan(*args), 2, flush)
+    # library yardstick: the same dot products as one batched torch.matmul
+    # over the already-dequantized fp32 slab, queries grouped by probed
+    # partition (padded to the most-probed one); dequantization not timed
+    deq = ((slab.to(torch.float32) + 128.0) * scale[:, None]
+           + vmin[:, None]).reshape(k_parts, cap, DIM)
+    hits = torch.bincount(probes.flatten().long(), minlength=k_parts)
+    width = int(hits.max())
+    qg = torch.zeros((k_parts, width, DIM), device="cuda")
+    for p in range(k_parts):
+        who = torch.nonzero((probes == p).any(dim=1)).flatten()
+        qg[p, :len(who)] = q[who]
+    deq_t = deq.transpose(1, 2)
+    lms = cuda_ms(lambda: torch.matmul(qg, deq_t), 10, flush)
+    line("kernel.probe_scan", shape=dict(Q=BATCH, d=DIM, K=k_parts, cap=cap,
+                                         n_probe=n_probe, chunk=chunk),
+         max_abs_err=err, argmax_agreement=arg_eq, ms=kms, plain_ms=pms,
+         library_ms=lms, library="torch.matmul (K,%d,d)x(K,d,cap) fp32, "
+         "dequantized slab, queries grouped by partition" % width,
+         bound_ms=bms, bound_by=bby, gflop=flops / 1e9, distinct_probed=distinct)
+    return dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                bound_by=bby, max_abs_err=err)
+
+
+def measure_shared(n: int, live_frac: float) -> dict:
+    """ivf_shared_scan against its plain version: the delta scan, Q=256,
+    N=n rows (live_frac of them live), d=384, chunk=1."""
+    from repro_torch.kernels.ivf_topk import ops, ref
+    gen, flush, q = _flush_and_queries(1)
+    qsum = q.sum(dim=1)
+    data, vmin, scale = quantized_slab(n, gen)
+    aff = 128.0 * scale + vmin
+    live = torch.rand((n,), device="cuda", generator=gen) < live_frac
+    bias = torch.where(live, 0.0, ref.NEG).to(torch.float32)
+    args = (q, qsum, data, aff, scale, bias, 1)
+    km, ka = ops.shared_scan(*args)
+    pm, pa = ref.shared_scan(*args)
+    torch.cuda.synchronize()
+    err = float((km - pm).abs().max())
+    check(err <= SCORE_ATOL, f"shared_scan max |d score| {err} > {SCORE_ATOL}")
+    check(bool((ka == pa).all()), "shared_scan row indices differ (chunk=1)")
+    flops = 2.0 * BATCH * n * DIM
+    nbytes = n * (DIM + 12) + BATCH * DIM * 4 + 2 * BATCH * n * 4
+    bms, bby = bound(flops, nbytes)
+    kms = cuda_ms(lambda: ops.shared_scan(*args), 50, flush)
+    pms = cuda_ms(lambda: ref.shared_scan(*args), 20, flush)
+    deq_t = ((data.to(torch.float32) + 128.0) * scale[:, None] + vmin[:, None]).T
+    lms = cuda_ms(lambda: torch.matmul(q, deq_t), 50, flush)
+    line("kernel.shared_scan", shape=dict(Q=BATCH, N=n, d=DIM, chunk=1),
+         live_frac=live_frac, max_abs_err=err, ms=kms, plain_ms=pms,
+         library_ms=lms, library="torch.matmul (Q,d)x(d,N) fp32, dequantized rows",
+         bound_ms=bms, bound_by=bby, gflop=flops / 1e9)
+    return dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                bound_by=bby, max_abs_err=err)
+
+
+def cpu_copy(index):
+    """The same index rebuilt on the CPU through state_tree/restore_state
+    (the scan kernels' plain versions run there)."""
+    from repro_torch.core.index import HMGIIndex
+    tree, meta = index.state_tree()
+    cpu = HMGIIndex(index.cfg, seed=index.seed, device="cpu")
+    cpu.restore_state(tree, meta)
+    return cpu
+
+
+def phase_vector():
+    from repro_torch.configs import get_config
+    from repro_torch.core.index import HMGIIndex
+    from repro_torch.data.synthetic import make_corpus
+    t0 = time.perf_counter()
+    # no graph in this phase: zero edge rates keep make_corpus's edge list
+    # at one edge per node
+    c = make_corpus(n_nodes=VEC_N, modality_dims={"text": DIM},
+                    intra_p=0.0, inter_p=0.0, seed=0)
+    rng = np.random.default_rng(1)
+    attr = rng.integers(0, 10, VEC_N)
+    data_s = time.perf_counter() - t0
+    cfg = get_config("hmgi").replace(maint_auto=False)
+    index = HMGIIndex(cfg, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index.ingest({"text": (c.node_ids["text"], c.vectors["text"])}, VEC_N,
+                 node_attrs={"a": attr})
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    split = index.metrics()["ingest_seconds"]
+    # build overflow (rows past a partition's capacity) lands in the delta,
+    # which grows to hold it: every search then scans this many delta rows
+    d0 = index.modalities["text"].delta
+    delta_rows, delta_cap = int(d0.count), int(d0.ids.shape[0])
+
+    rows = rng.choice(VEC_N, BATCH, replace=False)
+    queries = c.vectors["text"][rows] + 0.05 * rng.normal(
+        size=(BATCH, DIM)).astype(np.float32)
+    sv, si = index.search(queries, "text")
+    check(tuple(sv.shape) == (BATCH, 10) and bool(torch.isfinite(sv).all()),
+          "search: scores not finite (256, 10)")
+    # exact top-10 on the card, over the ingested (normalised) vectors
+    m = index.modalities["text"]
+    qn = index._norm_queries(queries)
+    exact = torch.topk(qn @ m.vectors.T, 10, dim=1).indices
+    true_ids = m.ids[exact].cpu().numpy()
+    got = si.cpu().numpy()
+    recall = float(np.mean([len(set(a) & set(b)) / 10
+                            for a, b in zip(got, true_ids)]))
+    top1 = float(np.mean(got[:, 0] == true_ids[:, 0]))
+    p50, p99 = host_ms(lambda: index.search(queries, "text"), 20)
+    prof = profile_window(lambda: index.search(queries, "text"))
+
+    filt = {}
+    for name, where, ok in (("sel0.1", ("a", "==", 3), lambda v: v == 3),
+                            ("sel0.9", ("a", "!=", 3), lambda v: v != 3)):
+        fv, fi = index.search(queries, "text", where=where)
+        fi = fi.cpu().numpy()
+        check(bool((fi >= 0).all()) and bool(ok(attr[fi]).all()),
+              f"filtered search {name}: a result fails its predicate")
+        fp50, fp99 = host_ms(lambda: index.search(queries, "text", where=where), 10)
+        filt[name] = dict(mode=index.metrics()["filter_mode"], p50_ms=fp50,
+                          p99_ms=fp99)
+
+    # 16 queries on a CPU copy of the index (plain versions of the kernels)
+    cpu = cpu_copy(index)
+    cv, ci = cpu.search(queries[:16], "text")
+    check(agree_up_to_ties(sv[:16].cpu(), si[:16].cpu(), cv, ci, SCORE_ATOL),
+          "search on the card disagrees with the CPU copy")
+    del cpu
+
+    # update 256 existing ids (delta kernel with live rows), then delete 16
+    upd_ids = c.node_ids["text"][rng.choice(VEC_N, BATCH, replace=False)]
+    new = rng.normal(size=(BATCH, DIM)).astype(np.float32)
+    index.insert("text", upd_ids, new)
+    uv, ui = index.search(new, "text")
+    check(bool((ui[:, 0].cpu().numpy() == upd_ids).all()),
+          "updated rows are not at rank 1")
+    index.delete("text", upd_ids[:16])
+    dv, di = index.search(new[:16], "text")
+    check(not np.isin(di.cpu().numpy(), upd_ids[:16]).any(),
+          "deleted ids still returned")
+    peak = torch.cuda.max_memory_allocated()
+    line("vector", n=VEC_N, d=DIM, batch=BATCH, K=cfg.n_partitions,
+         n_probe=cfg.n_probe, data_s=data_s, ingest_s=ingest_s,
+         ingest_split_s=split, delta_rows_after_ingest=delta_rows,
+         delta_capacity=delta_cap, recall_at_10=recall, top1_self=top1,
+         search_p50_ms=p50, search_p99_ms=p99, filtered=filt,
+         update_rank1=True, delete_gone=True, peak_mem_gib=peak / 2 ** 30,
+         search_profile=prof)
+    del index, c
+    torch.cuda.empty_cache()
+    return delta_cap, delta_rows / delta_cap
+
+
+def phase_hybrid():
+    from repro_torch.configs import get_config
+    from repro_torch.core.index import HMGIIndex
+    from repro_torch.data.synthetic import make_corpus
+    print(f"[hybrid.cut] {HYB_CUT}", flush=True)
+    t0 = time.perf_counter()
+    c = make_corpus(n_nodes=HYB_N, modality_dims={"text": DIM},
+                    intra_p=96 / HYB_N, inter_p=2 / HYB_N, seed=0)
+    rng = np.random.default_rng(2)
+    attr = rng.integers(0, 10, HYB_N)
+    data_s = time.perf_counter() - t0
+    cfg = get_config("hmgi").replace(maint_auto=False)
+    index = HMGIIndex(cfg, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    index.ingest({"text": (c.node_ids["text"], c.vectors["text"])}, HYB_N,
+                 edges=(c.src, c.dst, c.edge_type), node_attrs={"a": attr})
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    rows = rng.choice(HYB_N, BATCH, replace=False)
+    queries = c.vectors["text"][rows] + 0.05 * rng.normal(
+        size=(BATCH, DIM)).astype(np.float32)
+    runs = {"plain": dict(), "typed": dict(edge_type_mask=(0, 1)),
+            "filtered": dict(where=("a", "<", 5))}
+    res, lat = {}, {}
+    for name, kw in runs.items():
+        hv, hi = index.hybrid_search(queries, "text", k=10, n_hops=2, **kw)
+        check(tuple(hv.shape) == (BATCH, 10) and bool(torch.isfinite(hv).all()),
+              f"hybrid {name}: scores not finite (256, 10)")
+        res[name] = (hv[:16].cpu(), hi[:16].cpu())
+        lat[name] = host_ms(lambda: index.hybrid_search(
+            queries, "text", k=10, n_hops=2, **kw), 10)
+    check(bool((attr[res["filtered"][1].numpy()] < 5).all()),
+          "filtered hybrid: a result fails its predicate")
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_window(lambda: index.hybrid_search(queries, "text", k=10,
+                                                      n_hops=2))
+    cpu = cpu_copy(index)
+    for name, kw in runs.items():
+        cv, ci = cpu.hybrid_search(queries[:16], "text", k=10, n_hops=2, **kw)
+        check(agree_up_to_ties(*res[name], cv, ci, SCORE_ATOL),
+              f"hybrid {name} on the card disagrees with the CPU copy")
+    line("hybrid", n=HYB_N, edges=int(index.graph.n_edges), d=DIM,
+         batch=BATCH, data_s=data_s, ingest_s=ingest_s,
+         ingest_split_s=index.metrics()["ingest_seconds"],
+         latency_ms={k: dict(p50=v[0], p99=v[1]) for k, v in lat.items()},
+         cpu_copy_agrees=True, peak_mem_gib=peak / 2 ** 30,
+         hybrid_profile=prof)
+
+
+def main():
+    # the port must import before anything is printed: a copy of this
+    # script without the repository fails here, with nothing on stdout
+    from repro_torch.kernels.ivf_topk import ops
+    phase_device()
+    phase_build()
+    kern = {"probe": measure_probe(),
+            "shared": measure_shared(4096, 0.5)}   # the configured delta
+    ops.probe_scan.launches = 0
+    ops.shared_scan.launches = 0
+    delta_cap, delta_live = phase_vector()
+    after_vector = (ops.probe_scan.launches, ops.shared_scan.launches)
+    phase_hybrid()
+    launches = {"probe": ops.probe_scan.launches,
+                "shared": ops.shared_scan.launches}
+    line("launches", vector=dict(zip(("probe", "shared"), after_vector)),
+         hybrid={"probe": launches["probe"] - after_vector[0],
+                 "shared": launches["shared"] - after_vector[1]})
+    check(launches["probe"] > 0 and launches["shared"] > 0,
+          f"a kernel was not launched on the main path: {launches}")
+    if delta_cap != 4096:
+        # the delta grew at ingest: hold and time the delta kernel at the
+        # size the serve_1m searches actually scanned
+        kern["shared"] = measure_shared(delta_cap, delta_live)
+    src = "src/repro_torch/kernels/ivf_topk/csrc/ivf_topk.cu"
+    kernels = [
+        dict(name="ivf_probe_scan", route="cuda", source=src,
+             replaces="src/repro/kernels/ivf_topk/ivf_topk.py:134",
+             launches=launches["probe"], **kern["probe"]),
+        dict(name="ivf_shared_scan", route="cuda", source=src,
+             replaces="src/repro/kernels/ivf_topk/ivf_topk.py:68",
+             launches=launches["shared"], **kern["shared"]),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

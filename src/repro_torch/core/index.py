@@ -1,0 +1,570 @@
+"""HMGIIndex — the unified facade (paper Fig. 1): modality-aware partitioned
+vector indexes + knowledge-graph store + MVCC delta + hybrid fusion engine,
+behind one ingest/search/update API, on one CUDA device.
+
+``HMGIIndex(cfg)`` runs on the card and raises when there is none; only an
+explicit ``device="cpu"`` runs on the CPU, where the scan kernels' plain
+versions take their place. Ids are global graph-node ids across all
+modalities, so vector hits seed traversals directly.
+
+Not ported yet, and refused with ``NotImplementedError`` naming the
+ROADMAP item: the NSW refine lane and sparse rerank (Queue 1 item 10),
+adaptive maintenance (``maintain``, ``cfg.maint_auto=True``, item 11), a
+device mesh (item 15) and span traces (item 13). Write-time partition
+statistics (``PartitionStats``, item 11) are not kept.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import HMGIConfig
+from repro_torch.core import community as comm_mod
+from repro_torch.core import delta as delta_mod
+from repro_torch.core import ivf as ivf_mod
+from repro_torch.core import partitioner
+from repro_torch.core.cost_model import CostModel, select_plan
+from repro_torch.core.fusion import FusionWeights, fuse_topk_sparse
+from repro_torch.core.graph_store import (GraphStore, NodeAttributes,
+                                          from_edges as graph_from_edges,
+                                          mask_pass)
+from repro_torch.core.partitioner import WorkloadStats
+from repro_torch.core.quantization import AdaptiveQuantPolicy
+
+# repro_torch.query (planner/executor) imports core submodules at module
+# scope, so the facade imports it inside methods.
+
+
+def _todo(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to repro_torch yet "
+                               f"(ROADMAP.md Queue 1 item {item})")
+
+
+def _fuse_candidates(vs, vi, graph_scores, wv, wg, *, k_fuse: int,
+                     frontier: int, node_pass=None):
+    """Candidate-sparse fusion stage (Eq. 3): fuse over the union of the
+    ANNS seeds ``vi`` and the ``frontier`` strongest traversal nodes instead
+    of scattering into a dense (Q, n_nodes) similarity array.
+
+    Exactness: a node outside the union that dense fusion would rank in its
+    top-k_fuse has no vector term, so its fused score is monotone in its
+    graph mass — but ≥ k_fuse non-seed nodes inside the frontier carry at
+    least as much mass (frontier = k_fuse + k_seed), so it can never
+    displace the union's top-k_fuse. The graph normaliser is the frontier's
+    top-1 = the global max.
+
+    node_pass: optional (N,) bool predicate mask — excluded nodes are struck
+    from both the seed and frontier candidate lanes."""
+    g_vals, g_ids = torch.topk(graph_scores, frontier, dim=1)       # (Q, F)
+    g_ids = g_ids.to(torch.int32)
+    n_nodes = graph_scores.shape[1]
+    vi = vi.to(torch.int32)
+    # drop repeated seed ids: keep the first = highest-scored occurrence
+    ks = vi.shape[1]
+    earlier = torch.tril(torch.ones((ks, ks), dtype=torch.bool,
+                                    device=vi.device), diagonal=-1)
+    seed_dup = ((vi[:, :, None] == vi[:, None, :]) & earlier).any(dim=-1)
+    seed_valid = (vi >= 0) & ~seed_dup
+    front_valid = torch.ones(g_ids.shape, dtype=torch.bool, device=vi.device)
+    if node_pass is not None:
+        seed_valid = seed_valid & mask_pass(node_pass, vi)
+        front_valid = mask_pass(node_pass, g_ids)
+    g_at_vi = torch.gather(graph_scores, 1, vi.clamp(0, n_nodes - 1).long())
+    # frontier entries already present as seeds fuse through the seed copy
+    dup = (g_ids[:, :, None]
+           == torch.where(seed_valid, vi, -2)[:, None, :]).any(dim=-1)
+    ninf = float("-inf")
+    cand_ids = torch.cat([torch.where(seed_valid, vi, -1), g_ids], dim=1)
+    cand_sim = torch.cat([torch.where(seed_valid, vs, ninf),
+                          torch.full_like(g_vals, ninf)], dim=1)
+    cand_graph = torch.cat([torch.where(seed_valid, g_at_vi, 0.0),
+                            torch.where(dup, 0.0, g_vals)], dim=1)
+    cand_valid = torch.cat([seed_valid, ~dup & front_valid], dim=1)
+    fvals, fpos = fuse_topk_sparse(cand_sim, cand_graph, FusionWeights(wv, wg),
+                                   k_fuse, graph_max=g_vals[:, :1],
+                                   valid=cand_valid)
+    return fvals, torch.gather(cand_ids, 1, fpos)
+
+
+@dataclasses.dataclass
+class ModalityIndex:
+    ivf: ivf_mod.IVFIndex
+    delta: delta_mod.DeltaStore
+    vectors: torch.Tensor       # fp32 master copy (compaction, cross-modal)
+    ids: torch.Tensor           # (N,) global node ids
+    workload: Optional[WorkloadStats] = None
+    # True once any delete/update touched this modality: gates the MVCC
+    # visibility pushdown in the scan (never reset — conservative)
+    has_dead: bool = False
+    # (n_nodes,) global-id -> row cache for cross-modal re-scoring; rebuilt
+    # lazily, invalidated when ``ids`` gains new entries
+    id_rows: Optional[torch.Tensor] = None
+
+
+class HMGIIndex:
+    """The Hybrid Multimodal Graph Index.
+
+    Thread-safety: searches are safe from any number of threads,
+    concurrently with at most one mutating caller. ``_write_lock``
+    serialises every mutation and the state_tree snapshot; ``_cache_lock``
+    guards the lazily-built ``ModalityIndex.id_rows``.
+
+    The random draws of ingest (K-means seeding) come from a
+    ``torch.Generator`` seeded with ``seed``; they differ from the
+    reference's ``jax.random`` draws for the same seed."""
+
+    def __init__(self, cfg: HMGIConfig, mesh=None, seed: int = 0, *,
+                 device=None):
+        if mesh is not None:
+            raise _todo("a device mesh (row-sharded search)", "15")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "HMGIIndex runs on a CUDA device and none is available; "
+                    "pass device='cpu' to run the plain versions on the CPU")
+            device = "cuda"
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.seed = int(seed)
+        self.generator = torch.Generator().manual_seed(self.seed)
+        self._write_lock = threading.RLock()   # serialises mutations
+        self._cache_lock = threading.Lock()    # guards lazy read caches
+        self.modalities: Dict[str, ModalityIndex] = {}
+        self.graph: Optional[GraphStore] = None
+        self.attributes: Optional[NodeAttributes] = None
+        self.communities: Optional[np.ndarray] = None
+        self.boosted_weights: Optional[torch.Tensor] = None
+        self.cost_model = CostModel(cfg.cost_alpha, cfg.cost_beta, cfg.cost_gamma)
+        self.quant_policy = AdaptiveQuantPolicy(cfg.memory_budget_bytes)
+        self.n_nodes = 0
+        self._metrics: Dict[str, object] = {}
+        # monotone mutation stamp: bumped by every change that can alter a
+        # search result
+        self._version = 0
+
+    @property
+    def version(self) -> int:
+        return self._version
+
+    def _bump_version(self) -> None:
+        self._version += 1
+
+    def _tensor(self, x, dtype) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=dtype)
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------ build
+    def ingest(self, embeddings: Dict[str, Tuple[np.ndarray, np.ndarray]],
+               n_nodes: int, edges: Optional[Tuple] = None,
+               build_nsw: bool = False,
+               node_attrs: Optional[Dict[str, np.ndarray]] = None):
+        """Builds the index over a multimodal corpus.
+
+        embeddings: modality -> (node_ids (N_m,) int, vectors (N_m, d_m));
+        vectors are L2-normalised here. edges: (src, dst[, edge_type[,
+        edge_weight]]) arrays over global node ids. node_attrs: column name
+        -> (n_nodes,) int values. Build overflow (rows beyond a partition's
+        capacity) is routed to the delta store — grown if needed, never
+        dropped.
+
+        The seconds each stage took (the device synchronised at each
+        boundary) land in ``metrics()["ingest_seconds"]``."""
+        if build_nsw or self.cfg.use_nsw_refine:
+            raise _todo("the NSW refine layer", "10")
+        with self._write_lock:
+            self._ingest_locked(embeddings, n_nodes, edges, node_attrs)
+
+    def _ingest_locked(self, embeddings, n_nodes, edges, node_attrs):
+        clock = {"to_device": 0.0, "kmeans": 0.0, "layout": 0.0,
+                 "graph": 0.0, "louvain": 0.0}
+
+        def lap(stage, t0):
+            self._sync()
+            t1 = time.perf_counter()
+            clock[stage] += t1 - t0
+            return t1
+
+        self.n_nodes = n_nodes
+        cfg = self.cfg
+        for mod, (ids, vecs) in embeddings.items():
+            t = time.perf_counter()
+            vecs = self._tensor(vecs, torch.float32)
+            ids = self._tensor(ids, torch.int32)
+            t = lap("to_device", t)
+            vecs = vecs / torch.clamp_min(
+                torch.linalg.vector_norm(vecs, dim=-1, keepdim=True), 1e-12)
+            bits = self.quant_policy.choose_bits(
+                int(vecs.numel() * 4), default_bits=cfg.quant_bits)
+            k = min(cfg.n_partitions, vecs.shape[0])
+            cents = partitioner.fit(vecs, k, cfg.kmeans_iters,
+                                    generator=self.generator).centroids
+            t = lap("kmeans", t)
+            index, overflow = ivf_mod.build(vecs, ids, n_partitions=k,
+                                            bits=bits, centroids=cents)
+            dstore = delta_mod.init(cfg.delta_capacity, vecs.shape[1],
+                                    max(n_nodes, 1), self.device)
+            if bool(overflow.any()):
+                ov = torch.nonzero(overflow).flatten()
+                dstore = delta_mod.insert_grow(dstore, vecs[ov], ids[ov])
+            self.modalities[mod] = ModalityIndex(
+                ivf=index, delta=dstore, vectors=vecs, ids=ids,
+                workload=WorkloadStats(k))
+            lap("layout", t)
+        if edges is not None:
+            t = time.perf_counter()
+            src, dst = np.asarray(edges[0]), np.asarray(edges[1])
+            et = edges[2] if len(edges) > 2 else None
+            ew = edges[3] if len(edges) > 3 else None
+            self.graph = graph_from_edges(n_nodes, src, dst, et, ew,
+                                          device=self.device)
+            t = lap("graph", t)
+            self.communities = comm_mod.louvain_one_level(
+                n_nodes, src, dst,
+                np.ones(len(src)) if ew is None else np.asarray(ew))
+            self.boosted_weights = comm_mod.community_edge_boost(
+                self.graph, self.communities)
+            lap("louvain", t)
+        self._metrics["ingest_seconds"] = clock
+        if node_attrs is not None:
+            self.set_attributes(node_attrs)
+        self._bump_version()
+
+    def set_attributes(self, node_attrs: Dict[str, np.ndarray]):
+        """Attach/replace the relational attribute columns (global node id
+        keyed). Swapping columns changes every filtered result, so it bumps
+        the version stamp."""
+        with self._write_lock:
+            self.attributes = NodeAttributes.from_columns(
+                self.n_nodes, node_attrs, device=self.device)
+            self._bump_version()
+
+    # ----------------------------------------------------------------- search
+    def _norm_queries(self, queries) -> torch.Tensor:
+        q = self._tensor(queries, torch.float32)
+        return q / torch.clamp_min(
+            torch.linalg.vector_norm(q, dim=-1, keepdim=True), 1e-12)
+
+    def _node_pass(self, where) -> Optional[torch.Tensor]:
+        """Compiles a where clause against the attribute store -> (N,) bool."""
+        if where is None:
+            return None
+        if self.attributes is None:
+            raise ValueError("filtered search needs attributes: call "
+                             "set_attributes() or ingest(node_attrs=...)")
+        return self.attributes.node_pass(where)
+
+    def _modality_id_rows(self, modality: str) -> torch.Tensor:
+        """The (n_nodes,) global-id -> row map for cross-modal re-scoring,
+        built lazily once per (modality, corpus size); double-checked under
+        ``_cache_lock``."""
+        m = self.modalities[modality]
+        rows = m.id_rows
+        if rows is not None and rows.shape[0] == self.n_nodes:
+            return rows
+        with self._cache_lock:
+            rows = m.id_rows
+            if rows is None or rows.shape[0] != self.n_nodes:
+                from repro_torch.query.executor import _modality_rows
+                rows = _modality_rows(m.ids, self.n_nodes)
+                m.id_rows = rows
+            return rows
+
+    @staticmethod
+    def _no_trace(trace: bool) -> None:
+        if trace:
+            raise _todo("span traces (trace=True)", "13")
+
+    def query(self, plan, *, trace: bool = False):
+        """Runs a declarative plan (see ``repro_torch.query.Q``): compiles
+        it cost-wise against this index and executes it stage by stage.
+        Returns (scores (Q, k), ids (Q, k))."""
+        from repro_torch.query.executor import execute
+        from repro_torch.query.planner import compile_plan
+        self._no_trace(trace)
+        return execute(self, compile_plan(self, plan))
+
+    def explain(self, plan) -> str:
+        """The compiled physical plan for ``plan``, as a one-line string."""
+        from repro_torch.query.planner import compile_plan
+        return compile_plan(self, plan).describe()
+
+    def search(self, queries, modality: str, k: Optional[int] = None,
+               n_probe: Optional[int] = None, where=None, impl: str = "auto",
+               *, trace: bool = False, _node_pass=None):
+        """Pure vector search (ANNS on stable index + delta), tombstone-aware:
+        the one-stage plan ``Q.vector(modality, queries).where(where)
+        .topk(k)``. where: optional relational predicate — a (column, op,
+        value) tuple or a list of them (AND); the planner picks pushdown or
+        oversample-then-post-filter from its selectivity."""
+        from repro_torch.query.ast import Q
+        from repro_torch.query.executor import execute
+        from repro_torch.query.planner import compile_plan
+        self._no_trace(trace)
+        plan = Q.vector(modality, queries, n_probe=n_probe,
+                        impl=impl).where(where)
+        phys = compile_plan(self, plan, k=k or self.cfg.top_k,
+                            node_pass=_node_pass)
+        return execute(self, phys)
+
+    def hybrid_search(self, queries, modality: str, k: Optional[int] = None,
+                      n_hops: Optional[int] = None,
+                      n_probe: Optional[int] = None,
+                      edge_type_mask=None,
+                      where=None,
+                      min_recall: Optional[float] = None,
+                      use_rerank: bool = False,
+                      q_terms=None, q_term_weights=None, *,
+                      trace: bool = False):
+        """The paper's hybrid query (Eq. 3): ANNS seeds -> h-hop traversal
+        -> adaptive fusion. Returns (scores, ids). ``where`` holds at every
+        stage: seed search, traversal routing and fusion candidates."""
+        from repro_torch.query.ast import Q
+        from repro_torch.query.executor import execute
+        from repro_torch.query.planner import compile_plan
+        if self.graph is None:
+            raise ValueError("hybrid_search needs a graph: ingest(edges=...)")
+        self._no_trace(trace)
+        cfg = self.cfg
+        k = k or cfg.top_k
+        if min_recall is not None:
+            plan = select_plan(self.cost_model,
+                               n=int(self.modalities[modality].ids.shape[0]),
+                               d=int(self.modalities[modality].vectors.shape[1]),
+                               min_recall=min_recall)
+            n_probe = plan.n_probe
+            n_hops = plan.n_hops
+            use_rerank = use_rerank or plan.use_rerank
+        if use_rerank:
+            raise _todo("the sparse-dense rerank lane", "10")
+        n_hops = cfg.max_hops if n_hops is None else n_hops
+        q = self._norm_queries(queries)
+        plan = (Q.vector(modality, q, n_probe=n_probe)
+                .where(where)
+                .traverse(n_hops, edge_types=edge_type_mask))
+        phys = compile_plan(self, plan, k=k, fusion_repr="sparse")
+        fvals, fids = execute(self, phys, truncate=False)
+        return fvals[:, :k], fids[:, :k]
+
+    # ----------------------------------------------------------------- update
+    def _no_auto_maintenance(self) -> None:
+        if self.cfg.maint_auto:
+            raise _todo("adaptive maintenance (cfg.maint_auto=True); set "
+                        "maint_auto=False for compaction on the write path",
+                        "11")
+
+    def maintain(self, *args, **kwargs):
+        raise _todo("adaptive maintenance", "11")
+
+    def insert(self, modality: str, ids, vectors):
+        """Insert-or-update a batch (the ``cfg.maint_auto=False`` path).
+
+        ids: (B,) global node ids; vectors: (B, d_m) — L2-normalised here.
+        Existing ids are superseded (MVCC update path): the stable row is
+        hidden, the fp32 master row is rewritten in place, and the new
+        version lands in the delta. When the delta lacks room or crosses the
+        compaction threshold, the modality is compacted. Writes are never
+        dropped."""
+        self._no_auto_maintenance()
+        with self._write_lock:
+            self._insert_locked(modality, ids, vectors)
+
+    def _insert_locked(self, modality: str, ids, vectors):
+        m = self.modalities[modality]
+        v = self._norm_queries(vectors)
+        # free delta room before any visibility change
+        if delta_mod.free_slots(m.delta) < v.shape[0]:
+            self._compact_locked(modality)
+            m = self.modalities[modality]
+        ids32 = self._tensor(ids, torch.int32)
+        ids_np = ids32.cpu().numpy()
+        existing_np = m.ids.cpu().numpy()
+        # vectorized id -> row lookup (no host loop over the corpus)
+        order = np.argsort(existing_np, kind="stable")
+        sorted_ids = existing_np[order]
+        pos = np.searchsorted(sorted_ids, ids_np)
+        pos_c = np.minimum(pos, max(existing_np.size - 1, 0))
+        upd_mask = (sorted_ids[pos_c] == ids_np) if existing_np.size \
+            else np.zeros(ids_np.shape, bool)
+        if upd_mask.any():
+            upd = torch.as_tensor(upd_mask, device=self.device)
+            m.has_dead = True
+            m.delta = delta_mod.supersede(m.delta, ids32[upd])
+            rows = torch.as_tensor(order[pos_c[upd_mask]], device=self.device)
+            # in place: the master copy is this modality's own tensor
+            m.vectors.index_copy_(0, rows, v[upd])
+        if (~upd_mask).any():
+            sel = torch.as_tensor(~upd_mask, device=self.device)
+            m.vectors = torch.cat([m.vectors, v[sel]], dim=0)
+            m.ids = torch.cat([m.ids, ids32[sel]])
+            with self._cache_lock:
+                m.id_rows = None    # new ids -> the row cache is stale
+        m.delta = delta_mod.insert_grow(m.delta, v, ids32)
+        if delta_mod.should_compact(m.delta, self.cfg.compact_threshold):
+            self._compact_locked(modality)
+        self._bump_version()
+
+    def delete(self, modality: str, ids):
+        """Tombstones the ids in ``modality``: the rows vanish from every
+        scan path at once and are purged by compaction."""
+        self._no_auto_maintenance()
+        with self._write_lock:
+            m = self.modalities[modality]
+            m.has_dead = True
+            m.delta = delta_mod.delete(m.delta, self._tensor(ids, torch.int32))
+            self._bump_version()
+
+    def compact(self, modality: str):
+        """Full compaction: merge the whole delta into the stable store in
+        one synchronous rebuild against the existing centroids."""
+        with self._write_lock:
+            self._compact_locked(modality)
+
+    def _compact_locked(self, modality: str):
+        m = self.modalities[modality]
+        m.ivf, m.delta = delta_mod.compact(m.ivf, m.delta, m.vectors, m.ids)
+        self._bump_version()
+
+    # ------------------------------------------------------- durability state
+    # The complete state as a flat {key: tensor} dict + JSON-able metadata,
+    # in the reference's key layout (``repro.core.index.HMGIIndex
+    # .state_tree``), so ``convert.index_from_jax_state`` reads a reference
+    # snapshot through the same ``restore_state``. "key" holds this index's
+    # torch.Generator state. The tensors are the index's own (an update
+    # rewrites master rows in place): copy them to keep a snapshot.
+
+    def state_tree(self) -> Tuple[Dict[str, object], Dict[str, object]]:
+        with self._write_lock:
+            tree: Dict[str, object] = {"key": self.generator.get_state()}
+            meta: Dict[str, object] = {
+                "n_nodes": int(self.n_nodes),
+                "modalities": {},
+                "graph": self.graph is not None,
+                "communities": self.communities is not None,
+                "boosted_weights": self.boosted_weights is not None,
+                "attr_columns": None,
+                "sparse_docs": False,
+            }
+            for mod, m in self.modalities.items():
+                p = f"m/{mod}"
+                for f in ("centroids", "data", "vmin", "scale", "ids", "counts"):
+                    tree[f"{p}/ivf/{f}"] = getattr(m.ivf, f)
+                for f in delta_mod.DeltaStore._fields:
+                    tree[f"{p}/delta/{f}"] = getattr(m.delta, f)
+                tree[f"{p}/vectors"] = m.vectors
+                tree[f"{p}/ids"] = m.ids
+                if m.workload is not None:
+                    tree[f"{p}/workload_hits"] = m.workload.hits_snapshot()
+                meta["modalities"][mod] = {
+                    "bits": int(m.ivf.bits),
+                    "has_dead": bool(m.has_dead),
+                    "nsw": False,
+                    "workload": m.workload is not None,
+                    "stats": False,
+                    "stats_max_ids": 0,
+                }
+            if self.graph is not None:
+                for f in GraphStore._fields:
+                    tree[f"graph/{f}"] = getattr(self.graph, f)
+            if self.communities is not None:
+                tree["communities"] = np.asarray(self.communities)
+            if self.boosted_weights is not None:
+                tree["boosted_weights"] = self.boosted_weights
+            if self.attributes is not None:
+                tree["attributes/values"] = self.attributes.values
+                meta["attr_columns"] = sorted(self.attributes.columns,
+                                              key=self.attributes.columns.get)
+            return tree, meta
+
+    def restore_state(self, tree: Dict[str, object],
+                      meta: Dict[str, object]) -> None:
+        """Rebuilds this (freshly constructed) index from ``state_tree``
+        output — tensors or numpy arrays, on any device — onto this index's
+        device. A "key" that is not a torch.Generator state (a reference
+        JAX PRNG key) reseeds the generator from ``seed`` instead.
+        ``stats/*`` entries are accepted and dropped (partition statistics
+        are not ported yet); NSW and sparse-document state raise."""
+        for mod, mm in meta["modalities"].items():
+            if mm.get("nsw"):
+                raise _todo(f"NSW state (modality {mod!r})", "10")
+        if meta.get("sparse_docs"):
+            raise _todo("sparse-document rerank state", "10")
+        with self._write_lock:
+            self._restore_state_locked(tree, meta)
+
+    def _restore_state_locked(self, tree, meta) -> None:
+        def t(x):
+            if isinstance(x, torch.Tensor):
+                return x.to(self.device, copy=True)
+            return torch.from_numpy(np.array(x, copy=True)).to(self.device)
+
+        self.n_nodes = int(meta["n_nodes"])
+        key = tree.get("key")
+        if isinstance(key, torch.Tensor) and key.dtype == torch.uint8:
+            self.generator.set_state(key.cpu())
+        else:
+            self.generator.manual_seed(self.seed)
+        self.modalities = {}
+        for mod, mm in meta["modalities"].items():
+            p = f"m/{mod}"
+            ivf = ivf_mod.IVFIndex(
+                **{f: t(tree[f"{p}/ivf/{f}"])
+                   for f in ("centroids", "data", "vmin", "scale", "ids",
+                             "counts")},
+                bits=int(mm["bits"]))
+            dstore = delta_mod.DeltaStore(
+                **{f: t(tree[f"{p}/delta/{f}"])
+                   for f in delta_mod.DeltaStore._fields})
+            m = ModalityIndex(ivf=ivf, delta=dstore,
+                              vectors=t(tree[f"{p}/vectors"]),
+                              ids=t(tree[f"{p}/ids"]),
+                              has_dead=bool(mm["has_dead"]))
+            if mm["workload"]:
+                m.workload = WorkloadStats(ivf.n_partitions)
+                m.workload.load_hits(np.asarray(tree[f"{p}/workload_hits"]))
+            self.modalities[mod] = m
+        self.graph = (GraphStore(**{f: t(tree[f"graph/{f}"])
+                                    for f in GraphStore._fields})
+                      if meta["graph"] else None)
+        self.communities = (np.array(tree["communities"], copy=True)
+                            if meta["communities"] else None)
+        self.boosted_weights = (t(tree["boosted_weights"])
+                                if meta["boosted_weights"] else None)
+        if meta["attr_columns"] is not None:
+            self.attributes = NodeAttributes(
+                {n: i for i, n in enumerate(meta["attr_columns"])},
+                t(tree["attributes/values"]))
+        else:
+            self.attributes = None
+        self._bump_version()
+
+    # ------------------------------------------------------------------ stats
+    def metrics(self) -> Dict[str, object]:
+        """Execution-side observability: the filter selectivity/mode of the
+        last filtered seed scan and the stage times of the last ingest."""
+        return dict(self._metrics)
+
+    def memory_usage(self) -> Dict[str, int]:
+        """Bytes per component: one entry per modality's stable slab, one
+        per delta store (fp32 master + int8 mirror + dequant terms), the
+        graph, and a "total" sum."""
+        out = {}
+        for mod, m in self.modalities.items():
+            out[mod] = m.ivf.nbytes
+            out[f"{mod}_delta"] = int(m.delta.vectors.numel() * 4
+                                      + m.delta.qdata.numel()
+                                      + (m.delta.qvmin.numel()
+                                         + m.delta.qscale.numel()) * 4)
+        if self.graph is not None:
+            out["graph"] = self.graph.nbytes
+        out["total"] = sum(out.values())
+        return out

@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels of the port (sm_90a).
+
+Each kernel package has csrc/<name>.cu (the kernel, plain C entry points),
+ops.py (the wrapper: plain version on CPU tensors, kernel on CUDA tensors,
+a launch counter) and ref.py (the plain PyTorch version). ``_build.py``
+compiles a source with nvcc on first use and loads it with ctypes.
+
+  ivf_topk — fused int8 scan + per-chunk max/argmax: ``probe_scan`` (the
+             IVF probe, rows read straight from the flat slab through a
+             per-query probe list) and ``shared_scan`` (every query against
+             one slab: the delta store).
+"""
