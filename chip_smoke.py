@@ -1,13 +1,15 @@
-"""Chip smoke: builds the port's CUDA kernels and drives HMGI's main path on
-one NVIDIA GPU (written for an H100).
+"""Chip smoke: builds the port's CUDA kernels and drives HMGI's main paths
+on one NVIDIA GPU (written for an H100): hybrid retrieval, and RAG serving
+with phi4-mini at its full width over the retrieval index.
 
     python3 chip_smoke.py
 
 Phases (each prints one line; any failure exits non-zero):
   1. device   — the card's name and power limit (nvidia-smi).
-  2. build    — nvcc time and ptxas' register/shared-memory/spill report.
+  2. build    — both CUDA libraries built at once (one nvcc each), their
+                nvcc times and ptxas' register/shared-memory/spill report.
   3. kernels  — each kernel against its plain PyTorch version at the main
-                path's widths, then timed (CUDA events, L2 flushed between
+                paths' shapes, then timed (CUDA events, L2 flushed between
                 launches) beside its bound, the plain version and a
                 library call. The delta kernel is measured again after
                 phase 4 at the delta size those searches scanned, when
@@ -18,7 +20,16 @@ Phases (each prints one line; any failure exits non-zero):
                 queries re-run on a CPU copy of the index.
   5. hybrid   — ingest with a graph, hybrid_search (plain, typed, filtered)
                 at 131,072 nodes, checked against a CPU copy of the index.
-  6. the kernels line, then the contract line.
+  6. rag      — RAGEngine over the phase-5 index with full-width
+                phi4-mini (32 layers, bf16, seeded random weights): 32
+                retrievals, 32 ragged requests (prompts 128-1,536 tokens,
+                32-64 new tokens) on 8 slots; prefill and decode-tick
+                latency, tokens/s, one profiled tick; checks that every
+                decode tick ran the flash-decode kernel in each layer, a
+                4-layer fp32 copy matches sequential decode token for
+                token, and a 2-layer copy matches the same weights on the
+                CPU.
+  7. the kernels line, then the contract line.
 
 It imports only torch, numpy and the port (``src/repro_torch``), and needs a
 CUDA device: without one it exits 1 and prints no result.
@@ -30,6 +41,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -48,6 +60,15 @@ VEC_N, HYB_N, DIM, BATCH = 1_048_576, 131_072, 384, 256
 HYB_CUT = ("hybrid phase at 131,072 nodes, not 1,048,576: host Louvain "
            "(~0.3 ms/node) would take ~5 min of the 20 min limit")
 SCORE_ATOL = 1e-4     # fp32 sums over d=384 in another order (scores O(1))
+# the RAG cell: phi4-mini at full width, 8 decode slots over a 2,048-token
+# cache (ROADMAP Queue 1 item 16)
+RAG_SLOTS, RAG_SEQ, RAG_REQUESTS = 8, 2048, 32
+# decode kernel vs its plain version: both round one fp32 result to bf16,
+# so they differ by at most 1 bf16 ulp of outputs |out| < 2 (2^-7)
+DECODE_BF16_ATOL = 2.0 ** -7
+# 2-layer full-width copy, card vs CPU: fp32 with TF32 off, the same
+# function summed in another order on two devices; logits are O(1)
+CPU_LOGIT_ATOL = 1e-3
 
 
 def line(tag: str, **kw) -> None:
@@ -65,12 +86,16 @@ def check(cond: bool, msg: str) -> None:
 
 def cuda_ms(fn, reps: int, flush=None) -> float:
     """Median per-call device time of ``fn`` over ``reps`` calls (after one
-    warm-up), with ``flush`` run outside the timed window before each."""
+    warm-up), with ``flush`` run outside the timed window before each. A
+    ~0.5 ms device sleep is queued before the start event, so the host
+    time that ``fn`` spends before its launches (Python, argument checks)
+    overlaps the sleep and is not counted as device time."""
     fn()
     times = []
     for _ in range(reps):
         if flush is not None:
             flush()
+        torch.cuda._sleep(1_000_000)
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
@@ -157,27 +182,44 @@ def phase_device():
          cuda=torch.version.cuda, nvidia_smi=smi.splitlines()[0])
 
 
-def phase_build():
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.ivf_topk import ops
-    t0 = time.perf_counter()
-    ops._lib()
-    secs, log = _build.build_log["ivf_topk"]
-    # one entry per instantiation: "<16-byte vectors per thread>/<row map>:
-    # registers, spill bytes" (d = 384 runs the 3-vector instantiations)
-    ptxas, entry, spills = [], "", ""
+def _ptxas_report(log: str, entry_re: str):
+    """One "<instantiation>: <registers> regs, <spill line>" per kernel."""
+    out, entry, spills = [], "", ""
     for ln in log.splitlines():
         if "Compiling entry" in ln:
-            m = re.search(r"scan_kernelILi(\d+)ENS_\d+(\w+?)E", ln)
-            entry = f"{m.group(1)}/{m.group(2)}" if m else ln.strip()
+            m = re.search(entry_re, ln)
+            entry = ("/".join(g for g in m.groups() if g) if m
+                     else ln.strip())
         elif "spill" in ln:
             spills = ln.strip()
         elif "registers" in ln:
             regs = re.search(r"Used (\d+) registers", ln)
-            ptxas.append(f"{entry}: {regs.group(1) if regs else '?'} regs, "
-                         f"{spills}")
-    line("build", nvcc_s=secs, load_s=time.perf_counter() - t0,
-         arch="sm_90a", ptxas=ptxas)
+            out.append(f"{entry}: {regs.group(1) if regs else '?'} regs, "
+                       f"{spills}")
+    return out
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.ivf_topk import ops
+    t0 = time.perf_counter()
+    # one nvcc per source, started together
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        for f in [pool.submit(ops._lib), pool.submit(dops._lib)]:
+            f.result()
+    secs, log = _build.build_log["ivf_topk"]
+    dsecs, dlog = _build.build_log["decode_attention"]
+    # scans: "<16-byte vectors per thread>/<row map>" (d = 384 runs the
+    # 3-vector instantiations); decode: "<kernel>/<dtype>/<hd>[/<G>]"
+    # (phi4-mini's tick runs split/bfloat16/128/3 and combine/bfloat16/128)
+    ptxas = _ptxas_report(log, r"scan_kernelILi(\d+)ENS_\d+(\w+?)E")
+    dptxas = _ptxas_report(
+        dlog, r"decode_(split|combine)_kernelI(?:13__nv_)?(f|bfloat16)Li(\d+)"
+              r"E(?:Li(\d+)E)?")
+    line("build", nvcc_s={"ivf_topk": secs, "decode_attention": dsecs},
+         load_s=time.perf_counter() - t0, arch="sm_90a", ptxas=ptxas,
+         ptxas_decode=dptxas)
 
 
 def quantized_slab(rows: int, gen: torch.Generator):
@@ -432,6 +474,239 @@ def phase_hybrid():
          latency_ms={k: dict(p50=v[0], p99=v[1]) for k, v in lat.items()},
          cpu_copy_agrees=True, peak_mem_gib=peak / 2 ** 30,
          hybrid_profile=prof)
+    del cpu
+    return index, c
+
+
+def measure_decode(lengths) -> dict:
+    """decode_attention against its plain version at phi4-mini's decode
+    tick: B 8, S 2048, Hkv 8, G 3, hd 128, bf16; row b valid on its first
+    lengths[b] positions (a slot's history), as the engine's cache is."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    b, s, hkv, g, hd = RAG_SLOTS, RAG_SEQ, 8, 3, 128
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(
+        torch.bfloat16) for shape in ((b, hkv * g, hd), (b, s, hkv, hd),
+                                      (b, s, hkv, hd)))
+    lens = torch.as_tensor(np.asarray(lengths), device="cuda")
+    valid = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+
+    def plain():
+        return decode_attention_ref(q.view(b, hkv, g, hd), k, v,
+                                    valid).view(b, hkv * g, hd)
+
+    out = dops.decode_attention(q, k, v, valid)
+    ref = plain()
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    check(err <= DECODE_BF16_ATOL,
+          f"decode_attention max |d out| {err} > {DECODE_BF16_ATOL}")
+    n_valid = int(np.sum(lengths))
+    # each valid K and V row read once, the mask, q in and out
+    nbytes = n_valid * hkv * hd * 2 * 2 + b * s + 2 * b * hkv * g * hd * 2
+    flops = 4.0 * n_valid * hkv * g * hd
+    bms, bby = bound(flops, nbytes)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda").zero_
+    kms = cuda_ms(lambda: dops.decode_attention(q, k, v, valid), 50, flush)
+    pms = cuda_ms(plain, 10, flush)
+    # library yardstick (never called by the port): SDPA, same bool mask
+    qs, ks, vs = q.view(b, hkv * g, 1, hd), k.transpose(1, 2), v.transpose(1, 2)
+    mask = valid[:, None, None, :]
+    lms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True), 50, flush)
+    line("kernel.decode_attention", shape=dict(B=b, S=s, Hkv=hkv, G=g, hd=hd,
+                                               dtype="bfloat16"),
+         valid_lengths=[int(x) for x in lengths],
+         splits=dops.num_splits(q.device, b, hkv, s), max_abs_err=err,
+         ms=kms, plain_ms=pms, library_ms=lms,
+         library="F.scaled_dot_product_attention(bool mask, enable_gqa=True)",
+         bound_ms=bms, bound_by=bby, mbytes=nbytes / 1e6,
+         achieved_tb_s=nbytes / (kms * 1e-3) / 1e12)
+    return dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                bound_by=bby, max_abs_err=err)
+
+
+def _params_to(params, device):
+    if isinstance(params, torch.Tensor):
+        return params.to(device)
+    if isinstance(params, dict):
+        return {k: _params_to(v, device) for k, v in params.items()}
+    return [_params_to(v, device) for v in params]
+
+
+def sequential_decode(cfg, params, prompt, n: int, clen: int, device="cuda"):
+    """One request alone: prefill, then single-row greedy decode."""
+    from repro_torch.models import lm
+    toks = torch.as_tensor(prompt, device=device)[None]
+    logits, cache = lm.prefill(cfg, params, toks, margin=clen - len(prompt))
+    gen = [int(torch.argmax(logits[0]))]
+    pos = len(prompt)
+    while len(gen) < n:
+        lg, cache = lm.decode_step(cfg, params, cache,
+                                   torch.tensor([gen[-1]], device=device),
+                                   torch.tensor([pos], device=device))
+        gen.append(int(torch.argmax(lg[0])))
+        pos += 1
+    return gen
+
+
+def phase_rag(index, corpus) -> dict:
+    """The RAG serving path over the phase-5 index; returns the launches of
+    its run (counts set to 0 just before it, read just after)."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.ivf_topk import ops
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import EngineConfig, RAGEngine
+    from repro_torch.serving.retrieval import RetrievalPlan, run_plan
+    cfg = get_config("phi4-mini-3.8b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = RAGEngine(cfg, params, index, EngineConfig(
+        n_slots=RAG_SLOTS, max_seq=RAG_SEQ, retrieve_k=4, hops=1,
+        maintenance_interval=0))
+    rng = np.random.default_rng(12)
+    rows = rng.choice(HYB_N, RAG_REQUESTS, replace=False)
+    queries = (corpus.vectors["text"][rows] + 0.05 * rng.normal(
+        size=(RAG_REQUESTS, DIM))).astype(np.float32)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(128, 1537, RAG_REQUESTS)]
+    news = [int(n) for n in rng.integers(32, 65, RAG_REQUESTS)]
+    obs.reset()
+    obs.set_sync_spans(True)          # the prefill span waits for its work
+
+    dops.decode_attention.launches = 0
+    ops.probe_scan.launches = ops.shared_scan.launches = 0
+    t0 = time.perf_counter()
+    ids = engine.retrieve(queries)
+    retrieve_ms = (time.perf_counter() - t0) * 1e3
+    for i in range(RAG_REQUESTS):
+        engine.submit(i, prompts[i], retrieved_ids=ids[i],
+                      max_new_tokens=news[i])
+    prof = None
+    t0 = time.perf_counter()
+    while engine.batcher.any_active:
+        slots = engine.batcher.slots
+        if (prof is None and engine.stats["ticks"] >= 16
+                and all(sl.active and sl.remaining >= 2 for sl in slots)):
+            # this tick and the profiler's warm-up tick are both pure
+            # decode ticks: every slot is busy and none finishes
+            prof = profile_window(engine.tick, top=8)
+        else:
+            engine.tick()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"decode": dops.decode_attention.launches,
+                "probe": ops.probe_scan.launches,
+                "shared": ops.shared_scan.launches}
+    obs.set_sync_spans(False)
+
+    ticks = engine.stats["ticks"]
+    check(ticks > 0 and launches["decode"] == cfg.n_layers * ticks,
+          f"rag: {launches['decode']} decode kernel launches for {ticks} "
+          f"ticks of {cfg.n_layers} layers")
+    check(launches["probe"] > 0, "rag: retrieval did not run the probe kernel")
+    check(prof is not None, "rag: no steady decode tick was profiled")
+    reqs = engine.batcher.requests
+    for i in range(RAG_REQUESTS):
+        check(reqs[i].done and len(reqs[i].generated) == news[i],
+              f"rag: request {i} gave {len(reqs[i].generated)} of "
+              f"{news[i]} tokens")
+    hist = obs.registry().histograms()
+    dec, pre = hist["serving.decode_step"], hist["serving.prefill"]
+    prompt_lens = [len(reqs[i].prompt) for i in range(RAG_REQUESTS)]
+    n_tokens = sum(news)
+    peak = torch.cuda.max_memory_allocated()
+
+    # for information, not a gate: byte identity of retrieval across batch
+    # sizes, and the bf16 full-depth streams against sequential decode
+    plan = RetrievalPlan(modality="text", k=4, n_hops=1)
+    n_info = min(8, RAG_REQUESTS)
+    sv, si = run_plan(index, plan, queries[:n_info])
+    solo = [run_plan(index, plan, queries[i:i + 1]) for i in range(n_info)]
+    bytes_same = all(sv[i].tobytes() == solo[i][0].tobytes()
+                     and si[i].tobytes() == solo[i][1].tobytes()
+                     for i in range(n_info))
+    ids_same = all((si[i] == solo[i][1]).all() for i in range(n_info))
+    seq_same = [sequential_decode(cfg, params, reqs[i].prompt, news[i],
+                                  RAG_SEQ) == reqs[i].generated
+                for i in range(n_info // 2)]
+    line("rag", model=cfg.arch_id, layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.resolved_head_dim}",
+         vocab=cfg.vocab_size, dtype=cfg.dtype,
+         params_b=cfg.param_count() / 1e9,
+         param_gib=lm.param_bytes(params) / 2 ** 30, init_s=init_s,
+         index_nodes=HYB_N, n_slots=RAG_SLOTS, max_seq=RAG_SEQ,
+         requests=RAG_REQUESTS, prompt_tokens=dict(
+             min=min(prompt_lens), p50=float(np.median(prompt_lens)),
+             max=max(prompt_lens), total=sum(prompt_lens)),
+         new_tokens=n_tokens, retrieve_ms=retrieve_ms,
+         prefill_ms=dict(p50=pre.percentile(50), p99=pre.percentile(99),
+                         n=pre.count),
+         decode_tick_ms=dict(p50=dec.percentile(50), p99=dec.percentile(99),
+                             n=dec.count),
+         decode_tokens_per_s_8_slots=RAG_SLOTS / (dec.percentile(50) / 1e3),
+         run_s=run_s, tokens_per_s=n_tokens / run_s, ticks=ticks,
+         launches=launches, peak_mem_gib=peak / 2 ** 30, tick_profile=prof,
+         info_search_many_bytes_identical_8_vs_1=bytes_same,
+         info_search_many_ids_identical_8_vs_1=ids_same,
+         info_bf16_streams_equal_sequential=seq_same)
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # a 4-layer fp32 copy at full width: 3 ragged requests on 2 slots give
+    # the tokens of sequential per-request greedy decoding
+    cfg4 = cfg.replace(n_layers=4, dtype="float32")
+    p4 = lm.init_lm(cfg4, seed=1)
+    eng4 = RAGEngine(cfg4, p4, None, EngineConfig(n_slots=2, max_seq=256))
+    prompts4 = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                for n in (37, 101, 64)]
+    news4 = (9, 5, 12)
+    for i, (pr, n) in enumerate(zip(prompts4, news4)):
+        eng4.submit(i, pr, max_new_tokens=n)
+    got4 = eng4.run_to_completion()
+    want4 = {i: sequential_decode(cfg4, p4, pr, n, 256)
+             for i, (pr, n) in enumerate(zip(prompts4, news4))}
+    check(got4 == want4, f"rag fp32: batched streams {got4} differ from "
+                         f"sequential {want4}")
+    del eng4, p4
+    torch.cuda.empty_cache()
+
+    # a 2-layer fp32 copy at full width: the same weights on the CPU give
+    # the same logits for one prefill + 4 decode steps
+    cfg2 = cfg.replace(n_layers=2, dtype="float32")
+    p2 = lm.init_lm(cfg2, seed=2)
+    p2c = _params_to(p2, "cpu")
+    prompt = rng.integers(0, cfg.vocab_size, 96).astype(np.int32)
+    outs = []
+    for dev, pp in (("cuda", p2), ("cpu", p2c)):
+        lg, cache = lm.prefill(cfg2, pp, torch.as_tensor(prompt, device=dev)[None],
+                               margin=8)
+        logits = [lg[0].cpu()]
+        tok, pos = int(torch.argmax(logits[0])), len(prompt)
+        for _ in range(4):
+            lg, cache = lm.decode_step(cfg2, pp, cache,
+                                       torch.tensor([tok], device=dev),
+                                       torch.tensor([pos], device=dev))
+            logits.append(lg[0].cpu())
+            tok, pos = int(torch.argmax(logits[-1])), pos + 1
+        outs.append(torch.stack(logits))
+    cpu_err = float((outs[0] - outs[1]).abs().max())
+    same_argmax = bool((outs[0].argmax(-1) == outs[1].argmax(-1)).all())
+    check(cpu_err <= CPU_LOGIT_ATOL and same_argmax,
+          f"rag: 2-layer card vs CPU logits differ by {cpu_err} "
+          f"(> {CPU_LOGIT_ATOL}) or in argmax")
+    line("rag.checks", decode_launches_per_tick=launches["decode"] / ticks,
+         fp32_4_layer_streams_equal_sequential=True,
+         fp32_2_layer_card_vs_cpu_max_abs_logit=cpu_err,
+         logit_scale=float(outs[1].abs().max()), tolerance=CPU_LOGIT_ATOL)
+    return launches
 
 
 def main():
@@ -441,19 +716,26 @@ def main():
     phase_device()
     phase_build()
     kern = {"probe": measure_probe(),
-            "shared": measure_shared(4096, 0.5)}   # the configured delta
+            "shared": measure_shared(4096, 0.5),   # the configured delta
+            # slot histories as the RAG phase's prompts make them
+            "decode": measure_decode(np.random.default_rng(13).integers(
+                132, 1601, RAG_SLOTS))}
     ops.probe_scan.launches = 0
     ops.shared_scan.launches = 0
     delta_cap, delta_live = phase_vector()
     after_vector = (ops.probe_scan.launches, ops.shared_scan.launches)
-    phase_hybrid()
+    index, corpus = phase_hybrid()
     launches = {"probe": ops.probe_scan.launches,
                 "shared": ops.shared_scan.launches}
-    line("launches", vector=dict(zip(("probe", "shared"), after_vector)),
-         hybrid={"probe": launches["probe"] - after_vector[0],
-                 "shared": launches["shared"] - after_vector[1]})
     check(launches["probe"] > 0 and launches["shared"] > 0,
           f"a kernel was not launched on the main path: {launches}")
+    rag = phase_rag(index, corpus)
+    line("launches", vector=dict(zip(("probe", "shared"), after_vector)),
+         hybrid={"probe": launches["probe"] - after_vector[0],
+                 "shared": launches["shared"] - after_vector[1]},
+         rag=rag)
+    del index, corpus
+    torch.cuda.empty_cache()
     if delta_cap != 4096:
         # the delta grew at ingest: hold and time the delta kernel at the
         # size the serve_1m searches actually scanned
@@ -466,6 +748,12 @@ def main():
         dict(name="ivf_shared_scan", route="cuda", source=src,
              replaces="src/repro/kernels/ivf_topk/ivf_topk.py:68",
              launches=launches["shared"], **kern["shared"]),
+        dict(name="decode_attention", route="cuda",
+             source="src/repro_torch/kernels/decode_attention/csrc/"
+                    "decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention/"
+                      "decode_attention.py:78",
+             launches=rag["decode"], **kern["decode"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

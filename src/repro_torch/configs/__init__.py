@@ -1,24 +1,41 @@
-"""Config registry of the port: only the index's own config so far."""
+"""Config registry of the port: the index's own config and the RAG LM."""
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import List, Union
 
-from repro_torch.configs.base import HMGIConfig, ShapeSpec
+from repro_torch.configs.base import HMGIConfig, LMConfig, ShapeSpec
 
 _MODULES = {
     "hmgi": "repro_torch.configs.hmgi",
+    "phi4-mini-3.8b": "repro_torch.configs.phi4_mini",
 }
 
 
-def get_config(arch_id: str) -> HMGIConfig:
+def get_config(arch_id: str) -> Union[HMGIConfig, LMConfig]:
     if arch_id not in _MODULES:
         raise KeyError(f"unknown or unported arch {arch_id!r}; known: "
-                       f"{sorted(_MODULES)} (the model configs arrive with "
-                       "ROADMAP Queue 1 items 16-17)")
+                       f"{sorted(_MODULES)} (the other model configs arrive "
+                       "with ROADMAP Queue 1 items 16-17)")
     return importlib.import_module(_MODULES[arch_id]).CONFIG
 
 
 def get_shapes(arch_id: str) -> List[ShapeSpec]:
     get_config(arch_id)
     return importlib.import_module(_MODULES[arch_id]).SHAPES
+
+
+def smoke_config(arch_id: str) -> Union[HMGIConfig, LMConfig]:
+    """Reduced same-family config for CPU tests (the reference's
+    ``smoke_config`` widths)."""
+    cfg = get_config(arch_id)
+    if isinstance(cfg, LMConfig):
+        kw = dict(n_layers=2, d_model=64, n_heads=4, head_dim=16,
+                  n_kv_heads=min(cfg.n_kv_heads, 2), d_ff=128, vocab_size=512,
+                  scan_layers=True, remat=False)
+        if cfg.sliding_window:
+            kw.update(sliding_window=32)
+        return cfg.replace(**kw)
+    return cfg.replace(dim=16, modality_dims={}, n_partitions=4, n_probe=2,
+                       kmeans_iters=4, delta_capacity=64, nsw_degree=4,
+                       nsw_ef=8)

@@ -1,11 +1,14 @@
-"""HMGI's configuration: the reference's ``HMGIConfig`` and ``ShapeSpec``.
+"""Configurations of the port: the reference's ``HMGIConfig``, ``LMConfig``
+and ``ShapeSpec``.
 
 Same field names and defaults as the JAX package (its ``ArchConfig`` base
-fields are folded in), so a reference config converts with
-``HMGIConfig(**dataclasses.asdict(ref_cfg))``. Fields the port does not act
-on yet (NSW, maintenance, sharding, durability, obs) are kept for that
-round trip; the facade raises ``NotImplementedError`` where one of them
-would change behaviour (see ``core/index.py``).
+fields are folded into each class), so a reference config converts with
+``HMGIConfig(**dataclasses.asdict(ref_cfg))`` or
+``LMConfig(**dataclasses.asdict(ref_cfg))``. Fields the port does not act
+on yet (NSW, maintenance, sharding, durability, obs; the LM's MLA, MoE and
+training knobs) are kept for that round trip; the code raises
+``NotImplementedError`` where one of them would change behaviour (see
+``core/index.py`` and ``models/lm.py``).
 """
 from __future__ import annotations
 
@@ -87,3 +90,89 @@ class HMGIConfig:
 
     def replace(self, **kw) -> "HMGIConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    """A transformer LM (the RAG engine's generator). The port serves dense
+    GQA (optionally with QKV bias and a sliding window); ``attention="mla"``
+    and ``moe=True`` are kept for the round trip and refused by
+    ``models/lm.py``."""
+    arch_id: str = ""
+    family: str = "lm"
+    source: str = ""
+    sharding_overrides: Dict[str, Any] = field(default_factory=dict)
+    n_layers: int = 2
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    head_dim: int = 0            # 0 => d_model // n_heads
+    d_ff: int = 1024
+    vocab_size: int = 1024
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    # attention variant
+    attention: str = "gqa"       # "gqa" | "mla" (mla: not ported)
+    sliding_window: int = 0      # >0 => SWA
+    # MLA (not ported)
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    # MoE (not ported)
+    moe: bool = False
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    first_dense_layers: int = 0
+    dense_d_ff: int = 0
+    capacity_factor: float = 1.25
+    # execution (scan/remat: training knobs of the reference, kept for the
+    # round trip)
+    dtype: str = "bfloat16"
+    scan_layers: bool = True
+    remat: bool = True
+    remat_policy: str = "nothing"
+
+    def replace(self, **kw) -> "LMConfig":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (matches the reference's init)."""
+        d, L = self.d_model, self.n_layers
+        hd = self.resolved_head_dim
+        if self.attention == "mla":
+            attn = (d * self.kv_lora_rank + d * self.qk_rope_head_dim
+                    + self.kv_lora_rank * self.n_heads
+                    * (self.qk_nope_head_dim + self.v_head_dim)
+                    + d * self.n_heads
+                    * (self.qk_nope_head_dim + self.qk_rope_head_dim)
+                    + self.n_heads * self.v_head_dim * d)
+        else:
+            attn = (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                    + self.n_heads * hd * d)
+            if self.qkv_bias:
+                attn += (self.n_heads + 2 * self.n_kv_heads) * hd
+        ffn_dense = 3 * d * self.d_ff
+        total = 0
+        for layer in range(L):
+            total += attn + 2 * d  # two rmsnorm scales
+            if self.moe and layer >= self.first_dense_layers:
+                e_ff = self.moe_d_ff or self.d_ff
+                total += self.n_experts * 3 * d * e_ff
+                total += self.n_shared_experts * 3 * d * e_ff
+                total += d * self.n_experts  # router
+            elif self.moe and self.first_dense_layers:
+                total += 3 * d * (self.dense_d_ff or self.d_ff)
+            else:
+                total += ffn_dense
+        total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        total += d  # final norm
+        return total

@@ -1,4 +1,5 @@
-"""Carries a reference index's state into the port.
+"""Carries a reference index's state, and a reference LM's parameters,
+into the port.
 
 ``index_from_jax_state(tree, meta, device)`` takes the JAX package's
 ``HMGIIndex.state_tree()`` output, with every leaf passed through
@@ -16,14 +17,22 @@ What does not carry over:
 - The JAX PRNG key cannot seed a ``torch.Generator``: the port's generator
   is reseeded from ``seed``, so later random draws (none on the search
   path) differ from the reference's.
+
+``lm_params_from_jax(tree, device)`` takes the reference ``init_lm``'s
+params with numpy leaves and returns the port's layout (see
+``models/lm.py``): the stacked ``layers`` (leading L axis) become a list
+of per-layer dicts; ``embed``, ``final_ln`` and ``head`` are kept. With it
+both packages compute the same function.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_config
+from repro_torch.common.params import resolve_device
 from repro_torch.configs.base import HMGIConfig
 from repro_torch.core.index import HMGIIndex
 
@@ -45,3 +54,35 @@ def index_from_jax_state(tree: Dict[str, np.ndarray], meta: Dict[str, object],
     index = HMGIIndex(cfg or get_config("hmgi"), seed=seed, device=device)
     index.restore_state(tree, meta)
     return index
+
+
+def _leaf(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(np.array(a, copy=True).view(np.uint16)
+                                ).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _map(node, fn):
+    if isinstance(node, dict):
+        return {k: _map(v, fn) for k, v in node.items()}
+    return fn(node)
+
+
+def lm_params_from_jax(tree: Dict[str, object], device=None) -> Dict[str, object]:
+    """tree: a reference ``init_lm`` params dict with numpy leaves (e.g.
+    ``jax.tree.map(np.asarray, params)``). device: None = the CUDA device."""
+    device = resolve_device(device, "lm_params_from_jax")
+    if "head_layers" in tree:
+        raise NotImplementedError(
+            "unstacked head layers (MoE first_dense_layers) are not ported "
+            "to repro_torch yet (ROADMAP.md Queue 1 item 16)")
+    stacked = tree["layers"]
+    n_layers = int(np.asarray(stacked["ln1"]).shape[0])
+    out = {k: _leaf(tree[k], device) for k in ("embed", "final_ln", "head")
+           if k in tree}
+    out["layers"] = [_map(stacked, lambda a, i=i: _leaf(np.asarray(a)[i],
+                                                        device))
+                     for i in range(n_layers)]
+    return out

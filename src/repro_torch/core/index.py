@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.common.params import resolve_device
 from repro_torch.configs.base import HMGIConfig
 from repro_torch.core import community as comm_mod
 from repro_torch.core import delta as delta_mod
@@ -122,14 +123,8 @@ class HMGIIndex:
                  device=None):
         if mesh is not None:
             raise _todo("a device mesh (row-sharded search)", "15")
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "HMGIIndex runs on a CUDA device and none is available; "
-                    "pass device='cpu' to run the plain versions on the CPU")
-            device = "cuda"
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "HMGIIndex")
         self.seed = int(seed)
         self.generator = torch.Generator().manual_seed(self.seed)
         self._write_lock = threading.RLock()   # serialises mutations

@@ -5,7 +5,8 @@ sm_90a into ``build/repro_torch_kernels/`` at the repository root (listed in
 ``.gitignore``) on first use, under a name keyed by a hash of the source and
 the flags, so an edited source rebuilds and an unchanged one loads. Nothing
 here runs at import: ``load`` is called by the wrapper that launches the
-kernel, on the first launch.
+kernel, on the first launch. Each source has its own lock, so threads that
+load different sources run their nvcc builds at the same time.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ BUILD_DIR = _REPO_ROOT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_locks_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}     # one per source name
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds nvcc took (0.0 when the cached build was loaded), nvcc's
 # stderr, which holds ptxas' register / shared-memory / spill report)
@@ -48,7 +50,9 @@ def load(source: Path) -> ctypes.CDLL:
     """Compiles ``source`` (once per content hash) and returns the library."""
     source = Path(source)
     name = source.stem
-    with _lock:
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         text = source.read_bytes()

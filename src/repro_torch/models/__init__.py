@@ -1,0 +1,1 @@
+"""Models of the port: the RAG engine's transformer LM (serving half)."""

@@ -9,13 +9,14 @@ candidate-set state ``(scores, ids)`` between stages: scores descending,
 
 This module is also the one execution path behind the facade:
 ``HMGIIndex.search`` and ``hybrid_search`` compile the equivalent plan and
-run it here. The reference's ``search_bucketed`` (serving micro-batches) and
-its NSW refine lane are not ported yet (ROADMAP Queue 1 items 10 and 14).
+run it here. ``search_bucketed`` is the serving micro-batch entry. The
+reference's NSW refine lane is not ported yet (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import delta as delta_mod
@@ -191,6 +192,38 @@ def _post_filter(sv, si, node_pass):
     (and later stages still carry the mask)."""
     ok = graph_mod.mask_pass(node_pass, si)
     return _topk_state(torch.where(ok, sv, _NEG_INF), si, sv.shape[1])
+
+
+# ------------------------------------------------------- serving micro-batch
+def search_bucketed(index, queries, modality: str, *, k: int,
+                    n_probe: Optional[int] = None, where=None,
+                    n_hops: int = 0, impl: str = "auto",
+                    floor: int = 2) -> Tuple[np.ndarray, np.ndarray]:
+    """The cross-request retrieval entry: one ``(B, k)`` call over the pow2
+    bucket ``B = pow2_round(Q, lo=floor)``, rows sliced back to Q, returned
+    as numpy (scores (Q, k), ids (Q, k)).
+
+    Padding repeats row 0. Every per-row stage (probe assignment, scan,
+    top-k, traversal, fusion, rescore) is row-separable, so a pad row's
+    content cannot change a real row's result. Whether the bytes of a row
+    are independent of the bucket it rode in depends on the device's
+    reduction order (cuBLAS rescore, cuSPARSE hops): the port does not
+    promise it on the card (ROADMAP Queue 1 item 14)."""
+    q = np.asarray(queries, np.float32)
+    if q.ndim == 1:
+        q = q[None]
+    n_q = q.shape[0]
+    bucket = pow2_round(n_q, lo=max(int(floor), 1))
+    if bucket != n_q:
+        q = np.concatenate(
+            [q, np.broadcast_to(q[:1], (bucket - n_q,) + q.shape[1:])])
+    if n_hops > 0:
+        sv, si = index.hybrid_search(q, modality, k=k, n_hops=n_hops,
+                                     n_probe=n_probe, where=where)
+    else:
+        sv, si = index.search(q, modality, k=k, n_probe=n_probe,
+                              where=where, impl=impl)
+    return sv[:n_q].cpu().numpy(), si[:n_q].cpu().numpy()
 
 
 # ----------------------------------------------------------------- execution

@@ -1,5 +1,6 @@
-"""Card-only tests of the port: each CUDA kernel against its plain version,
-and the facade on the card against the same index on the CPU.
+"""Card-only tests of the port: each CUDA kernel against its plain version
+(the IVF scans and the flash-decode kernel), and the facade on the card
+against the same index on the CPU.
 
 Every test carries the ``gpu`` marker and skips itself when
 ``torch.cuda.is_available()`` is false (decided inside the test, so every
@@ -8,7 +9,7 @@ JAX nor the reference package, so it runs on a card host without them:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerance: 1e-4 absolute on scores of O(1) (fp32 sums over d ≤ 384 in
+Tolerance of the scans: 1e-4 absolute on scores of O(1) (fp32 sums over d ≤ 384 in
 another order); the argmax may move only between rows whose scores tie to
 rounding, so at least 99% of chunk argmaxes agree.
 """
@@ -111,3 +112,88 @@ def test_facade_on_the_card_matches_the_cpu():
         # ids equal except where neighbouring scores tie to rounding
         same = gi.cpu().numpy() == ci.numpy()
         assert same.mean() >= 0.98
+
+
+# ---------------------------------------------------------------- decode
+def _decode_case(g, b, s, hkv, grp, hd, dtype, lengths):
+    """q (b, hkv·grp, hd), k/v (b, s, hkv, hd) in dtype; row i valid on a
+    ragged, shuffled set of lengths[i] positions."""
+    q = torch.randn((b, hkv * grp, hd), device="cuda", generator=g).to(dtype)
+    k = torch.randn((b, s, hkv, hd), device="cuda", generator=g).to(dtype)
+    v = torch.randn((b, s, hkv, hd), device="cuda", generator=g).to(dtype)
+    valid = torch.zeros((b, s), dtype=torch.bool, device="cuda")
+    for i, n in enumerate(lengths):
+        perm = torch.randperm(s, device="cuda", generator=g)[:n]
+        valid[i, perm] = True
+    return q, k, v, valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grp", [1, 3, 8])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_matches_plain_version(dtype, hd, grp):
+    """Ragged rows (one of them all-invalid → 0, one full), S not a multiple
+    of any split. fp32: 1e-5 absolute (the same fp32 sums in another
+    order); bf16: both round one fp32 result to bf16, so 1 bf16 ulp of
+    outputs |out| < 4 (2^-6)."""
+    _need_card()
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    g = torch.Generator(device="cuda").manual_seed(hd * 10 + grp)
+    b, s, hkv = 5, 1000, 2
+    q, k, v, valid = _decode_case(g, b, s, hkv, grp, hd, dtype,
+                                  [0, 1, 37, 640, s])
+    before = dops.decode_attention.launches
+    out = dops.decode_attention(q, k, v, valid)
+    assert dops.decode_attention.launches == before + 1
+    ref = decode_attention_ref(q.reshape(b, hkv, grp, hd), k, v,
+                               valid).reshape(b, hkv * grp, hd)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    assert bool((out[0] == 0).all())
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= (1e-5 if dtype == torch.float32 else 2 ** -6), err
+
+
+@pytest.mark.gpu
+def test_decode_kernel_at_the_serving_shape():
+    """phi4-mini's tick: B 8, S 2048, Hkv 8, G 3, hd 128, bf16, ragged."""
+    _need_card()
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    g = torch.Generator(device="cuda").manual_seed(7)
+    lengths = [129, 300, 700, 1024, 1500, 1600, 2000, 2048]
+    q, k, v, valid = _decode_case(g, 8, 2048, 8, 3, 128, torch.bfloat16,
+                                  lengths)
+    out = dops.decode_attention(q, k, v, valid)
+    ref = decode_attention_ref(q.reshape(8, 8, 3, 128), k, v,
+                               valid).reshape(8, 24, 128)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= 2 ** -6
+
+
+@pytest.mark.gpu
+def test_decode_wrapper_checks_its_inputs_on_the_card():
+    _need_card()
+    from repro_torch.kernels.decode_attention import ops as dops
+    q = torch.zeros((2, 6, 128), device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros((2, 16, 2, 128), device="cuda", dtype=torch.bfloat16)
+    valid = torch.ones((2, 16), dtype=torch.bool, device="cuda")
+    nc = torch.zeros((2, 2, 16, 128), device="cuda",
+                     dtype=torch.bfloat16).transpose(1, 2)
+    bad = [
+        (q.float(), k, k, valid),                       # mixed dtypes
+        (q.half(), k.half(), k.half(), valid),           # fp16 not taken
+        (q, k, k, valid.to(torch.uint8)),                # mask not bool
+        (q, k, k, valid.cpu()),                          # a CPU operand
+        (q[:, :, :96].contiguous(), k[..., :96].contiguous(),
+         k[..., :96].contiguous(), valid),               # hd 96
+        (torch.zeros((2, 18, 128), device="cuda", dtype=torch.bfloat16),
+         k, k, valid),                                   # G = 9
+        (q, nc, nc, valid),                              # not contiguous
+        (q, k[:, :8], k, valid),                         # shapes disagree
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            dops.decode_attention(*args)
