@@ -1,13 +1,15 @@
 """Chip smoke: builds the port's CUDA kernels and drives HMGI's main paths
-on one NVIDIA GPU (written for an H100): hybrid retrieval, and RAG serving
-with phi4-mini at its full width over the retrieval index.
+on one NVIDIA GPU (written for an H100): hybrid retrieval, RAG serving
+with phi4-mini at its full width over the retrieval index, and EGNN
+full-graph inference at the ogbn-products shape.
 
     python3 chip_smoke.py
 
 Phases (each prints one line; any failure exits non-zero):
   1. device   — the card's name and power limit (nvidia-smi).
-  2. build    — both CUDA libraries built at once (one nvcc each), their
-                nvcc times and ptxas' register/shared-memory/spill report.
+  2. build    — the three CUDA libraries built at once (one nvcc each),
+                their nvcc times and ptxas' register/shared-memory/spill
+                report.
   3. kernels  — each kernel against its plain PyTorch version at the main
                 paths' shapes, then timed (CUDA events, L2 flushed between
                 launches) beside its bound, the plain version and a
@@ -29,7 +31,20 @@ Phases (each prints one line; any failure exits non-zero):
                 4-layer fp32 copy matches sequential decode token for
                 token, and a 2-layer copy matches the same weights on the
                 CPU.
-  7. the kernels line, then the contract line.
+  7. gnn      — EGNN (get_config("egnn"): 4 layers, d_hidden 64, fp32,
+                seeded random weights) over make_flat_graph at the
+                ogb_products shape (2,449,029 nodes, 61,859,140 edges,
+                d_feat 100): the segment-sum kernel against its plain
+                version at one layer's real shape and timed beside its
+                bound, its plain version and index_add_; 6 full-graph
+                forwards (logits + CE sums; p50/p99 of the last 5), one
+                profiled; checks that every layer of every forward ran the
+                kernel once per chunk, that two forwards and a forward with
+                half the chunk budget give the same bits, that a
+                65,536-node copy matches the CPU, and that the molecule
+                shape (128 graphs of 30 nodes / 64 edges as one
+                disjoint-union graph) matches a per-graph loop on the CPU.
+  8. the kernels line, then the contract line.
 
 It imports only torch, numpy and the port (``src/repro_torch``), and needs a
 CUDA device: without one it exits 1 and prints no result.
@@ -69,6 +84,17 @@ DECODE_BF16_ATOL = 2.0 ** -7
 # 2-layer full-width copy, card vs CPU: fp32 with TF32 off, the same
 # function summed in another order on two devices; logits are O(1)
 CPU_LOGIT_ATOL = 1e-3
+# the GNN cells: EGNN over the ogb_products shape in chunks of 4 Mi edges
+# (~11 GB of per-edge temporaries), and the molecule shape
+GNN_CHUNK_EDGES = 1 << 22
+GNN_REPS = 5
+# segment-sum kernel vs its plain version: the same fp32 adds in the same
+# order, so 0 is expected; fp32 allows sums of ≤ 55 O(1) terms in another
+# order, bf16 one bf16 ulp of the output (both round one fp32 sum)
+SEG_FP32_ATOL = 1e-4
+# EGNN, card vs CPU (same weights, fp32, TF32 off): matmuls and sums in
+# another order over 4 layers, relative to max(1, max |logit|)
+GNN_CPU_RTOL = 1e-3
 
 
 def line(tag: str, **kw) -> None:
@@ -203,13 +229,16 @@ def phase_build():
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.ivf_topk import ops
+    from repro_torch.kernels.segment_reduce import ops as sops
     t0 = time.perf_counter()
     # one nvcc per source, started together
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for f in [pool.submit(ops._lib), pool.submit(dops._lib)]:
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        for f in [pool.submit(ops._lib), pool.submit(dops._lib),
+                  pool.submit(sops._lib)]:
             f.result()
     secs, log = _build.build_log["ivf_topk"]
     dsecs, dlog = _build.build_log["decode_attention"]
+    ssecs, slog = _build.build_log["segment_reduce"]
     # scans: "<16-byte vectors per thread>/<row map>" (d = 384 runs the
     # 3-vector instantiations); decode: "<kernel>/<dtype>/<hd>[/<G>]"
     # (phi4-mini's tick runs split/bfloat16/128/3 and combine/bfloat16/128)
@@ -217,9 +246,14 @@ def phase_build():
     dptxas = _ptxas_report(
         dlog, r"decode_(split|combine)_kernelI(?:13__nv_)?(f|bfloat16)Li(\d+)"
               r"E(?:Li(\d+)E)?")
-    line("build", nvcc_s={"ivf_topk": secs, "decode_attention": dsecs},
+    # segment sum: "<dtype>/<elements per lane load>/<perm>" (the EGNN
+    # layers run f/4/0)
+    sptxas = _ptxas_report(
+        slog, r"segment_sum_kernelI(?:13__nv_)?(f|bfloat16)Li(\d+)ELb(\d)E")
+    line("build", nvcc_s={"ivf_topk": secs, "decode_attention": dsecs,
+                          "segment_reduce": ssecs},
          load_s=time.perf_counter() - t0, arch="sm_90a", ptxas=ptxas,
-         ptxas_decode=dptxas)
+         ptxas_decode=dptxas, ptxas_segment=sptxas)
 
 
 def quantized_slab(rows: int, gen: torch.Generator):
@@ -709,6 +743,223 @@ def phase_rag(index, corpus) -> dict:
     return launches
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp (8 significant bits) at the magnitude of each of x."""
+    mag = x.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def measure_segment_small() -> float:
+    """segment_sum against its plain version at small fp32/bf16 shapes:
+    unsorted ids, dropped ids (-1 and >= n), empty segments, widths that
+    take each load width. Returns the largest error (0 is expected)."""
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.kernels.segment_reduce.ref import segment_sum_ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+    for e, n, d in ((20_000, 3_000, 68), (5_000, 900, 3), (8_192, 2_000, 129),
+                    (1, 4, 16), (0, 5, 8)):
+        ids = torch.randint(-1, n + 3, (e,), device="cuda", generator=gen,
+                            dtype=torch.int32)
+        for dtype in (torch.float32, torch.bfloat16):
+            msg = torch.randn((e, d), device="cuda", generator=gen).to(dtype)
+            got = sops.segment_sum(msg, ids, n)
+            want = segment_sum_ref(msg, ids, n)
+            err = (got.float() - want.float()).abs()
+            tol = (SEG_FP32_ATOL if dtype == torch.float32
+                   else bf16_ulp(want))
+            check(bool((err <= tol).all()),
+                  f"segment_sum {dtype} E={e} n={n} d={d}: max |d| "
+                  f"{float(err.max()) if err.numel() else 0.0}")
+            worst = max(worst, float(err.max()) if err.numel() else 0.0)
+    torch.cuda.synchronize()
+    line("kernel.segment_sum.small", cases=10, max_abs_err=worst)
+    return worst
+
+
+def layer0_messages(cfg, params, g, ex) -> torch.Tensor:
+    """EGNN layer 0's messages (E, d_hidden + 4) in the kernel's
+    destination-sorted order, built block by block as ``push`` builds
+    them."""
+    from repro_torch.models.gnn import egnn
+    payload = torch.cat([g.feats @ params["enc"], g.positions], -1)
+    msg_fn = egnn.message_fn(cfg, params["layers"][0])
+    msgs = torch.empty((ex.n_edges, cfg.d_hidden + 4), device="cuda")
+    for (_, _, e0, e1, _), rows in ex.messages(msg_fn, payload):
+        msgs[e0:e1] = rows
+    return msgs
+
+
+def measure_segment(cfg, params, g, ex, small_err: float) -> dict:
+    """segment_sum_csr against its plain version at one EGNN layer's real
+    shape (the sorted messages of layer 0, all 61,859,140 edges in one
+    call), then timed beside its bound, the plain version and index_add_."""
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.kernels.segment_reduce.ref import segment_sum_csr_ref
+    msgs = layer0_messages(cfg, params, g, ex)
+    e, d = msgs.shape
+    n = ex.n
+    out = sops.segment_sum_csr(msgs, ex.rowptr)
+    want = segment_sum_csr_ref(msgs, ex.rowptr)
+    torch.cuda.synchronize()
+    err = float((out - want).abs().max())
+    check(err <= SEG_FP32_ATOL,
+          f"segment_sum at the layer shape: max |d| {err} > {SEG_FP32_ATOL}")
+    del want
+    # each message read once, each output row written once, rowptr read
+    nbytes = e * d * 4 + n * d * 4 + (n + 1) * 4
+    bms, bby = bound(float(e * d), nbytes)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda").zero_
+    kms = cuda_ms(lambda: sops.segment_sum_csr(msgs, ex.rowptr, out=out), 10,
+                  flush)
+    pms = cuda_ms(lambda: segment_sum_csr_ref(msgs, ex.rowptr), 3, flush)
+    # library yardstick (never called by the port): index_add_ of the
+    # sorted messages by destination (atomics), into a zeroed buffer once
+    # for its check, then timed on the same buffer
+    dst = ex.dst
+    lib = torch.zeros_like(out).index_add_(0, dst, msgs)
+    torch.cuda.synchronize()
+    lib_err = float((lib - out).abs().max())
+    lms = cuda_ms(lambda: lib.index_add_(0, dst, msgs), 10, flush)
+    line("kernel.segment_sum", shape=dict(E=e, d=d, n=n, dtype="float32",
+                                          perm=False),
+         max_abs_err=err, small_cases_max_abs_err=small_err, ms=kms,
+         plain_ms=pms, library_ms=lms,
+         library="Tensor.index_add_(0, dst, msgs) (atomics)",
+         library_max_abs_diff=lib_err, bound_ms=bms, bound_by=bby,
+         gbytes=nbytes / 1e9, achieved_tb_s=nbytes / (kms * 1e-3) / 1e12)
+    del msgs, out, lib
+    torch.cuda.empty_cache()
+    return dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                bound_by=bby, max_abs_err=max(err, small_err))
+
+
+def phase_gnn(small_err: float):
+    """EGNN full-graph inference at the ogb_products shape, then the
+    molecule cell; returns (kernel measurement, launches of the
+    full-graph run)."""
+    from repro_torch.configs import get_config, get_shapes
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.models.gnn.common import FlatGraph, LocalExec
+    cfg = get_config("egnn")
+    dims = {s.name: s.dims for s in get_shapes("egnn")}
+    n, e, f = (dims["ogb_products"][k] for k in ("n_nodes", "n_edges",
+                                                 "d_feat"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = gd.make_flat_graph(n, e, f, seed=0)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    params = gd.init_model(cfg, 0, f)
+    t0 = time.perf_counter()
+    ex = LocalExec(g, GNN_CHUNK_EDGES)
+    torch.cuda.synchronize()
+    exec_s = time.perf_counter() - t0
+    deg = (ex.rowptr[1:] - ex.rowptr[:-1]).float()
+    chunks = len(ex.chunks)
+    kern = measure_segment(cfg, params, g, ex, small_err)
+
+    def forward(ex=ex):
+        logits = gd.node_logits_local(cfg, params, g, ex=ex)
+        return logits, gd._ce_sums(logits, g.labels, g.node_mask)
+
+    sops.segment_sum_csr.launches = 0
+    times, logits = [], []
+    for _ in range(1 + GNN_REPS):
+        t0 = time.perf_counter()
+        lg, sums = forward()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg)
+    launches = sops.segment_sum_csr.launches
+    check(launches == cfg.n_layers * chunks * (1 + GNN_REPS),
+          f"gnn: {launches} segment-sum launches for {1 + GNN_REPS} forwards "
+          f"of {cfg.n_layers} layers x {chunks} chunks")
+    check(tuple(lg.shape) == (n, gd.N_CLASSES)
+          and bool(torch.isfinite(lg).all())
+          and all(bool(torch.isfinite(v)) for v in sums.values())
+          and float(sums["count"]) == n, "gnn: logits or sums not finite")
+    p50 = float(np.percentile(times[1:], 50))
+    p99 = float(np.percentile(times[1:], 99))
+    prof = profile_window(forward, top=8)
+    peak = torch.cuda.max_memory_allocated()
+    line("gnn", cell="egnn-ogbn-products", model=cfg.arch_id,
+         layers=cfg.n_layers, d_hidden=cfg.d_hidden, dtype=cfg.dtype,
+         nodes=n, edges=e, d_feat=f, in_degree=dict(
+             min=float(deg.min()), mean=float(deg.mean()),
+             max=float(deg.max())),
+         data_s=data_s, exec_build_s=exec_s, chunk_edges=GNN_CHUNK_EDGES,
+         chunks=chunks, msg_block_edges=ex.block, forwards=1 + GNN_REPS,
+         forward_ms=dict(p50=p50, p99=p99, all=times),
+         edges_per_s=e / (p50 / 1e3), loss_sum=float(sums["loss_sum"]),
+         correct=float(sums["correct"]), launches=launches,
+         peak_mem_gib=peak / 2 ** 30, forward_profile=prof)
+    # (c) determinism: two forwards, and a forward with half the budget
+    same = torch.equal(logits[0], logits[-1])
+    check(same, "gnn: two full-graph forwards differ in their bits (max |d| "
+                f"{float((logits[0] - logits[-1]).abs().max())})")
+    del logits[:-1]
+    half = LocalExec(g, GNN_CHUNK_EDGES // 2)
+    half_chunks = len(half.chunks)
+    lh = forward(half)[0]
+    check(torch.equal(lh, logits[-1]),
+          "gnn: a forward with half the chunk budget differs in its bits "
+          f"(max |d| {float((lh - logits[-1]).abs().max())})")
+    del half, logits, lh
+    del ex, g
+    torch.cuda.empty_cache()
+
+    # (d) a 65,536-node copy, ~25 in-edges per node: card vs CPU
+    small = gd.make_flat_graph(65_536, 65_536 * 25, f, seed=1)
+    got = gd.node_logits_local(cfg, params, small).cpu()
+    want = gd.node_logits_local(cfg, _params_to(params, "cpu"),
+                                FlatGraph(*(t.cpu() for t in small)))
+    cpu_err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(cpu_err <= GNN_CPU_RTOL * max(1.0, scale),
+          f"gnn: 65,536-node logits, card vs CPU, differ by {cpu_err} "
+          f"(scale {scale})")
+    del small
+
+    # (e) the molecule cell: one disjoint-union graph per batch
+    md = dims["molecule"]
+    mparams = gd.init_model(cfg, 0, 4, n_out=1)
+    mb, energy = gd.make_molecule_batch(md["batch"], md["n_nodes"],
+                                        md["n_edges"], seed=0)
+    sops.segment_sum_csr.launches = 0
+    msums = gd.molecule_loss(cfg, mparams, mb, energy)
+    torch.cuda.synchronize()
+    mol_launches = sops.segment_sum_csr.launches
+    check(mol_launches == cfg.n_layers,
+          f"molecule: {mol_launches} launches for one batch of "
+          f"{cfg.n_layers} layers")
+    mp50, mp99 = host_ms(lambda: gd.molecule_loss(cfg, mparams, mb, energy),
+                         20)
+    cpu_p = _params_to(mparams, "cpu")
+    loop = 0.0
+    for b in range(md["batch"]):
+        one = FlatGraph(*(t[b].cpu() for t in mb))
+        pred = float((gd.node_logits_local(cfg, cpu_p, one)[:, 0]
+                      * one.node_mask).sum())
+        loop += (pred - float(energy[b])) ** 2
+    mol_err = abs(float(msums["loss_sum"]) - loop)
+    check(mol_err <= GNN_CPU_RTOL * max(1.0, abs(loop)),
+          f"molecule: union loss {float(msums['loss_sum'])} vs per-graph CPU "
+          f"loop {loop}")
+    line("gnn.checks", launches_per_forward=launches / (1 + GNN_REPS),
+         layers_x_chunks=cfg.n_layers * chunks, two_forwards_bitwise=True,
+         half_budget_bitwise=True, half_budget_chunks=half_chunks,
+         card_vs_cpu_65536_max_abs_logit=cpu_err, logit_scale=scale,
+         tolerance_rel=GNN_CPU_RTOL, molecule=dict(
+             cell="egnn-molecule", batch=md["batch"], n_nodes=md["n_nodes"],
+             n_edges=md["n_edges"], batch_ms_p50=mp50, batch_ms_p99=mp99,
+             launches_per_batch=mol_launches,
+             loss_sum=float(msums["loss_sum"]), cpu_loop_loss_sum=loop,
+             abs_diff=mol_err))
+    return kern, launches
+
+
 def main():
     # the port must import before anything is printed: a copy of this
     # script without the repository fails here, with nothing on stdout
@@ -720,6 +971,7 @@ def main():
             # slot histories as the RAG phase's prompts make them
             "decode": measure_decode(np.random.default_rng(13).integers(
                 132, 1601, RAG_SLOTS))}
+    small_seg_err = measure_segment_small()
     ops.probe_scan.launches = 0
     ops.shared_scan.launches = 0
     delta_cap, delta_live = phase_vector()
@@ -730,16 +982,17 @@ def main():
     check(launches["probe"] > 0 and launches["shared"] > 0,
           f"a kernel was not launched on the main path: {launches}")
     rag = phase_rag(index, corpus)
-    line("launches", vector=dict(zip(("probe", "shared"), after_vector)),
-         hybrid={"probe": launches["probe"] - after_vector[0],
-                 "shared": launches["shared"] - after_vector[1]},
-         rag=rag)
     del index, corpus
     torch.cuda.empty_cache()
     if delta_cap != 4096:
         # the delta grew at ingest: hold and time the delta kernel at the
         # size the serve_1m searches actually scanned
         kern["shared"] = measure_shared(delta_cap, delta_live)
+    kern["segment"], gnn_launches = phase_gnn(small_seg_err)
+    line("launches", vector=dict(zip(("probe", "shared"), after_vector)),
+         hybrid={"probe": launches["probe"] - after_vector[0],
+                 "shared": launches["shared"] - after_vector[1]},
+         rag=rag, gnn={"segment_sum": gnn_launches})
     src = "src/repro_torch/kernels/ivf_topk/csrc/ivf_topk.cu"
     kernels = [
         dict(name="ivf_probe_scan", route="cuda", source=src,
@@ -754,6 +1007,12 @@ def main():
              replaces="src/repro/kernels/decode_attention/"
                       "decode_attention.py:78",
              launches=rag["decode"], **kern["decode"]),
+        dict(name="segment_sum", route="cuda",
+             source="src/repro_torch/kernels/segment_reduce/csrc/"
+                    "segment_reduce.cu",
+             replaces="src/repro/kernels/segment_reduce/"
+                      "segment_reduce.py:50",
+             launches=gnn_launches, **kern["segment"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,21 @@
-"""Config registry of the port: the index's own config and the RAG LM."""
+"""Config registry of the port: the index's own config, the RAG LM and the
+EGNN node classifier."""
 from __future__ import annotations
 
 import importlib
 from typing import List, Union
 
-from repro_torch.configs.base import HMGIConfig, LMConfig, ShapeSpec
+from repro_torch.configs.base import GNNConfig, HMGIConfig, LMConfig, ShapeSpec
 
 _MODULES = {
     "hmgi": "repro_torch.configs.hmgi",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini",
+    "egnn": "repro_torch.configs.egnn",
 }
+_Config = Union[HMGIConfig, LMConfig, GNNConfig]
 
 
-def get_config(arch_id: str) -> Union[HMGIConfig, LMConfig]:
+def get_config(arch_id: str) -> _Config:
     if arch_id not in _MODULES:
         raise KeyError(f"unknown or unported arch {arch_id!r}; known: "
                        f"{sorted(_MODULES)} (the other model configs arrive "
@@ -25,7 +28,7 @@ def get_shapes(arch_id: str) -> List[ShapeSpec]:
     return importlib.import_module(_MODULES[arch_id]).SHAPES
 
 
-def smoke_config(arch_id: str) -> Union[HMGIConfig, LMConfig]:
+def smoke_config(arch_id: str) -> _Config:
     """Reduced same-family config for CPU tests (the reference's
     ``smoke_config`` widths)."""
     cfg = get_config(arch_id)
@@ -36,6 +39,12 @@ def smoke_config(arch_id: str) -> Union[HMGIConfig, LMConfig]:
         if cfg.sliding_window:
             kw.update(sliding_window=32)
         return cfg.replace(**kw)
+    if isinstance(cfg, GNNConfig):
+        return cfg.replace(n_layers=2, d_hidden=16, n_heads=2,
+                           l_max=min(cfg.l_max, 2), m_max=min(cfg.m_max, 1),
+                           n_spherical=min(cfg.n_spherical, 4),
+                           n_radial=min(cfg.n_radial, 4), n_bilinear=4,
+                           n_rbf=4)
     return cfg.replace(dim=16, modality_dims={}, n_partitions=4, n_probe=2,
                        kmeans_iters=4, delta_capacity=64, nsw_degree=4,
                        nsw_ef=8)

@@ -1,10 +1,11 @@
-"""Configurations of the port: the reference's ``HMGIConfig``, ``LMConfig``
-and ``ShapeSpec``.
+"""Configurations of the port: the reference's ``HMGIConfig``, ``LMConfig``,
+``GNNConfig`` and ``ShapeSpec``.
 
 Same field names and defaults as the JAX package (its ``ArchConfig`` base
 fields are folded into each class), so a reference config converts with
-``HMGIConfig(**dataclasses.asdict(ref_cfg))`` or
-``LMConfig(**dataclasses.asdict(ref_cfg))``. Fields the port does not act
+``HMGIConfig(**dataclasses.asdict(ref_cfg))``,
+``LMConfig(**dataclasses.asdict(ref_cfg))`` or
+``GNNConfig(**dataclasses.asdict(ref_cfg))``. Fields the port does not act
 on yet (NSW, maintenance, sharding, durability, obs; the LM's MLA, MoE and
 training knobs) are kept for that round trip; the code raises
 ``NotImplementedError`` where one of them would change behaviour (see
@@ -176,3 +177,32 @@ class LMConfig:
         total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
         total += d  # final norm
         return total
+
+
+@dataclass(frozen=True)
+class GNNConfig:
+    """A message-passing GNN. The port runs ``model="egnn"``; the DimeNet,
+    NequIP and Equiformer-v2 fields are kept for the round trip."""
+    arch_id: str = ""
+    family: str = "gnn"
+    source: str = ""
+    sharding_overrides: Dict[str, Any] = field(default_factory=dict)
+    model: str = ""              # "dimenet" | "egnn" | "nequip" | "equiformer_v2"
+    n_layers: int = 4
+    d_hidden: int = 64
+    # dimenet
+    n_bilinear: int = 8
+    n_spherical: int = 7
+    n_radial: int = 6
+    # nequip / equiformer
+    l_max: int = 2
+    m_max: int = 0               # equiformer-v2 eSCN truncation
+    n_rbf: int = 8
+    cutoff: float = 5.0
+    n_heads: int = 8
+    d_feat_in: int = 0           # input node-feature dim (0 => atom-type embed)
+    n_species: int = 32
+    dtype: str = "float32"
+
+    def replace(self, **kw) -> "GNNConfig":
+        return dataclasses.replace(self, **kw)

@@ -23,6 +23,10 @@ params with numpy leaves and returns the port's layout (see
 ``models/lm.py``): the stacked ``layers`` (leading L axis) become a list
 of per-layer dicts; ``embed``, ``final_ln`` and ``head`` are kept. With it
 both packages compute the same function.
+
+``gnn_params_from_jax(tree, device)`` takes the reference ``init_model``'s
+GNN params with numpy leaves and returns the port's, in the same layout
+(EGNN: ``enc``, ``layers[i].{phi_e,phi_x,phi_h}.{w0,b0,w1,b1}``, ``head``).
 """
 from __future__ import annotations
 
@@ -67,6 +71,8 @@ def _leaf(a, device: torch.device) -> torch.Tensor:
 def _map(node, fn):
     if isinstance(node, dict):
         return {k: _map(v, fn) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_map(v, fn) for v in node]
     return fn(node)
 
 
@@ -86,3 +92,11 @@ def lm_params_from_jax(tree: Dict[str, object], device=None) -> Dict[str, object
                                                         device))
                      for i in range(n_layers)]
     return out
+
+
+def gnn_params_from_jax(tree: Dict[str, object], device=None) -> Dict[str, object]:
+    """tree: a reference GNN ``init_model`` params dict with numpy leaves
+    (e.g. ``jax.tree.map(np.asarray, params)``). device: None = the CUDA
+    device."""
+    device = resolve_device(device, "gnn_params_from_jax")
+    return _map(tree, lambda a: _leaf(a, device))

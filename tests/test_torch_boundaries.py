@@ -24,6 +24,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.data.synthetic\n"
         "import repro_torch.serving.engine, repro_torch.models.lm\n"
         "import repro_torch.kernels.decode_attention.ops, repro_torch.obs\n"
+        "import repro_torch.kernels.segment_reduce.ops\n"
+        "import repro_torch.models.gnn.driver, repro_torch.sparse.segment\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib')) or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n")

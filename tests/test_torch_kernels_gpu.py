@@ -1,6 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
-(the IVF scans and the flash-decode kernel), and the facade on the card
-against the same index on the CPU.
+(the IVF scans, the flash-decode kernel and the segment sum), and the
+facade and the EGNN forward on the card against the same on the CPU.
 
 Every test carries the ``gpu`` marker and skips itself when
 ``torch.cuda.is_available()`` is false (decided inside the test, so every
@@ -11,7 +11,9 @@ JAX nor the reference package, so it runs on a card host without them:
 
 Tolerance of the scans: 1e-4 absolute on scores of O(1) (fp32 sums over d ≤ 384 in
 another order); the argmax may move only between rows whose scores tie to
-rounding, so at least 99% of chunk argmaxes agree.
+rounding, so at least 99% of chunk argmaxes agree. The segment sum and its
+plain version make the same fp32 adds in the same order and round once, so
+they must agree bitwise.
 """
 import numpy as np
 import pytest
@@ -197,3 +199,131 @@ def test_decode_wrapper_checks_its_inputs_on_the_card():
     for args in bad:
         with pytest.raises(ValueError):
             dops.decode_attention(*args)
+
+
+# ---------------------------------------------------------------- segment sum
+def _seg_case(g, e, n, d, dtype):
+    msg = torch.randn((e, d), device="cuda", generator=g).to(dtype)
+    ids = torch.randint(-1, n + 2, (e,), device="cuda", generator=g,
+                        dtype=torch.int32)
+    return msg, ids
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 3, 16, 64, 68, 128, 129])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_kernel_matches_plain_version(d, dtype):
+    """Unsorted ids with dropped ones (-1, >= n) and empty segments, through
+    ``segment_sum`` (perm) and ``segment_sum_csr`` on the grouped copy (no
+    perm, into rows [seg_lo, seg_lo + n) of a larger output), and a
+    misaligned message view (rows from an odd element offset)."""
+    _need_card()
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.kernels.segment_reduce.ref import (
+        csr_from_ids, segment_sum_csr_ref, segment_sum_ref)
+    g = torch.Generator(device="cuda").manual_seed(d)
+    e, n = 5000, 700
+    msg, ids = _seg_case(g, e, n, d, dtype)
+    before = sops.segment_sum_csr.launches
+    got = sops.segment_sum(msg, ids, n)
+    assert sops.segment_sum_csr.launches == before + 1
+    want = segment_sum_ref(msg, ids, n)
+    assert got.dtype == dtype and torch.equal(got, want)
+    rowptr, perm = csr_from_ids(ids, n)
+    grouped = msg[perm[:int(rowptr[-1])].long()].contiguous()
+    out = torch.full((n + 9, d), float("nan"), device="cuda", dtype=dtype)
+    sops.segment_sum_csr(grouped, rowptr, out=out, seg_lo=5)
+    assert torch.equal(out[5:5 + n], want)
+    assert bool(out[:5].isnan().all()) and bool(out[5 + n:].isnan().all())
+    flat = torch.randn(e * d + 1, device="cuda", generator=g).to(dtype)
+    odd = flat[1:].view(e, d)                     # 4 or 2 bytes off
+    assert torch.equal(sops.segment_sum_csr(odd, rowptr, perm),
+                       segment_sum_csr_ref(odd, rowptr, perm))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_kernel_edge_cases(dtype):
+    """All ids dropped, N = 1, E = 0, one 100,000-edge hub beside small
+    segments; two calls give the same bits."""
+    _need_card()
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.kernels.segment_reduce.ref import segment_sum_ref
+    g = torch.Generator(device="cuda").manual_seed(11)
+    msg = torch.randn((3000, 68), device="cuda", generator=g).to(dtype)
+    dropped = torch.full((3000,), -1, device="cuda", dtype=torch.int32)
+    dropped[::2] = 40
+    assert bool((sops.segment_sum(msg, dropped, 40) == 0).all())
+    one = torch.zeros(3000, device="cuda", dtype=torch.int32)
+    assert torch.equal(sops.segment_sum(msg, one, 1),
+                       segment_sum_ref(msg, one, 1))
+    empty = sops.segment_sum(msg[:0], one[:0], 7)
+    assert empty.shape == (7, 68) and bool((empty == 0).all())
+    hub_msg = torch.randn((100_000 + 3000, 68), device="cuda",
+                          generator=g).to(dtype)
+    hub_ids = torch.randint(0, 500, (103_000,), device="cuda", generator=g,
+                            dtype=torch.int32)
+    hub_ids[torch.randperm(103_000, device="cuda", generator=g)[:100_000]] = 7
+    a = sops.segment_sum(hub_msg, hub_ids, 500)
+    b = sops.segment_sum(hub_msg, hub_ids, 500)
+    assert torch.equal(a, b)
+    assert torch.equal(a, segment_sum_ref(hub_msg, hub_ids, 500))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_segment_wrapper_refuses_what_the_kernel_cannot_take():
+    """ValueError, no launch, and never the plain version's answer."""
+    _need_card()
+    from repro_torch.kernels.segment_reduce import ops as sops
+    msg = torch.ones((8, 4), device="cuda")
+    ids = torch.zeros(8, device="cuda", dtype=torch.int32)
+    rowptr = torch.tensor([0, 8], device="cuda", dtype=torch.int32)
+    huge = torch.zeros((1, 1), device="cuda").expand(2 ** 31, 1)
+    bad = [
+        lambda: sops.segment_sum(msg.half(), ids, 1),            # fp16
+        lambda: sops.segment_sum(msg.double(), ids, 1),          # fp64
+        lambda: sops.segment_sum_csr(torch.ones((4, 8), device="cuda").T,
+                                     rowptr),                    # strided
+        lambda: sops.segment_sum(huge, ids[:1].expand(2 ** 31),
+                                 1),                             # E >= 2^31
+        lambda: sops.segment_sum_csr(huge, rowptr),
+        lambda: sops.segment_sum_csr(msg, rowptr.long()),        # int64
+        lambda: sops.segment_sum_csr(msg, rowptr.cpu()),         # CPU rowptr
+        lambda: sops.segment_sum_csr(msg, rowptr,
+                                     out=torch.empty((1, 5), device="cuda")),
+    ]
+    before = sops.segment_sum_csr.launches
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert sops.segment_sum_csr.launches == before
+
+
+@pytest.mark.gpu
+def test_egnn_forward_on_the_card_matches_the_cpu():
+    """Full-width EGNN on a 3,000-node graph: card (kernel in every layer,
+    one launch per chunk) against the same weights on the CPU, and
+    bitwise equal across chunk budgets on the card."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.models.gnn.common import LocalExec
+    cfg = get_config("egnn")
+    g = gd.make_flat_graph(3000, 75_000, 100, seed=1)
+    params = gd.init_model(cfg, 0, 100)
+    ex = LocalExec(g, 20_000)
+    before = sops.segment_sum_csr.launches
+    got = gd.node_logits_local(cfg, params, g, ex=ex)
+    assert sops.segment_sum_csr.launches == before + cfg.n_layers * len(ex.chunks)
+    assert torch.equal(got, gd.node_logits_local(cfg, params, g,
+                                                 ex=LocalExec(g, 10_000)))
+    cpu_g = type(g)(*(t.cpu() for t in g))
+    cpu_p = {k: ([{m: {n: t.cpu() for n, t in mp.items()}
+                   for m, mp in lp.items()} for lp in v]
+                 if k == "layers" else v.cpu()) for k, v in params.items()}
+    want = gd.node_logits_local(cfg, cpu_p, cpu_g)
+    assert (got.cpu() - want).abs().max().item() <= 1e-3 * max(
+        1.0, want.abs().max().item())
