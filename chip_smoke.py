@@ -13,9 +13,13 @@ Phases (each prints one line; any failure exits non-zero):
   3. kernels  — each kernel against its plain PyTorch version at the main
                 paths' shapes, then timed (CUDA events, L2 flushed between
                 launches) beside its bound, the plain version and a
-                library call. The delta kernel is measured again after
+                library call. The two scans also run skewed probes (the
+                probe scan), equal their limb emulation bitwise on 16
+                queries, and give 8 queries the same bits alone as in the
+                batch of 256. The delta kernel is measured again after
                 phase 4 at the delta size those searches scanned, when
-                ingest overflow grew the delta.
+                ingest overflow grew the delta, and the whole delta scan
+                (_scan_delta) is timed there at chunk 1 and chunk 16.
   4. vector   — ingest → search → filtered search → update → delete at the
                 serve_1m shape (1,048,576 × 384, batch 256), recall@10
                 against an exact top-10 computed on the card, and 16
@@ -66,8 +70,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # published H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3 bandwidth
+# cores, dense int8 on the tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_TC_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 VEC_N, HYB_N, DIM, BATCH = 1_048_576, 131_072, 384, 256
 # the hybrid phase's ingest runs the reference's host Louvain sweep, about
@@ -110,18 +115,19 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def cuda_ms(fn, reps: int, flush=None) -> float:
+def cuda_ms(fn, reps: int, flush=None, sleep_cycles: int = 1_000_000) -> float:
     """Median per-call device time of ``fn`` over ``reps`` calls (after one
     warm-up), with ``flush`` run outside the timed window before each. A
-    ~0.5 ms device sleep is queued before the start event, so the host
-    time that ``fn`` spends before its launches (Python, argument checks)
-    overlaps the sleep and is not counted as device time."""
+    device sleep (~0.5 ms by default) is queued before the start event, so
+    the host time that ``fn`` spends queueing its launches (Python,
+    argument checks) overlaps the sleep and is not counted as device time;
+    a function that queues many launches needs a longer one."""
     fn()
     times = []
     for _ in range(reps):
         if flush is not None:
             flush()
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(sleep_cycles)
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
@@ -172,8 +178,10 @@ def profile_window(fn, top: int = 6) -> dict:
             "idle_share": max(0.0, 1.0 - busy / wall)}
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    """(ms, "operations" | "bytes"): the larger of the operations over
+    ``peak`` and the bytes over HBM bandwidth."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -209,7 +217,8 @@ def phase_device():
 
 
 def _ptxas_report(log: str, entry_re: str):
-    """One "<instantiation>: <registers> regs, <spill line>" per kernel."""
+    """One "<instantiation>: <registers> regs, <static smem> B smem, <spill
+    line>" per kernel."""
     out, entry, spills = [], "", ""
     for ln in log.splitlines():
         if "Compiling entry" in ln:
@@ -220,8 +229,9 @@ def _ptxas_report(log: str, entry_re: str):
             spills = ln.strip()
         elif "registers" in ln:
             regs = re.search(r"Used (\d+) registers", ln)
+            smem = re.search(r"(\d+) bytes smem", ln)
             out.append(f"{entry}: {regs.group(1) if regs else '?'} regs, "
-                       f"{spills}")
+                       f"{smem.group(1) if smem else 0} B smem, {spills}")
     return out
 
 
@@ -239,10 +249,12 @@ def phase_build():
     secs, log = _build.build_log["ivf_topk"]
     dsecs, dlog = _build.build_log["decode_attention"]
     ssecs, slog = _build.build_log["segment_reduce"]
-    # scans: "<16-byte vectors per thread>/<row map>" (d = 384 runs the
-    # 3-vector instantiations); decode: "<kernel>/<dtype>/<hd>[/<G>]"
-    # (phi4-mini's tick runs split/bfloat16/128/3 and combine/bfloat16/128)
-    ptxas = _ptxas_report(log, r"scan_kernelILi(\d+)ENS_\d+(\w+?)E")
+    # scans: "<chunk reduced in registers>" (1, 2, 4, 8, 16, 32; 0: through
+    # shared memory; the probe path runs 16, the delta 1; the
+    # dynamic shared memory of a launch is in the kernel lines);
+    # decode: "<kernel>/<dtype>/<hd>[/<G>]" (phi4-mini's tick runs
+    # split/bfloat16/128/3 and combine/bfloat16/128)
+    ptxas = _ptxas_report(log, r"scan_mma_kernelILi(\d+)E")
     dptxas = _ptxas_report(
         dlog, r"decode_(split|combine)_kernelI(?:13__nv_)?(f|bfloat16)Li(\d+)"
               r"E(?:Li(\d+)E)?")
@@ -279,9 +291,40 @@ def _flush_and_queries(seed: int):
     return gen, flush_buf.zero_, q          # zero_: 256 MB > the 50 MB L2
 
 
+SCAN_ROUTE = ("cuda: mma.sync.m16n8k32 s8 x s8 -> s32 (ldmatrix), rows by "
+              "TMA bulk copy, query limbs by cp.async")
+
+
+def scan_bounds(q_rows: float, d: int, nbytes: float):
+    """The scans' bounds for q_rows (query, row) scores of width d: the
+    int8 tensor-core operations of the L limb passes (the kernels' work)
+    and, beside it, the fp32 figure of earlier runs (one pass on CUDA
+    cores)."""
+    from repro_torch.kernels.ivf_topk import ops
+    bms, bby = bound(2.0 * ops.N_LIMBS * q_rows * d, nbytes, PEAK_INT8_TC_OPS)
+    fp32_ms, fp32_by = bound(2.0 * q_rows * d, nbytes)
+    return bms, bby, fp32_ms, fp32_by
+
+
+def batch_independent(scan, args, sel) -> bool:
+    """The rows ``sel`` of a batch's outputs have the bits of the same
+    queries scanned alone (args[0], args[1] are queries and qsum; args[6]
+    the probes, when there are)."""
+    big = scan(*args)
+    small_args = list(args)
+    for i in (0, 1) + ((6,) if len(args) > 7 else ()):
+        small_args[i] = args[i][sel].contiguous()
+    small = scan(*small_args)
+    torch.cuda.synchronize()
+    return all(torch.equal(b[sel], s_) for b, s_ in zip(big, small))
+
+
 def measure_probe() -> dict:
     """ivf_probe_scan against its plain version at serve_1m: Q=256, d=384,
-    K=64, cap=32,769, n_probe=8, on a seeded slab of that shape."""
+    K=64, cap=32,769, n_probe=8, on a seeded slab of that shape; the same
+    with skewed probes (all queries on 8 hot partitions); 8 queries alone
+    against the batch (bitwise); 16 queries against the limb emulation
+    (bitwise)."""
     from repro_torch.kernels.ivf_topk import ops, ref
     gen, flush, q = _flush_and_queries(0)
     k_parts, cap, n_probe, chunk = 64, 32_769, 8, 16
@@ -293,21 +336,46 @@ def measure_probe() -> dict:
     probes = torch.argsort(torch.rand((BATCH, k_parts), device="cuda",
                                       generator=gen), dim=1)[:, :n_probe]
     probes = probes.to(torch.int32).contiguous()
+    hot = torch.argsort(torch.rand((BATCH, n_probe), device="cuda",
+                                   generator=gen), dim=1)
+    skewed = (hot * 5 + 3).to(torch.int32).contiguous()   # partitions 3..38
+    checks = {}
+    for name, pr in (("uniform", probes), ("skewed", skewed)):
+        args = (q, qsum, slab, aff, scale, bias, pr, cap, chunk)
+        km, ka = ops.probe_scan(*args)
+        pm, pa = ref.probe_scan(*args)
+        torch.cuda.synchronize()
+        err = float((km - pm).abs().max())
+        arg_eq = float((ka == pa).float().mean())
+        check(err <= SCORE_ATOL, f"probe_scan ({name} probes) max |d score| "
+                                 f"{err} > {SCORE_ATOL}")
+        check(arg_eq >= 0.999, f"probe_scan ({name} probes) argmax agreement "
+                               f"{arg_eq}")
+        checks[name] = dict(max_abs_err=err, argmax_agreement=arg_eq)
+        del pm, pa
     args = (q, qsum, slab, aff, scale, bias, probes, cap, chunk)
-    km, ka = ops.probe_scan(*args)
-    pm, pa = ref.probe_scan(*args)
+    sel = torch.arange(100, 108, device="cuda")
+    check(batch_independent(ops.probe_scan, args, sel),
+          "probe_scan: 8 queries alone differ from the batch in their bits")
+    few = torch.arange(16, device="cuda")
+    km, ka = ops.probe_scan(q[few].contiguous(), qsum[few].contiguous(), slab,
+                            aff, scale, bias, probes[few].contiguous(), cap,
+                            chunk)
+    limbs, qstep = ops.query_limbs(q[few].contiguous())
+    em, ea = ref.probe_scan_limbs(limbs, qstep, qsum[few], slab, aff, scale,
+                                  bias, probes[few], cap, chunk)
     torch.cuda.synchronize()
-    err = float((km - pm).abs().max())
-    arg_eq = float((ka == pa).float().mean())
-    check(err <= SCORE_ATOL, f"probe_scan max |d score| {err} > {SCORE_ATOL}")
-    check(arg_eq >= 0.999, f"probe_scan argmax agreement {arg_eq}")
+    check(torch.equal(km, em) and torch.equal(ka, ea),
+          "probe_scan differs from its limb emulation")
     m = n_probe * cap
+    nchp = -(-cap // chunk)
     distinct = int(torch.unique(probes).numel())
-    flops = 2.0 * BATCH * m * DIM
-    nbytes = (distinct * cap * (DIM + 12) + BATCH * DIM * 4 + BATCH * n_probe * 4
-              + 2 * BATCH * (-(-m // chunk)) * 4)
-    bms, bby = bound(flops, nbytes)
+    nbytes = (distinct * cap * (DIM + 12) + BATCH * DIM * 4 + BATCH * 4
+              + BATCH * n_probe * 4 + 2 * BATCH * n_probe * nchp * 4)
+    bms, bby, fp32_ms, fp32_by = scan_bounds(BATCH * m, DIM, nbytes)
     kms = cuda_ms(lambda: ops.probe_scan(*args), 20, flush)
+    skewed_ms = cuda_ms(lambda: ops.probe_scan(
+        q, qsum, slab, aff, scale, bias, skewed, cap, chunk), 20, flush)
     pms = cuda_ms(lambda: ref.probe_scan(*args), 2, flush)
     # library yardstick: the same dot products as one batched torch.matmul
     # over the already-dequantized fp32 slab, queries grouped by probed
@@ -322,19 +390,29 @@ def measure_probe() -> dict:
         qg[p, :len(who)] = q[who]
     deq_t = deq.transpose(1, 2)
     lms = cuda_ms(lambda: torch.matmul(qg, deq_t), 10, flush)
+    err = max(c["max_abs_err"] for c in checks.values())
     line("kernel.probe_scan", shape=dict(Q=BATCH, d=DIM, K=k_parts, cap=cap,
                                          n_probe=n_probe, chunk=chunk),
-         max_abs_err=err, argmax_agreement=arg_eq, ms=kms, plain_ms=pms,
+         route=SCAN_ROUTE, limbs=ops.N_LIMBS,
+         plan=ops.scan_plan(DIM, chunk, cap, BATCH * n_probe, k_parts),
+         checks=checks,
+         batch_independent_bitwise=True, limb_emulation_bitwise=True,
+         ms=kms, skewed_ms=skewed_ms, plain_ms=pms,
          library_ms=lms, library="torch.matmul (K,%d,d)x(K,d,cap) fp32, "
          "dequantized slab, queries grouped by partition" % width,
-         bound_ms=bms, bound_by=bby, gflop=flops / 1e9, distinct_probed=distinct)
+         bound_ms=bms, bound_by=bby, bound_fp32_ms=fp32_ms,
+         bound_fp32_by=fp32_by, share_of_bound=bms / kms,
+         gop_int8=2.0 * ops.N_LIMBS * BATCH * m * DIM / 1e9,
+         gbytes=nbytes / 1e9, distinct_probed=distinct)
     return dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
                 bound_by=bby, max_abs_err=err)
 
 
 def measure_shared(n: int, live_frac: float) -> dict:
     """ivf_shared_scan against its plain version: the delta scan, Q=256,
-    N=n rows (live_frac of them live), d=384, chunk=1."""
+    N=n rows (live_frac of them live), d=384, at chunk 1 (the delta
+    path's; row indices equal) and at chunk 16; 8 queries alone against
+    the batch and 16 against the limb emulation (bitwise)."""
     from repro_torch.kernels.ivf_topk import ops, ref
     gen, flush, q = _flush_and_queries(1)
     qsum = q.sum(dim=1)
@@ -349,19 +427,85 @@ def measure_shared(n: int, live_frac: float) -> dict:
     err = float((km - pm).abs().max())
     check(err <= SCORE_ATOL, f"shared_scan max |d score| {err} > {SCORE_ATOL}")
     check(bool((ka == pa).all()), "shared_scan row indices differ (chunk=1)")
-    flops = 2.0 * BATCH * n * DIM
-    nbytes = n * (DIM + 12) + BATCH * DIM * 4 + 2 * BATCH * n * 4
-    bms, bby = bound(flops, nbytes)
+    chunk = 16
+    cargs = (q, qsum, data, aff, scale, bias, chunk)
+    km, ka = ops.shared_scan(*cargs)
+    pm, pa = ref.shared_scan(*cargs)
+    torch.cuda.synchronize()
+    cerr = float((km - pm).abs().max())
+    carg_eq = float((ka == pa).float().mean())
+    check(cerr <= SCORE_ATOL and carg_eq >= 0.999,
+          f"shared_scan (chunk {chunk}) max |d score| {cerr}, argmax "
+          f"agreement {carg_eq}")
+    sel = torch.arange(40, 48, device="cuda")
+    check(batch_independent(ops.shared_scan, args, sel),
+          "shared_scan: 8 queries alone differ from the batch in their bits")
+    few = torch.arange(16, device="cuda")
+    km, ka = ops.shared_scan(q[few].contiguous(), qsum[few].contiguous(),
+                             data, aff, scale, bias, 1)
+    limbs, qstep = ops.query_limbs(q[few].contiguous())
+    em, ea = ref.shared_scan_limbs(limbs, qstep, qsum[few], data, aff, scale,
+                                   bias, 1)
+    torch.cuda.synchronize()
+    check(torch.equal(km, em) and torch.equal(ka, ea),
+          "shared_scan differs from its limb emulation")
+    nbytes = (n * (DIM + 12) + BATCH * DIM * 4 + BATCH * 4
+              + 2 * BATCH * n * 4)
+    bms, bby, fp32_ms, fp32_by = scan_bounds(BATCH * n, DIM, nbytes)
     kms = cuda_ms(lambda: ops.shared_scan(*args), 50, flush)
+    chunk_ms = cuda_ms(lambda: ops.shared_scan(*cargs), 50, flush)
     pms = cuda_ms(lambda: ref.shared_scan(*args), 20, flush)
     deq_t = ((data.to(torch.float32) + 128.0) * scale[:, None] + vmin[:, None]).T
     lms = cuda_ms(lambda: torch.matmul(q, deq_t), 50, flush)
     line("kernel.shared_scan", shape=dict(Q=BATCH, N=n, d=DIM, chunk=1),
-         live_frac=live_frac, max_abs_err=err, ms=kms, plain_ms=pms,
-         library_ms=lms, library="torch.matmul (Q,d)x(d,N) fp32, dequantized rows",
-         bound_ms=bms, bound_by=bby, gflop=flops / 1e9)
+         live_frac=live_frac, route=SCAN_ROUTE, limbs=ops.N_LIMBS,
+         plan=ops.scan_plan(DIM, 1, n, BATCH), max_abs_err=err,
+         batch_independent_bitwise=True, limb_emulation_bitwise=True,
+         ms=kms, plain_ms=pms, library_ms=lms,
+         library="torch.matmul (Q,d)x(d,N) fp32, dequantized rows",
+         bound_ms=bms, bound_by=bby, bound_fp32_ms=fp32_ms,
+         bound_fp32_by=fp32_by, share_of_bound=bms / kms,
+         gop_int8=2.0 * ops.N_LIMBS * BATCH * n * DIM / 1e9,
+         gbytes=nbytes / 1e9,
+         at_chunk16=dict(chunk=chunk, ms=chunk_ms, max_abs_err=cerr,
+                             argmax_agreement=carg_eq,
+                             plan=ops.scan_plan(DIM, chunk, n, BATCH)))
     return dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
-                bound_by=bby, max_abs_err=err)
+                bound_by=bby, max_abs_err=max(err, cerr))
+
+
+def measure_scan_delta(n: int, live_frac: float) -> dict:
+    """The whole delta scan (core/delta._scan_delta: kernel, top-k, exact
+    rescore) at Q 256 over a delta of n slots (live_frac live), k 10 +
+    margin 16, at chunk 1 and chunk 16 in turns (1, 16, 16, 1); both
+    must give the same results."""
+    from repro_torch.core import delta as pdelta
+    gen, flush, q = _flush_and_queries(2)
+    n_live = int(n * live_frac)
+    vecs = torch.randn((n_live, DIM), device="cuda", generator=gen)
+    vecs /= vecs.norm(dim=1, keepdim=True)
+    ids = torch.randperm(2 * n, device="cuda", generator=gen)[:n_live]
+    store = pdelta.insert(pdelta.init(n, DIM, 2 * n, device="cuda"), vecs,
+                          ids.to(torch.int32))
+    default = pdelta._DELTA_CHUNK
+    res, times = {}, {1: [], 16: []}
+    try:
+        for chunk in (1, 16, 16, 1):
+            pdelta._DELTA_CHUNK = chunk
+            fn = lambda: pdelta._scan_delta(store, q, k=10, margin=16)
+            res.setdefault(chunk, fn())
+            # ~11 ms of device sleep: the function queues ~40 launches
+            times[chunk].append(cuda_ms(fn, 20, flush, sleep_cycles=20_000_000))
+            times[chunk].append(host_ms(fn, 20)[0])
+    finally:
+        pdelta._DELTA_CHUNK = default
+    same = all(torch.equal(a, b) for a, b in zip(res[1], res[16]))
+    check(same, "_scan_delta: chunk 1 and chunk 16 give other results")
+    out = {f"chunk{c}": dict(device_ms=v[0::2], host_p50_ms=v[1::2])
+           for c, v in times.items()}
+    line("delta.scan", Q=BATCH, N=n, live=n_live, k=10, margin=16,
+         default_chunk=default, same_results=True, **out)
+    return out
 
 
 def cpu_copy(index):
@@ -988,6 +1132,7 @@ def main():
         # the delta grew at ingest: hold and time the delta kernel at the
         # size the serve_1m searches actually scanned
         kern["shared"] = measure_shared(delta_cap, delta_live)
+    measure_scan_delta(delta_cap, delta_live)
     kern["segment"], gnn_launches = phase_gnn(small_seg_err)
     line("launches", vector=dict(zip(("probe", "shared"), after_vector)),
          hybrid={"probe": launches["probe"] - after_vector[0],

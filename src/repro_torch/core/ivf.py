@@ -12,9 +12,10 @@ partition ``p`` is the contiguous row block [p·cap, (p+1)·cap).
 
 ``impl`` selects the path: "kernel" (int8 indexes) hands the flat slab and
 each query's probe list to the probe-scan kernel (``kernels/ivf_topk``),
-which reads the probed rows in place — no per-query gather of rows, no
-dequantization in memory — and reduces them to per-chunk survivors that an
-exact rescore turns into the exact top-k. "einsum" is the fp32
+which reads each probed partition in place once for all the queries that
+probe it — no per-query gather of rows, no dequantization in memory — and
+reduces them to per-chunk survivors (chunks cut at every probe's partition
+end) that an exact rescore turns into the exact top-k. "einsum" is the fp32
 dequant-then-einsum path kept for 4/16-bit storage and as a baseline;
 "auto" takes the kernel whenever bits == 8.
 
@@ -34,7 +35,7 @@ from repro_torch.core.quantization import _unpack4, quantize
 from repro_torch.kernels.ivf_topk.ops import scan_topk_probe
 from repro_torch.kernels.ivf_topk.ref import NEG, pad_topk
 
-# probe-path survivors: the max of every 16 consecutive rows
+# probe-path survivors: the max of every 16 consecutive rows of a partition
 _CHUNK = 16
 
 

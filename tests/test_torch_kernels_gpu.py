@@ -9,9 +9,12 @@ JAX nor the reference package, so it runs on a card host without them:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerance of the scans: 1e-4 absolute on scores of O(1) (fp32 sums over d ≤ 384 in
-another order); the argmax may move only between rows whose scores tie to
-rounding, so at least 99% of chunk argmaxes agree. The segment sum and its
+Tolerance of the scans against their fp32 plain versions: 1e-4 absolute on
+scores of O(1) (the int8 limb split of the query is within ~3e-6 at
+d = 384, and fp32 sums run in another order); the argmax may move only
+between rows whose scores tie to rounding, so at least 99% of chunk
+argmaxes agree. Against the plain emulation of their limb arithmetic
+(``ref.*_scan_limbs``) the scans agree bitwise. The segment sum and its
 plain version make the same fp32 adds in the same order and round once, so
 they must agree bitwise.
 """
@@ -69,6 +72,142 @@ def test_cuda_kernels_match_plain_versions(d, chunk):
     torch.cuda.synchronize()
     assert (km - pm).abs().max().item() <= 1e-4
     assert (ka == pa).float().mean().item() >= 0.99
+
+
+def _probe_args(g, nq, d, k_parts, cap, n_probe, chunk, probes=None):
+    slab, aff, scale, bias = _case(g, d, k_parts * cap)
+    q = torch.randn(nq, d, device="cuda", generator=g)
+    if probes is None:
+        probes = torch.argsort(torch.rand(nq, k_parts, device="cuda",
+                                          generator=g), 1)[:, :n_probe]
+    return (q, q.sum(1), slab, aff, scale, bias,
+            probes.int().contiguous(), cap, chunk)
+
+
+def _assert_match(kern, plain):
+    (km, ka), (pm, pa) = kern, plain
+    torch.cuda.synchronize()
+    assert km.shape == pm.shape
+    assert (km - pm).abs().max().item() <= 1e-4
+    assert (ka == pa).float().mean().item() >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,chunk", [(384, 16), (384, 1), (33, 16),
+                                     (1280, 16)])
+def test_cuda_kernels_equal_the_limb_emulation_bitwise(d, chunk):
+    """The kernels compute exactly the limb arithmetic of
+    ``ref.*_scan_limbs`` (exact int32 sums, the same fp32 combination and
+    affine steps), so their outputs have the same bits; d = 1280 is the
+    widest modality of configs/hmgi.py."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(d + chunk)
+    args = _probe_args(g, 12, d, 6, 300, 3, chunk)
+    q, qs, slab, aff, scale, bias, probes, cap, _ = args
+    limbs, s = ops.query_limbs(q)
+    km, ka = ops.probe_scan(*args)
+    em, ea = ref.probe_scan_limbs(limbs, s, qs, slab, aff, scale, bias, probes,
+                                  cap, chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(km, em) and torch.equal(ka, ea)
+    _assert_match((km, ka), ref.probe_scan(*args))
+    km, ka = ops.shared_scan(q, qs, slab, aff, scale, bias, chunk)
+    em, ea = ref.shared_scan_limbs(limbs, s, qs, slab, aff, scale, bias, chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(km, em) and torch.equal(ka, ea)
+    _assert_match((km, ka), ref.shared_scan(q, qs, slab, aff, scale, bias,
+                                            chunk))
+
+
+@pytest.mark.gpu
+def test_cuda_scans_are_batch_independent_bitwise():
+    """8 queries give the same bits alone as inside a batch of 256 (their
+    pairs then share partitions, groups and tiles with other queries)."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(256)
+    args = _probe_args(g, 256, 384, 16, 1000, 4, 16)
+    q, qs, slab, aff, scale, bias, probes, cap, chunk = args
+    sel = torch.arange(40, 48, device="cuda")
+    big = ops.probe_scan(*args)
+    small = ops.probe_scan(q[sel].contiguous(), qs[sel].contiguous(), slab,
+                           aff, scale, bias, probes[sel].contiguous(), cap,
+                           chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(big[0][sel], small[0])
+    assert torch.equal(big[1][sel], small[1])
+    big = ops.shared_scan(q, qs, slab, aff, scale, bias, 1)
+    small = ops.shared_scan(q[sel].contiguous(), qs[sel].contiguous(), slab,
+                            aff, scale, bias, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(big[0][sel], small[0])
+    assert torch.equal(big[1][sel], small[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["one_each", "all_one", "repeated"])
+def test_cuda_probe_scan_skewed_probes(layout):
+    """Skewed probe lists: every query probes one partition (some probed by
+    nobody); every query probes partition 3 only; a partition repeated in
+    a query's probe row."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    nq, k_parts = 64, 16
+    if layout == "one_each":
+        probes = (torch.arange(nq, device="cuda") % 5 * 3)[:, None]
+    elif layout == "all_one":
+        probes = torch.full((nq, 2), 3, device="cuda")
+    else:
+        probes = torch.tensor([[1, 4, 1]] * nq, device="cuda")
+    args = _probe_args(g, nq, 96, k_parts, 129, 0, 16, probes=probes)
+    _assert_match(ops.probe_scan(*args), ref.probe_scan(*args))
+
+
+@pytest.mark.gpu
+def test_cuda_scans_zero_query_row():
+    """A zero query row: step 0, all limbs 0, scores qsum·aff + bias = 0 +
+    bias for that row, as in the plain versions."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    args = list(_probe_args(g, 6, 64, 4, 50, 2, 16))
+    args[0][2] = 0.0
+    args[1] = args[0].sum(1)
+    _assert_match(ops.probe_scan(*args), ref.probe_scan(*args))
+    q, qs, slab, aff, scale, bias = args[:6]
+    _assert_match(ops.shared_scan(q, qs, slab, aff, scale, bias, 16),
+                  ref.shared_scan(q, qs, slab, aff, scale, bias, 16))
+
+
+@pytest.mark.gpu
+def test_cuda_probe_topk_row_in_last_partial_chunk():
+    """cap % chunk != 0 and every query's best row in its probe's last,
+    partial chunk: scan_topk_probe on the card returns it first, and the
+    same top-k as on the CPU."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    nq, d, k_parts, cap, n_probe = 15, 64, 8, 47, 3     # 47 = 2·16 + 15
+    q = torch.randn(nq, d, device="cuda", generator=g)
+    q /= q.norm(dim=1, keepdim=True)
+    slab = torch.randint(-128, 128, (k_parts * cap, d), dtype=torch.int8,
+                         device="cuda", generator=g)
+    scale = torch.full((k_parts * cap,), 1e-3, device="cuda")
+    vmin = -0.128 * torch.ones(k_parts * cap, device="cuda")
+    probes = torch.argsort(torch.rand(nq, k_parts, device="cuda", generator=g),
+                           1)[:, :n_probe].int().contiguous()
+    want = []
+    for i in range(nq):
+        j = i % n_probe
+        r = int(probes[i, j]) * cap + 32 + i        # one row per query
+        slab[r] = (q[i] * 127 / q[i].abs().max()).round().to(torch.int8)
+        scale[r], vmin[r] = 0.05, -128 * 0.05       # dequantizes to code·0.05
+        want.append(j * cap + 32 + i)
+    bias = torch.zeros(k_parts * cap, device="cuda")
+    gv, gr = ops.scan_topk_probe(q, slab, vmin, scale, bias, probes, cap, k=10)
+    cv, cr = ops.scan_topk_probe(*(t.cpu() for t in (q, slab, vmin, scale,
+                                                     bias, probes)), cap, k=10)
+    torch.cuda.synchronize()
+    assert gr[:, 0].tolist() == want
+    assert (gv.cpu() - cv).abs().max().item() <= 1e-4
+    assert (gr.cpu() == cr).float().mean().item() >= 0.98
 
 
 @pytest.mark.gpu
