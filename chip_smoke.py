@@ -18,8 +18,7 @@ Phases (each prints one line; any failure exits non-zero):
                 queries, and give 8 queries the same bits alone as in the
                 batch of 256. The delta kernel is measured again after
                 phase 4 at the delta size those searches scanned, when
-                ingest overflow grew the delta, and the whole delta scan
-                (_scan_delta) is timed there at chunk 1 and chunk 16.
+                ingest overflow grew the delta.
   4. vector   — ingest → search → filtered search → update → delete at the
                 serve_1m shape (1,048,576 × 384, batch 256), recall@10
                 against an exact top-10 computed on the card, and 16
@@ -115,19 +114,18 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def cuda_ms(fn, reps: int, flush=None, sleep_cycles: int = 1_000_000) -> float:
+def cuda_ms(fn, reps: int, flush=None) -> float:
     """Median per-call device time of ``fn`` over ``reps`` calls (after one
     warm-up), with ``flush`` run outside the timed window before each. A
-    device sleep (~0.5 ms by default) is queued before the start event, so
-    the host time that ``fn`` spends queueing its launches (Python,
-    argument checks) overlaps the sleep and is not counted as device time;
-    a function that queues many launches needs a longer one."""
+    ~0.5 ms device sleep is queued before the start event, so the host
+    time that ``fn`` spends before its launches (Python, argument checks)
+    overlaps the sleep and is not counted as device time."""
     fn()
     times = []
     for _ in range(reps):
         if flush is not None:
             flush()
-        torch.cuda._sleep(sleep_cycles)
+        torch.cuda._sleep(1_000_000)
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
@@ -250,8 +248,7 @@ def phase_build():
     dsecs, dlog = _build.build_log["decode_attention"]
     ssecs, slog = _build.build_log["segment_reduce"]
     # scans: "<chunk reduced in registers>" (1, 2, 4, 8, 16, 32; 0: through
-    # shared memory; the probe path runs 16, the delta 1; the
-    # dynamic shared memory of a launch is in the kernel lines);
+    # shared memory; the probe path runs 16, the delta 1);
     # decode: "<kernel>/<dtype>/<hd>[/<G>]" (phi4-mini's tick runs
     # split/bfloat16/128/3 and combine/bfloat16/128)
     ptxas = _ptxas_report(log, r"scan_mma_kernelILi(\d+)E")
@@ -394,7 +391,6 @@ def measure_probe() -> dict:
     line("kernel.probe_scan", shape=dict(Q=BATCH, d=DIM, K=k_parts, cap=cap,
                                          n_probe=n_probe, chunk=chunk),
          route=SCAN_ROUTE, limbs=ops.N_LIMBS,
-         plan=ops.scan_plan(DIM, chunk, cap, BATCH * n_probe, k_parts),
          checks=checks,
          batch_independent_bitwise=True, limb_emulation_bitwise=True,
          ms=kms, skewed_ms=skewed_ms, plain_ms=pms,
@@ -410,9 +406,9 @@ def measure_probe() -> dict:
 
 def measure_shared(n: int, live_frac: float) -> dict:
     """ivf_shared_scan against its plain version: the delta scan, Q=256,
-    N=n rows (live_frac of them live), d=384, at chunk 1 (the delta
-    path's; row indices equal) and at chunk 16; 8 queries alone against
-    the batch and 16 against the limb emulation (bitwise)."""
+    N=n rows (live_frac of them live), d=384, chunk=1 (row indices
+    equal); 8 queries alone against the batch and 16 against the limb
+    emulation (bitwise)."""
     from repro_torch.kernels.ivf_topk import ops, ref
     gen, flush, q = _flush_and_queries(1)
     qsum = q.sum(dim=1)
@@ -427,16 +423,6 @@ def measure_shared(n: int, live_frac: float) -> dict:
     err = float((km - pm).abs().max())
     check(err <= SCORE_ATOL, f"shared_scan max |d score| {err} > {SCORE_ATOL}")
     check(bool((ka == pa).all()), "shared_scan row indices differ (chunk=1)")
-    chunk = 16
-    cargs = (q, qsum, data, aff, scale, bias, chunk)
-    km, ka = ops.shared_scan(*cargs)
-    pm, pa = ref.shared_scan(*cargs)
-    torch.cuda.synchronize()
-    cerr = float((km - pm).abs().max())
-    carg_eq = float((ka == pa).float().mean())
-    check(cerr <= SCORE_ATOL and carg_eq >= 0.999,
-          f"shared_scan (chunk {chunk}) max |d score| {cerr}, argmax "
-          f"agreement {carg_eq}")
     sel = torch.arange(40, 48, device="cuda")
     check(batch_independent(ops.shared_scan, args, sel),
           "shared_scan: 8 queries alone differ from the batch in their bits")
@@ -453,59 +439,21 @@ def measure_shared(n: int, live_frac: float) -> dict:
               + 2 * BATCH * n * 4)
     bms, bby, fp32_ms, fp32_by = scan_bounds(BATCH * n, DIM, nbytes)
     kms = cuda_ms(lambda: ops.shared_scan(*args), 50, flush)
-    chunk_ms = cuda_ms(lambda: ops.shared_scan(*cargs), 50, flush)
     pms = cuda_ms(lambda: ref.shared_scan(*args), 20, flush)
     deq_t = ((data.to(torch.float32) + 128.0) * scale[:, None] + vmin[:, None]).T
     lms = cuda_ms(lambda: torch.matmul(q, deq_t), 50, flush)
     line("kernel.shared_scan", shape=dict(Q=BATCH, N=n, d=DIM, chunk=1),
          live_frac=live_frac, route=SCAN_ROUTE, limbs=ops.N_LIMBS,
-         plan=ops.scan_plan(DIM, 1, n, BATCH), max_abs_err=err,
+         max_abs_err=err,
          batch_independent_bitwise=True, limb_emulation_bitwise=True,
          ms=kms, plain_ms=pms, library_ms=lms,
          library="torch.matmul (Q,d)x(d,N) fp32, dequantized rows",
          bound_ms=bms, bound_by=bby, bound_fp32_ms=fp32_ms,
          bound_fp32_by=fp32_by, share_of_bound=bms / kms,
          gop_int8=2.0 * ops.N_LIMBS * BATCH * n * DIM / 1e9,
-         gbytes=nbytes / 1e9,
-         at_chunk16=dict(chunk=chunk, ms=chunk_ms, max_abs_err=cerr,
-                             argmax_agreement=carg_eq,
-                             plan=ops.scan_plan(DIM, chunk, n, BATCH)))
+         gbytes=nbytes / 1e9)
     return dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
-                bound_by=bby, max_abs_err=max(err, cerr))
-
-
-def measure_scan_delta(n: int, live_frac: float) -> dict:
-    """The whole delta scan (core/delta._scan_delta: kernel, top-k, exact
-    rescore) at Q 256 over a delta of n slots (live_frac live), k 10 +
-    margin 16, at chunk 1 and chunk 16 in turns (1, 16, 16, 1); both
-    must give the same results."""
-    from repro_torch.core import delta as pdelta
-    gen, flush, q = _flush_and_queries(2)
-    n_live = int(n * live_frac)
-    vecs = torch.randn((n_live, DIM), device="cuda", generator=gen)
-    vecs /= vecs.norm(dim=1, keepdim=True)
-    ids = torch.randperm(2 * n, device="cuda", generator=gen)[:n_live]
-    store = pdelta.insert(pdelta.init(n, DIM, 2 * n, device="cuda"), vecs,
-                          ids.to(torch.int32))
-    default = pdelta._DELTA_CHUNK
-    res, times = {}, {1: [], 16: []}
-    try:
-        for chunk in (1, 16, 16, 1):
-            pdelta._DELTA_CHUNK = chunk
-            fn = lambda: pdelta._scan_delta(store, q, k=10, margin=16)
-            res.setdefault(chunk, fn())
-            # ~11 ms of device sleep: the function queues ~40 launches
-            times[chunk].append(cuda_ms(fn, 20, flush, sleep_cycles=20_000_000))
-            times[chunk].append(host_ms(fn, 20)[0])
-    finally:
-        pdelta._DELTA_CHUNK = default
-    same = all(torch.equal(a, b) for a, b in zip(res[1], res[16]))
-    check(same, "_scan_delta: chunk 1 and chunk 16 give other results")
-    out = {f"chunk{c}": dict(device_ms=v[0::2], host_p50_ms=v[1::2])
-           for c, v in times.items()}
-    line("delta.scan", Q=BATCH, N=n, live=n_live, k=10, margin=16,
-         default_chunk=default, same_results=True, **out)
-    return out
+                bound_by=bby, max_abs_err=err)
 
 
 def cpu_copy(index):
@@ -1132,7 +1080,6 @@ def main():
         # the delta grew at ingest: hold and time the delta kernel at the
         # size the serve_1m searches actually scanned
         kern["shared"] = measure_shared(delta_cap, delta_live)
-    measure_scan_delta(delta_cap, delta_live)
     kern["segment"], gnn_launches = phase_gnn(small_seg_err)
     line("launches", vector=dict(zip(("probe", "shared"), after_vector)),
          hybrid={"probe": launches["probe"] - after_vector[0],

@@ -14,9 +14,8 @@ stable index and clears both.
 
 Scan path: rows are quantized to int8 at insert time (mirroring the stable
 slab layout), so the delta scan runs through the shared-slab scan kernel
-(chunks of ``_DELTA_CHUNK`` rows; above 1, the exact quantized rescore of
-the top chunks' rows follows); the top (k + margin) quantized rows are then
-rescored exactly against the fp32 master rows.
+with chunk = 1; the top (k + margin) quantized survivors are then rescored
+exactly against the fp32 master rows.
 
 Every function returns a new ``DeltaStore`` and leaves its input as it was
 (the fields it changes are copied; the others are shared).
@@ -35,19 +34,12 @@ from repro_torch.core import ivf as ivf_mod
 from repro_torch.core.graph_store import mask_pass
 from repro_torch.core.ivf import IVFIndex
 from repro_torch.core.quantization import quantize
-from repro_torch.kernels.ivf_topk.ops import scan_topk_shared
-from repro_torch.kernels.ivf_topk.ref import NEG, pad_topk
+from repro_torch.kernels.ivf_topk.ops import scan_topk_quantized
+from repro_torch.kernels.ivf_topk.ref import pad_topk
 
 # default extra quantized survivors rescored in fp32 before the final top-k
 # (HMGIConfig.delta_rescore_margin overrides per index)
 _RESCORE_MARGIN = 16
-# rows per chunk of the delta's kernel scan. Chunk 1 writes the whole
-# (Q, N) score plane and top-ks over it; chunk 16 writes a sixteenth of it
-# but rescores every row of the top chunks (a gather of k·16 rows per
-# query). On an H100 the whole delta scan is faster at chunk 1 at the
-# serving shape (Q 256, N 65,536); chip_smoke.py times both, PERF.md has
-# the numbers
-_DELTA_CHUNK = 1
 
 
 class DeltaStore(NamedTuple):
@@ -199,10 +191,9 @@ def _scan_delta(delta: DeltaStore, queries: torch.Tensor, *, k: int,
                 margin: int = _RESCORE_MARGIN,
                 node_pass: Optional[torch.Tensor] = None):
     """Kernel scan over the quantized delta rows + exact fp32 rescore of the
-    top (k + margin) quantized rows. At chunk 1 the kernel's survivors are
-    the exact quantized top (k + margin); above it ``scan_topk_shared``
-    rescores every row of the top chunks, with the same result. Results match
-    brute force exactly whenever the delta holds ≤ k + margin live rows.
+    top (k + margin) survivors. chunk=1 makes the survivor ordering exact
+    over quantized scores. Results match brute force exactly whenever the
+    delta holds ≤ k + margin live rows.
 
     Visibility: tombstones out, stale versions out, rows failing
     ``node_pass`` out — before the top-k, like the stable probe path."""
@@ -212,9 +203,8 @@ def _scan_delta(delta: DeltaStore, queries: torch.Tensor, *, k: int,
         valid = valid & mask_pass(node_pass, delta.ids)
     k_scan = min(cap, k + margin)
     q = queries.to(torch.float32)
-    bias = torch.where(valid, 0.0, NEG).to(torch.float32)
-    qvals, qrows = scan_topk_shared(q, delta.qdata, delta.qvmin, delta.qscale,
-                                    bias, k=k_scan, chunk=_DELTA_CHUNK)
+    qvals, qrows = scan_topk_quantized(q, delta.qdata, delta.qvmin,
+                                       delta.qscale, valid, k=k_scan, chunk=1)
     rows = qrows.clamp(0, cap - 1).long()
     vecs = delta.vectors[rows]                                # (Q, k_scan, d)
     exact = torch.einsum("qd,qrd->qr", q, vecs)

@@ -1,3 +1,2 @@
 from repro_torch.kernels.ivf_topk.ops import (probe_scan, scan_topk_probe,
-                                              scan_topk_quantized,
-                                              scan_topk_shared, shared_scan)
+                                              scan_topk_quantized, shared_scan)

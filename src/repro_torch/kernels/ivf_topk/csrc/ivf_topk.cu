@@ -639,20 +639,6 @@ int ivf_probe_scan(const void* limbs, const void* qscale, const void* qsum,
   return launch(a, n_parts, static_cast<cudaStream_t>(stream));
 }
 
-// The launch plan of a scan of n_parts segments of `cap` rows for n_pairs
-// (query, probe) pairs: out[0..6] = tile rows in shared memory, rows per
-// tile, grid x, grid z, limb stages, dynamic shared memory bytes, chunk
-// reduced in registers (0/1).
-int ivf_scan_plan(int d, int chunk, int cap, int n_parts, int n_pairs,
-                  int* out) {
-  Plan p;
-  const int err = make_plan(d, chunk, cap, n_parts, n_pairs, &p);
-  if (err) return err;
-  out[0] = p.tm; out[1] = p.tile_rows; out[2] = p.grid_x; out[3] = p.grid_z;
-  out[4] = p.b_stages; out[5] = (int)p.smem; out[6] = p.reg_chunk;
-  return 0;
-}
-
 // Shared-slab scan: every query against rows [0, n), one segment. Outputs
 // (nq, ceil(n / chunk)).
 int ivf_shared_scan(const void* limbs, const void* qscale, const void* qsum,

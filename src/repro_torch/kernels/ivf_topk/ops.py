@@ -18,13 +18,13 @@ of the top-k chunks. Any true top-k row lives in a chunk whose max is ≥ the
 k-th best score, and at most k chunks can have such a max, so the k·chunk
 rescored rows contain the exact (quantized-score) top-k. This holds for any
 split of the rows into chunks, so also for chunks cut at every probe's
-segment end. ``scan_topk_shared`` does the same over one shared slab.
+segment end.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Callable, Tuple
+from typing import Tuple
 
 import torch
 
@@ -37,7 +37,6 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "ivf_probe_scan": [_P] * 9 + [_I] * 7 + [_P] * 3,
     "ivf_shared_scan": [_P] * 7 + [_I] * 5 + [_P] * 3,
-    "ivf_scan_plan": [_I] * 5 + [_P],
 }
 # int8 limbs per query; the kernel's kLimbs
 N_LIMBS = 4
@@ -56,23 +55,6 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
-
-
-def scan_plan(d: int, chunk: int, cap: int, n_pairs: int,
-              n_parts: int = 1) -> dict:
-    """How the kernel cuts a scan of ``n_parts`` segments of ``cap`` rows of
-    width d for ``n_pairs`` (query, probe) pairs (needs the built library,
-    so a CUDA host): rows of a shared tile, rows per tile, blocks per
-    segment, splits of the pair groups, limb ring stages, dynamic shared
-    memory, and whether the chunk is reduced in registers."""
-    out = (ctypes.c_int * 7)()
-    err = _lib().ivf_scan_plan(d, chunk, cap, n_parts, n_pairs, out)
-    if err:
-        raise ValueError(f"scan_plan: no plan for d={d} chunk={chunk} "
-                         f"(CUDA error {err})")
-    keys = ("tile_rows_smem", "tile_rows", "blocks_per_segment",
-            "group_splits", "limb_stages", "smem_bytes", "register_reduction")
-    return dict(zip(keys, list(out)))
 
 
 def query_limbs(queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -245,78 +227,22 @@ def _dead_to_pad(vals: torch.Tensor, ids: torch.Tensor, k: int):
     return pad_topk(vals, ids, k)
 
 
-def _shared_chunks(queries, data_i8, vmin, scale, bias, chunk):
-    """(q fp32, qsum, chunk max, chunk arg) of the shared-slab scan."""
-    q = queries.to(torch.float32).contiguous()
-    qsum = q.sum(dim=-1)
-    aff = 128.0 * scale + vmin
-    cmax, carg = shared_scan(q, qsum, data_i8.contiguous(), aff.contiguous(),
-                             scale.contiguous(), bias.contiguous(), chunk)
-    return q, qsum, cmax, carg
-
-
 def scan_topk_quantized(queries: torch.Tensor, data_i8: torch.Tensor,
                         vmin: torch.Tensor, scale: torch.Tensor,
                         valid: torch.Tensor, *, k: int, chunk: int = 128):
-    """Top-k over the chunk survivors of a quantized slab shared by all
-    queries (one row per chunk, as the reference's wrapper: exact only at
-    chunk = 1; ``scan_topk_shared`` is exact at every chunk).
+    """Top-k over a quantized slab shared by all queries.
 
     queries (Q, d) fp32; data_i8 (N, d) int8; vmin/scale (N,); valid (N,)
     bool. Returns (scores (Q, k), row ids (Q, k)) — descending, -inf/-1
     padded."""
+    q = queries.to(torch.float32).contiguous()
+    qsum = q.sum(dim=-1)
+    aff = 128.0 * scale + vmin
     bias = torch.where(valid, 0.0, NEG).to(torch.float32)
-    _, _, cmax, carg = _shared_chunks(queries, data_i8, vmin, scale, bias,
-                                      chunk)
+    cmax, carg = shared_scan(q, qsum, data_i8.contiguous(), aff.contiguous(),
+                             scale.contiguous(), bias.contiguous(), chunk)
     vals, ids = topk_from_chunks(cmax, carg, min(k, cmax.shape[1]))
     return _dead_to_pad(vals, ids, k)
-
-
-def _rescore_top_chunks(q: torch.Tensor, qsum: torch.Tensor,
-                        cmax: torch.Tensor, seg: int, chunk: int, k: int,
-                        slab_row: Callable[[torch.Tensor], torch.Tensor],
-                        slab: torch.Tensor, vmin: torch.Tensor,
-                        scale: torch.Tensor, bias: torch.Tensor):
-    """Stage 2: rescores every row of each query's top-k chunks exactly and
-    keeps the top k. ``cmax`` (Q, S·ceil(seg/chunk)) is chunked per segment
-    of ``seg`` rows (``ref.segment_chunk_max``); ``slab_row`` maps the
-    queries' own row ids (Q, R) in [0, S·seg) to slab rows. Returns
-    (scores (Q, k), own row ids (Q, k)), -inf/-1 padded."""
-    nq = q.shape[0]
-    nchp = -(-seg // chunk)
-    kc = min(k, cmax.shape[1])
-    _, cpos = torch.topk(cmax, kc, dim=1)                            # (Q, kc)
-    cpos = cpos.to(torch.int64)
-    within = ((cpos % nchp)[:, :, None] * chunk
-              + torch.arange(chunk, device=q.device)[None, None, :])
-    inside = (within < seg).reshape(nq, kc * chunk)
-    rows = ((cpos // nchp)[:, :, None] * seg
-            + within.clamp(max=seg - 1)).reshape(nq, kc * chunk)  # (Q, R)
-    srow = slab_row(rows)
-    dsel = slab[srow].to(torch.float32)                              # (Q, R, d)
-    ssel, vsel, bsel = scale[srow], vmin[srow], bias[srow]
-    dots = torch.einsum("qd,qrd->qr", q, dsel)
-    scores = dots * ssel + qsum[:, None] * (128.0 * ssel + vsel) + bsel
-    scores = torch.where(inside, scores, NEG)
-    vals, pos = torch.topk(scores, min(k, scores.shape[1]), dim=1)
-    out_rows = torch.gather(rows, 1, pos).to(torch.int32)
-    return _dead_to_pad(vals, out_rows, k)
-
-
-def scan_topk_shared(queries: torch.Tensor, data_i8: torch.Tensor,
-                     vmin: torch.Tensor, scale: torch.Tensor,
-                     bias: torch.Tensor, *, k: int, chunk: int = 1):
-    """Exact (quantized-score) top-k over a slab shared by all queries:
-    the shared-scan kernel, then, for chunk > 1, the stage-2 rescore of the
-    top-k chunks' rows. bias (N,) fp32: 0 live, NEG masked. Returns
-    (scores (Q, k), row ids (Q, k)) — descending, -inf/-1 padded."""
-    q, qsum, cmax, carg = _shared_chunks(queries, data_i8, vmin, scale, bias,
-                                         chunk)
-    if chunk == 1:
-        vals, ids = topk_from_chunks(cmax, carg, min(k, cmax.shape[1]))
-        return _dead_to_pad(vals, ids, k)
-    return _rescore_top_chunks(q, qsum, cmax, data_i8.shape[0], chunk, k,
-                               lambda r: r, data_i8, vmin, scale, bias)
 
 
 def scan_topk_probe(queries: torch.Tensor, slab: torch.Tensor,
@@ -331,15 +257,31 @@ def scan_topk_probe(queries: torch.Tensor, slab: torch.Tensor,
     query's own scanned range [0, P·cap) like the reference's gathered
     slab axis; -inf/-1 padded."""
     q = queries.to(torch.float32).contiguous()
+    nq = q.shape[0]
     qsum = q.sum(dim=-1)
     aff = 128.0 * scale + vmin
     probes = probes.to(torch.int32).contiguous()
     cmax, _ = probe_scan(q, qsum, slab, aff.contiguous(), scale.contiguous(),
                          bias.contiguous(), probes, cap, chunk)
-
-    def slab_row(rows):
-        return (torch.gather(probes, 1, rows // cap).to(torch.int64) * cap
-                + rows % cap)
-
-    return _rescore_top_chunks(q, qsum, cmax, cap, chunk, k, slab_row, slab,
-                               vmin, scale, bias)
+    # stage 2: rescore every row of the top-k chunks exactly. Chunks are cut
+    # per probe (``ref.segment_chunk_max``): chunk c of probe j covers the
+    # query's own rows j·cap + [c·chunk, min((c + 1)·chunk, cap))
+    nchp = -(-cap // chunk)
+    kc = min(k, cmax.shape[1])
+    _, cpos = torch.topk(cmax, kc, dim=1)                            # (Q, kc)
+    cpos = cpos.to(torch.int64)
+    within = ((cpos % nchp)[:, :, None] * chunk
+              + torch.arange(chunk, device=q.device)[None, None, :])
+    inside = (within < cap).reshape(nq, kc * chunk)
+    rows = ((cpos // nchp)[:, :, None] * cap
+            + within.clamp(max=cap - 1)).reshape(nq, kc * chunk)    # (Q, R)
+    srow = (torch.gather(probes, 1, rows // cap).to(torch.int64) * cap
+            + rows % cap)
+    dsel = slab[srow].to(torch.float32)                              # (Q, R, d)
+    ssel, vsel, bsel = scale[srow], vmin[srow], bias[srow]
+    dots = torch.einsum("qd,qrd->qr", q, dsel)
+    scores = dots * ssel + qsum[:, None] * (128.0 * ssel + vsel) + bsel
+    scores = torch.where(inside, scores, NEG)
+    vals, pos = torch.topk(scores, min(k, scores.shape[1]), dim=1)
+    out_rows = torch.gather(rows, 1, pos).to(torch.int32)
+    return _dead_to_pad(vals, out_rows, k)

@@ -341,17 +341,20 @@ def test_probe_topk_finds_a_row_in_a_last_partial_chunk():
 
 
 @pytest.mark.parametrize("chunk", [1, 16, 100])
-def test_shared_topk_exact_at_every_chunk(chunk):
-    """scan_topk_shared (kernel chunks + stage-2 rescore) == the reference
-    wrapper at chunk 1, the exact quantized top-k, at any chunk."""
+def test_probe_topk_exact_at_every_chunk(chunk):
+    """scan_topk_probe (per-probe kernel chunks + stage-2 rescore) gives the
+    exact quantized top-k, the reference wrapper's at chunk 1, whatever the
+    chunk: one row per chunk, 16-row chunks (cap 37 is cut 16, 16, 5 in
+    every probe) and one chunk longer than a partition."""
     rng = np.random.default_rng(chunk)
-    d, n, k = 24, 300, 12
-    data, vmin, scale, valid = _slab(rng, n, d, 0.3)
-    q = _queries(rng, 7, d)
-    jv, ji = jops.scan_topk_quantized(
-        jnp.asarray(q), jnp.asarray(data), jnp.asarray(vmin),
-        jnp.asarray(scale), jnp.asarray(valid), k=k, chunk=1, block_n=128)
+    d, cap, n_probe, k = 24, 37, 3, 12
+    q, data, vmin, scale, valid, probes, rows = _probe_case(
+        rng, 7, d, 6, cap, n_probe, 0.3)
+    jv, jr = jops.scan_topk_quantized_batched(
+        jnp.asarray(q), jnp.asarray(data[rows]), jnp.asarray(vmin[rows]),
+        jnp.asarray(scale[rows]), jnp.asarray(valid[rows]), k=k, chunk=1,
+        block_n=512)
     bias = np.where(valid, 0.0, ref.NEG).astype(np.float32)
-    pv, pi = ops.scan_topk_shared(_t(q), _t(data), _t(vmin), _t(scale),
-                                  _t(bias), k=k, chunk=chunk)
-    assert_topk_match((jv, ji), (pv, pi))
+    pv, pr = ops.scan_topk_probe(_t(q), _t(data), _t(vmin), _t(scale),
+                                 _t(bias), _t(probes), cap, k=k, chunk=chunk)
+    assert_topk_match((jv, jr), (pv, pr))
