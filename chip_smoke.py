@@ -16,9 +16,13 @@ Phases (each prints one line; any failure exits non-zero):
                 library call. The two scans also run skewed probes (the
                 probe scan), equal their limb emulation bitwise on 16
                 queries, and give 8 queries the same bits alone as in the
-                batch of 256. The delta kernel is measured again after
-                phase 4 at the delta size those searches scanned, when
-                ingest overflow grew the delta.
+                batch of 256. The decode kernel runs the tick's ragged
+                histories, all 8 slots at the full 2,048 and short
+                histories, each twice for the same bits, with its launch
+                plan (tile, splits, blocks, shared memory), timed also
+                after a flush that leaves L2 clean. The delta kernel is
+                measured again after phase 4 at the delta size those
+                searches scanned, when ingest overflow grew the delta.
   4. vector   — ingest → search → filtered search → update → delete at the
                 serve_1m shape (1,048,576 × 384, batch 256), recall@10
                 against an exact top-10 computed on the card, and 16
@@ -29,7 +33,8 @@ Phases (each prints one line; any failure exits non-zero):
                 phi4-mini (32 layers, bf16, seeded random weights): 32
                 retrievals, 32 ragged requests (prompts 128-1,536 tokens,
                 32-64 new tokens) on 8 slots; prefill and decode-tick
-                latency, tokens/s, one profiled tick; checks that every
+                latency, tokens/s, one profiled tick (with the decode
+                kernel's share of its device time); checks that every
                 decode tick ran the flash-decode kernel in each layer, a
                 4-layer fp32 copy matches sequential decode token for
                 token, and a 2-layer copy matches the same weights on the
@@ -148,10 +153,12 @@ def host_ms(fn, reps: int):
     return float(np.percentile(out, 50)), float(np.percentile(out, 99))
 
 
-def profile_window(fn, top: int = 6) -> dict:
+def profile_window(fn, top: int = 6, share_of: str = "") -> dict:
     """Device time by kernel over one synchronised call of ``fn``
     (torch.profiler / CUPTI): the ``top`` kernels by self device time, the
-    device-busy sum, the host wall time, and the device's idle share."""
+    device-busy sum, the host wall time, the device's idle share, and with
+    ``share_of`` the device time, launches and share of busy time of the
+    kernels whose names contain it."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -170,10 +177,16 @@ def profile_window(fn, top: int = 6) -> dict:
     def short(name: str) -> str:
         name = name.replace("(anonymous namespace)::", "")
         return name.removeprefix("void ").split("(")[0][:70]
-    return {"top_ms": [[short(e.key), e.self_device_time_total / 1e3]
-                       for e in kern[:top]],
-            "busy_ms": busy, "wall_ms": wall,
-            "idle_share": max(0.0, 1.0 - busy / wall)}
+    res = {"top_ms": [[short(e.key), e.self_device_time_total / 1e3]
+                      for e in kern[:top]],
+           "busy_ms": busy, "wall_ms": wall,
+           "idle_share": max(0.0, 1.0 - busy / wall)}
+    if share_of:
+        hit = [e for e in kern if share_of in e.key]
+        ms = sum(e.self_device_time_total for e in hit) / 1e3
+        res[share_of] = {"ms": ms, "launches": sum(e.count for e in hit),
+                         "share_of_busy": ms / busy}
+    return res
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
@@ -249,12 +262,10 @@ def phase_build():
     ssecs, slog = _build.build_log["segment_reduce"]
     # scans: "<chunk reduced in registers>" (1, 2, 4, 8, 16, 32; 0: through
     # shared memory; the probe path runs 16, the delta 1);
-    # decode: "<kernel>/<dtype>/<hd>[/<G>]" (phi4-mini's tick runs
-    # split/bfloat16/128/3 and combine/bfloat16/128)
+    # decode: "<dtype>/<hd>/<G>" (phi4-mini's tick runs bfloat16/128/3)
     ptxas = _ptxas_report(log, r"scan_mma_kernelILi(\d+)E")
     dptxas = _ptxas_report(
-        dlog, r"decode_(split|combine)_kernelI(?:13__nv_)?(f|bfloat16)Li(\d+)"
-              r"E(?:Li(\d+)E)?")
+        dlog, r"decode_kernelI(?:13__nv_)?(f|bfloat16)Li(\d+)ELi(\d+)E")
     # segment sum: "<dtype>/<elements per lane load>/<perm>" (the EGNN
     # layers run f/4/0)
     sptxas = _ptxas_report(
@@ -262,7 +273,9 @@ def phase_build():
     line("build", nvcc_s={"ivf_topk": secs, "decode_attention": dsecs,
                           "segment_reduce": ssecs},
          load_s=time.perf_counter() - t0, arch="sm_90a", ptxas=ptxas,
-         ptxas_decode=dptxas, ptxas_segment=sptxas)
+         ptxas_decode=dptxas, ptxas_segment=sptxas,
+         ptxas_decode_tick=[e for e in dptxas
+                            if e.startswith("bfloat16/128/3:")])
 
 
 def quantized_slab(rows: int, gen: torch.Generator):
@@ -604,10 +617,12 @@ def phase_hybrid():
     return index, c
 
 
-def measure_decode(lengths) -> dict:
-    """decode_attention against its plain version at phi4-mini's decode
-    tick: B 8, S 2048, Hkv 8, G 3, hd 128, bf16; row b valid on its first
-    lengths[b] positions (a slot's history), as the engine's cache is."""
+def _measure_decode_case(case: str, lengths) -> dict:
+    """decode_attention at phi4-mini's decode tick (B 8, S 2048, Hkv 8,
+    G 3, hd 128, bf16), row b valid on its first lengths[b] positions (a
+    slot's history, as the engine's cache is): held against its plain
+    version, twice for the same bits, then timed beside its bound, the
+    plain version and SDPA."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -624,34 +639,66 @@ def measure_decode(lengths) -> dict:
                                     valid).view(b, hkv * g, hd)
 
     out = dops.decode_attention(q, k, v, valid)
+    again = dops.decode_attention(q, k, v, valid)
     ref = plain()
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
     check(err <= DECODE_BF16_ATOL,
-          f"decode_attention max |d out| {err} > {DECODE_BF16_ATOL}")
+          f"decode_attention ({case}) max |d out| {err} > {DECODE_BF16_ATOL}")
+    check(torch.equal(out.view(torch.int16), again.view(torch.int16)),
+          f"decode_attention ({case}): two calls gave different bits")
     n_valid = int(np.sum(lengths))
     # each valid K and V row read once, the mask, q in and out
     nbytes = n_valid * hkv * hd * 2 * 2 + b * s + 2 * b * hkv * g * hd * 2
     flops = 4.0 * n_valid * hkv * g * hd
     bms, bby = bound(flops, nbytes)
-    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda").zero_
-    kms = cuda_ms(lambda: dops.decode_attention(q, k, v, valid), 50, flush)
+    big = torch.ones(64 << 20, dtype=torch.int32, device="cuda")
+    flush = big.zero_
+
+    def kernel():
+        return dops.decode_attention(q, k, v, valid)
+
+    kms = cuda_ms(kernel, 50, flush)
     pms = cuda_ms(plain, 10, flush)
     # library yardstick (never called by the port): SDPA, same bool mask
     qs, ks, vs = q.view(b, hkv * g, 1, hd), k.transpose(1, 2), v.transpose(1, 2)
     mask = valid[:, None, None, :]
-    lms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask, enable_gqa=True), 50, flush)
-    line("kernel.decode_attention", shape=dict(B=b, S=s, Hkv=hkv, G=g, hd=hd,
-                                               dtype="bfloat16"),
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              enable_gqa=True)
+
+    lms = cuda_ms(sdpa, 50, flush)
+    # the zero_ flush leaves L2 full of dirty lines, whose write-back the
+    # timed call pays as it reads; a flush that reads leaves clean lines,
+    # as the tick's weight reads do before the kernel
+    def clean():
+        big.sum()
+
+    kms_clean, lms_clean = cuda_ms(kernel, 50, clean), cuda_ms(sdpa, 50, clean)
+    line(f"kernel.decode_attention.{case}",
+         shape=dict(B=b, S=s, Hkv=hkv, G=g, hd=hd, dtype="bfloat16"),
          valid_lengths=[int(x) for x in lengths],
-         splits=dops.num_splits(q.device, b, hkv, s), max_abs_err=err,
+         plan=dops.launch_plan(q, k), max_abs_err=err, same_bits_twice=True,
          ms=kms, plain_ms=pms, library_ms=lms,
          library="F.scaled_dot_product_attention(bool mask, enable_gqa=True)",
-         bound_ms=bms, bound_by=bby, mbytes=nbytes / 1e6,
-         achieved_tb_s=nbytes / (kms * 1e-3) / 1e12)
+         ms_clean_l2=kms_clean, library_ms_clean_l2=lms_clean,
+         bound_ms=bms, bound_by=bby, share_of_bound=bms / kms,
+         share_of_bound_clean_l2=bms / kms_clean,
+         mbytes=nbytes / 1e6, achieved_tb_s=nbytes / (kms * 1e-3) / 1e12)
     return dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
                 bound_by=bby, max_abs_err=err)
+
+
+def measure_decode(lengths) -> dict:
+    """The decode kernel at the tick shape with the slot histories
+    ``lengths`` (the kernels line's numbers), then with all 8 slots at the
+    full 2,048 history (the tick's worst case), then with short histories
+    of 10-300 positions (4.6 MB: what a call costs beyond its bytes)."""
+    ragged = _measure_decode_case("ragged", lengths)
+    _measure_decode_case("full", [RAG_SEQ] * RAG_SLOTS)
+    _measure_decode_case("short", [100, 200, 50, 300, 10, 64, 128, 256])
+    return ragged
 
 
 def _params_to(params, device):
@@ -723,7 +770,8 @@ def phase_rag(index, corpus) -> dict:
                 and all(sl.active and sl.remaining >= 2 for sl in slots)):
             # this tick and the profiler's warm-up tick are both pure
             # decode ticks: every slot is busy and none finishes
-            prof = profile_window(engine.tick, top=8)
+            prof = profile_window(engine.tick, top=8,
+                                  share_of="decode_kernel")
         else:
             engine.tick()
     torch.cuda.synchronize()
@@ -739,6 +787,12 @@ def phase_rag(index, corpus) -> dict:
           f"ticks of {cfg.n_layers} layers")
     check(launches["probe"] > 0, "rag: retrieval did not run the probe kernel")
     check(prof is not None, "rag: no steady decode tick was profiled")
+    # the profiled tick ran the decode kernel once per layer: one kernel
+    # per call, the split merge folded in
+    dec_prof = prof.get("decode_kernel")
+    check(dec_prof is None or dec_prof["launches"] == cfg.n_layers,
+          f"rag: the profiled tick ran {dec_prof} decode kernels for "
+          f"{cfg.n_layers} layers")
     reqs = engine.batcher.requests
     for i in range(RAG_REQUESTS):
         check(reqs[i].done and len(reqs[i].generated) == news[i],
@@ -780,6 +834,8 @@ def phase_rag(index, corpus) -> dict:
          decode_tokens_per_s_8_slots=RAG_SLOTS / (dec.percentile(50) / 1e3),
          run_s=run_s, tokens_per_s=n_tokens / run_s, ticks=ticks,
          launches=launches, peak_mem_gib=peak / 2 ** 30, tick_profile=prof,
+         decode_kernel_in_tick=dec_prof if dec_prof is not None
+         else "not measured (the profiler saw no kernels)",
          info_search_many_bytes_identical_8_vs_1=bytes_same,
          info_search_many_ids_identical_8_vs_1=ids_same,
          info_bf16_streams_equal_sequential=seq_same)

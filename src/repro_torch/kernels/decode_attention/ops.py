@@ -6,14 +6,18 @@ the plain version in ``ref.py``; on CUDA tensors it launches the kernel of
 ``csrc/decode_attention.cu`` (built by ``kernels/_build.py`` on first use)
 or raises. It keeps the JAX wrapper's layout, q reshaped to
 (B, Hkv, G, hd) with head ``h = kv·G + g``, without its padding of S to a
-block multiple, which the CUDA kernel does not need. ``launches`` counts
-kernel launches and nothing else.
+block multiple, which the CUDA kernel does not need. One call is one
+kernel launch: the kernel's last block per (row, KV head) merges the
+splits, counting arrivals in a small int32 buffer kept per device and
+stream (the kernel leaves it at 0). ``launches`` counts kernel launches and
+nothing else.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
+from typing import Dict, Tuple
 
 import torch
 
@@ -22,31 +26,80 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P] * 7 + [_I] * 8 + [_P]
 _DTYPES = (torch.bfloat16, torch.float32)
 _HEAD_DIMS = (64, 128)
 _MAX_G = 8
-_MIN_CHUNK = 64          # positions per split, at least
-_sm_count = {}
+THREADS = 128            # per block (csrc kThreads)
+TILE = 64                # positions per tile (csrc kTile)
+MAX_TILES = 8            # tiles per split, at most (csrc kMaxTiles)
+MAX_SPLITS = 512         # splits per (row, KV head), at most (csrc kMaxSplits)
+MAX_S = MAX_SPLITS * MAX_TILES * TILE
+BLOCKS_PER_SM = 4        # splits planned for at least this many blocks per SM
+_sm_count: Dict[torch.device, int] = {}
+_arrivals: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The kernel's C entry point; builds the library on first use."""
-    fn = _build.load(_SRC).decode_attention
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    """The kernel's C entry points; builds the library on first use."""
+    lib = _build.load(_SRC)
+    lib.decode_attention.argtypes = _ARGTYPES
+    lib.decode_attention.restype = ctypes.c_int
+    lib.decode_attention_smem.argtypes = [_I, _I, _I]
+    lib.decode_attention_smem.restype = ctypes.c_int
+    return lib
 
 
-def num_splits(device: torch.device, b: int, hkv: int, s: int) -> int:
-    """Splits of S per (row, KV head): enough blocks to cover every SM at
-    least twice, each split at least ``_MIN_CHUNK`` positions long."""
+def plan(b: int, hkv: int, s: int, sm_count: int) -> Tuple[int, int]:
+    """(tiles per split, splits) for B·Hkv rows of S positions, from the
+    shapes alone: the longest splits (up to ``MAX_TILES`` tiles of
+    ``TILE`` positions, in powers of two) that still give at least
+    ``BLOCKS_PER_SM`` blocks per SM, so that short and ragged histories,
+    whose late splits are empty, still leave several working blocks on
+    each SM; one tile per split when even that falls short, or the
+    fewest tiles that keep the splits within ``MAX_SPLITS``."""
+    n_tiles = -(-s // TILE)
+    want = BLOCKS_PER_SM * sm_count
+    tiles = 1
+    while -(-n_tiles // tiles) > MAX_SPLITS:
+        tiles *= 2
+    while (tiles * 2 <= min(MAX_TILES, n_tiles)
+           and b * hkv * -(-n_tiles // (tiles * 2)) >= want):
+        tiles *= 2
+    return tiles, -(-n_tiles // tiles)
+
+
+def _sms(device: torch.device) -> int:
     if device not in _sm_count:
         _sm_count[device] = torch.cuda.get_device_properties(
             device).multi_processor_count
-    want = -(-2 * _sm_count[device] // (b * hkv))
-    return max(1, min(want, -(-s // _MIN_CHUNK)))
+    return _sm_count[device]
+
+
+def launch_plan(q: torch.Tensor, k: torch.Tensor) -> dict:
+    """What a call on CUDA tensors q (B, H, hd), k (B, S, Hkv, hd) launches
+    (for reports): tile length, tiles per split, splits, blocks, threads
+    and dynamic shared memory per block."""
+    b, h, hd = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    tiles, splits = plan(b, hkv, s, _sms(q.device))
+    return dict(tile=TILE, tiles_per_split=tiles, splits=splits,
+                blocks=splits * hkv * b, threads=THREADS,
+                smem_bytes=_lib().decode_attention_smem(
+                    h // hkv, hd, int(q.dtype == torch.bfloat16)))
+
+
+def _arrival_counters(device: torch.device, stream: int,
+                      n: int) -> torch.Tensor:
+    """n int32 zeros for the kernel's arrival counts on this stream (the
+    kernel resets each to 0, so the buffer is zeroed only when made)."""
+    key = (device.index, stream)
+    buf = _arrivals.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _arrivals[key] = buf
+    return buf
 
 
 def _check(q, k, v, valid) -> None:
@@ -76,7 +129,7 @@ def _check(q, k, v, valid) -> None:
         raise ValueError(f"decode_attention: the kernel takes hd in "
                          f"{_HEAD_DIMS} and 1 <= H/Hkv <= {_MAX_G}, got "
                          f"hd={hd}, H={h}, Hkv={hkv}")
-    if s <= 0 or b <= 0 or b * s * hkv * hd >= 2 ** 31:
+    if s <= 0 or b <= 0 or s > MAX_S or b * s * hkv * hd >= 2 ** 31:
         raise ValueError(f"decode_attention: unsupported B={b}, S={s}")
     for name, t in (("q", q), ("k", k), ("v", v), ("valid", valid)):
         if not t.is_contiguous():
@@ -105,19 +158,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, h, hd = q.shape
     s, hkv = k.shape[1], k.shape[2]
     g = h // hkv
-    splits = num_splits(q.device, b, hkv, s)
-    chunk = -(-s // splits)
-    splits = -(-s // chunk)                  # no empty trailing split
-    ws = torch.empty((b, hkv, splits, g, hd + 2), dtype=torch.float32,
-                     device=q.device)
-    out = torch.empty_like(q)
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"decode_attention: q is on {q.device}, the current "
                          f"device is cuda:{torch.cuda.current_device()}")
+    tiles, splits = plan(b, hkv, s, _sms(q.device))
+    ws = torch.empty((b, hkv, splits, g, hd + 2), dtype=torch.float32,
+                     device=q.device)
+    out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-                 ws.data_ptr(), out.data_ptr(), b, s, hkv, g, hd,
-                 int(q.dtype == torch.bfloat16), splits, chunk, stream)
+    arrivals = _arrival_counters(q.device, stream, b * hkv)
+    err = _lib().decode_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+        ws.data_ptr(), arrivals.data_ptr(), out.data_ptr(), b, s, hkv, g, hd,
+        int(q.dtype == torch.bfloat16), tiles, splits, stream)
     if err:
         raise RuntimeError(f"decode_attention: kernel launch failed with CUDA "
                            f"error {err}")

@@ -269,32 +269,115 @@ def _decode_case(g, b, s, hkv, grp, hd, dtype, lengths):
     return q, k, v, valid
 
 
+def _decode_masks(g, b, s):
+    """(name, (b, s) bool mask) layouts for one decode case on the card."""
+    dev = "cuda"
+    pos = torch.arange(s, device=dev)
+    out = []
+    lengths = torch.randint(1, s + 1, (b,), device=dev, generator=g)
+    out.append(("prefix", pos[None, :] < lengths[:, None]))
+    # shuffled sets of 0 (→ 0 out), 1, 37, 640 and S positions, then random
+    shuffled = torch.zeros((b, s), dtype=torch.bool, device=dev)
+    for i in range(b):
+        n = min(s, (0, 1, 37, 640, s)[i]) if i < 5 else int(lengths[i])
+        shuffled[i, torch.randperm(s, device=dev, generator=g)[:n]] = True
+    out.append(("shuffled", shuffled))
+    last = torch.zeros((b, s), dtype=torch.bool, device=dev)
+    last[:, s - 1] = True                               # one valid, last slot
+    out.append(("last_slot", last))
+    # a rolling window of w positions ending at p, wrapping past the end
+    w = max(1, s // 3)
+    p = torch.randint(0, s, (b,), device=dev, generator=g)
+    out.append(("window_wrap", ((p[:, None] - pos[None, :]) % s) < w))
+    if s > 4 * 64:
+        # whole tiles and splits empty between two islands
+        holes = torch.zeros((b, s), dtype=torch.bool, device=dev)
+        holes[:, :64] = True
+        holes[:, s - 100:s - 40] = True
+        holes[b // 2:, 64 * 2:64 * 3] = True
+        out.append(("empty_tiles", holes))
+    return out
+
+
+# (B, S) of the decode cases: S of 1, one short of a tile, one tile, one
+# past it, one past 8 tiles (a split of the longest kind), and the serving
+# cache; B of 1 and 64
+_DECODE_SHAPES = [(3, 1), (2, 63), (2, 64), (3, 65), (1, 513), (5, 1000),
+                  (2, 2048), (64, 200)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("grp", [1, 3, 8])
+@pytest.mark.parametrize("grp", [1, 2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_kernel_matches_plain_version(dtype, hd, grp):
-    """Ragged rows (one of them all-invalid → 0, one full), S not a multiple
-    of any split. fp32: 1e-5 absolute (the same fp32 sums in another
-    order); bf16: both round one fp32 result to bf16, so 1 bf16 ulp of
-    outputs |out| < 4 (2^-6)."""
+    """Every (B, S) of ``_DECODE_SHAPES`` under prefix, shuffled (row 0
+    all-invalid → 0, then 1, 37, 640 and S valid positions), last-slot-only,
+    wrapping-window and empty-tile masks.
+    fp32: 1e-5 absolute (the same fp32 sums in another order); bf16: both
+    round one fp32 result to bf16, so 1 bf16 ulp of outputs |out| < 4
+    (2^-6)."""
     _need_card()
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     g = torch.Generator(device="cuda").manual_seed(hd * 10 + grp)
-    b, s, hkv = 5, 1000, 2
-    q, k, v, valid = _decode_case(g, b, s, hkv, grp, hd, dtype,
-                                  [0, 1, 37, 640, s])
-    before = dops.decode_attention.launches
-    out = dops.decode_attention(q, k, v, valid)
-    assert dops.decode_attention.launches == before + 1
-    ref = decode_attention_ref(q.reshape(b, hkv, grp, hd), k, v,
-                               valid).reshape(b, hkv * grp, hd)
+    hkv = 2
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -6
+    for b, s in _DECODE_SHAPES:
+        q, k, v, _ = _decode_case(g, b, s, hkv, grp, hd, dtype, [0] * b)
+        for name, valid in _decode_masks(g, b, s):
+            before = dops.decode_attention.launches
+            out = dops.decode_attention(q, k, v, valid)
+            assert dops.decode_attention.launches == before + 1
+            ref = decode_attention_ref(q.reshape(b, hkv, grp, hd), k, v,
+                                       valid).reshape(b, hkv * grp, hd)
+            torch.cuda.synchronize()
+            assert out.dtype == dtype and out.shape == q.shape
+            empty = ~valid.any(dim=1)
+            assert bool((out[empty] == 0).all()), (b, s, name)
+            err = (out.float() - ref.float()).abs().max().item()
+            assert err <= tol, (b, s, name, err)
+
+
+@pytest.mark.gpu
+def test_decode_kernel_gives_the_same_bits_twice():
+    """Two calls on the same inputs: the same bits (the last block merges
+    the splits in split order, whichever block arrives last)."""
+    _need_card()
+    from repro_torch.kernels.decode_attention import ops as dops
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, valid = _decode_case(g, 8, 2048, 8, 3, 128, dtype,
+                                      [1448, 1402, 1336, 1388, 234, 1323,
+                                       1515, 516])
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        first = dops.decode_attention(q, k, v, valid)
+        again = [dops.decode_attention(q, k, v, valid) for _ in range(5)]
+        torch.cuda.synchronize()
+        for out in again:
+            assert torch.equal(out.view(bits), first.view(bits))
+
+
+@pytest.mark.gpu
+def test_decode_kernel_is_one_launch():
+    """One call runs one kernel on the device (the split merge is folded
+    into the kernel's last block), as the profiler sees it."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.decode_attention import ops as dops
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v, valid = _decode_case(g, 8, 2048, 8, 3, 128, torch.bfloat16,
+                                  [2048, 1, 700, 0, 64, 65, 1000, 2000])
+    dops.decode_attention(q, k, v, valid)              # builds, allocates
     torch.cuda.synchronize()
-    assert out.dtype == dtype and out.shape == q.shape
-    assert bool((out[0] == 0).all())
-    err = (out.float() - ref.float()).abs().max().item()
-    assert err <= (1e-5 if dtype == torch.float32 else 2 ** -6), err
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dops.decode_attention(q, k, v, valid)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum(e.count for e in kernels) == 1, [(e.key, e.count)
+                                                for e in kernels]
+    assert "decode_kernel" in kernels[0].key
 
 
 @pytest.mark.gpu
