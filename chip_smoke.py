@@ -24,17 +24,29 @@ Phases (each prints one line; any failure exits non-zero):
                 measured again after phase 4 at the delta size those
                 searches scanned, when ingest overflow grew the delta.
   4. vector   — ingest → search → filtered search → update → delete at the
-                serve_1m shape (1,048,576 × 384, batch 256), recall@10
-                against an exact top-10 computed on the card, and 16
-                queries re-run on a CPU copy of the index.
+                serve_1m shape (1,048,576 × 384, batch 256) under the
+                default config (get_config("hmgi"): maint_auto on),
+                recall@10 against an exact top-10 computed on the card,
+                and 16 queries re-run on a CPU copy of the index.
+     maint    — adaptive maintenance on the same index: recluster, merge
+                and split through maintain(), a merge by deletes, a split
+                by maybe_repartition, drains past the delta's watermark;
+                full-probe bytes unchanged by each move, the card against
+                a CPU copy after each pass, every write found, no delete
+                back, no write dropped; maintain() and insert-batch
+                latency, one full compact() as the stop-the-world
+                baseline.
   5. hybrid   — ingest with a graph, hybrid_search (plain, typed, filtered)
                 at 131,072 nodes, checked against a CPU copy of the index.
   6. rag      — RAGEngine over the phase-5 index with full-width
-                phi4-mini (32 layers, bf16, seeded random weights): 32
-                retrievals, 32 ragged requests (prompts 128-1,536 tokens,
-                32-64 new tokens) on 8 slots; prefill and decode-tick
-                latency, tokens/s, one profiled tick (with the decode
-                kernel's share of its device time); checks that every
+                phi4-mini (32 layers, bf16, seeded random weights) and its
+                default maintenance pacing (a bounded maintain() every 4th
+                tick): 32 retrievals, 32 ragged requests (prompts 128-1,536
+                tokens, 32-64 new tokens) on 8 slots; prefill, decode-tick
+                and maintenance-stall latency, tokens/s, one profiled tick
+                (with the decode kernel's share of its device time); checks
+                that 8 retrievals give the same bytes batched as alone,
+                stage by stage too, that every
                 decode tick ran the flash-decode kernel in each layer, a
                 4-layer fp32 copy matches sequential decode token for
                 token, and a 2-layer copy matches the same weights on the
@@ -84,6 +96,9 @@ VEC_N, HYB_N, DIM, BATCH = 1_048_576, 131_072, 384, 256
 HYB_CUT = ("hybrid phase at 131,072 nodes, not 1,048,576: host Louvain "
            "(~0.3 ms/node) would take ~5 min of the 20 min limit")
 SCORE_ATOL = 1e-4     # fp32 sums over d=384 in another order (scores O(1))
+# the maint phase reads every partition: its answer does not depend on the
+# routing, so byte-identical row moves leave its bytes unchanged
+MAINT_FULL_PROBE = 64
 # the RAG cell: phi4-mini at full width, 8 decode slots over a 2,048-token
 # cache (ROADMAP Queue 1 item 16)
 RAG_SLOTS, RAG_SEQ, RAG_REQUESTS = 8, 2048, 32
@@ -154,17 +169,24 @@ def host_ms(fn, reps: int):
 
 
 def profile_window(fn, top: int = 6, share_of: str = "") -> dict:
-    """Device time by kernel over one synchronised call of ``fn``
-    (torch.profiler / CUPTI): the ``top`` kernels by self device time, the
-    device-busy sum, the host wall time, the device's idle share, and with
-    ``share_of`` the device time, launches and share of busy time of the
-    kernels whose names contain it."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time by kernel over one synchronised call of ``fn`` after a
+    warm-up call (see ``profile_once``)."""
     fn()
     torch.cuda.synchronize()
+    return profile_once(fn, top, share_of)[1]
+
+
+def profile_once(fn, top: int = 6, share_of: str = ""):
+    """(fn's result, its profile): device time by kernel over one
+    synchronised call of ``fn`` (torch.profiler / CUPTI): the ``top``
+    kernels by self device time, the device-busy sum, the host wall time,
+    the device's idle share, and with ``share_of`` the device time,
+    launches and share of busy time of the kernels whose names contain
+    it."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kern = [e for e in prof.key_averages()
@@ -172,8 +194,8 @@ def profile_window(fn, top: int = 6, share_of: str = "") -> dict:
     kern.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     if busy <= 0:
-        return {"device_time": "not measured (the profiler saw no kernels)",
-                "wall_ms": wall}
+        return out, {"device_time": "not measured (the profiler saw no "
+                                    "kernels)", "wall_ms": wall}
     def short(name: str) -> str:
         name = name.replace("(anonymous namespace)::", "")
         return name.removeprefix("void ").split("(")[0][:70]
@@ -186,7 +208,7 @@ def profile_window(fn, top: int = 6, share_of: str = "") -> dict:
         ms = sum(e.self_device_time_total for e in hit) / 1e3
         res[share_of] = {"ms": ms, "launches": sum(e.count for e in hit),
                          "share_of_busy": ms / busy}
-    return res
+    return out, res
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
@@ -491,7 +513,7 @@ def phase_vector():
     rng = np.random.default_rng(1)
     attr = rng.integers(0, 10, VEC_N)
     data_s = time.perf_counter() - t0
-    cfg = get_config("hmgi").replace(maint_auto=False)
+    cfg = get_config("hmgi")
     index = HMGIIndex(cfg, seed=0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -521,7 +543,7 @@ def phase_vector():
                             for a, b in zip(got, true_ids)]))
     top1 = float(np.mean(got[:, 0] == true_ids[:, 0]))
     p50, p99 = host_ms(lambda: index.search(queries, "text"), 20)
-    prof = profile_window(lambda: index.search(queries, "text"))
+    prof = profile_window(lambda: index.search(queries, "text"), top=12)
 
     filt = {}
     for name, where, ok in (("sel0.1", ("a", "==", 3), lambda v: v == 3),
@@ -560,9 +582,409 @@ def phase_vector():
          search_p50_ms=p50, search_p99_ms=p99, filtered=filt,
          update_rank1=True, delete_gone=True, peak_mem_gib=peak / 2 ** 30,
          search_profile=prof)
-    del index, c
+    return index, c, delta_cap, delta_rows / delta_cap
+
+
+def full_probe(index, q):
+    """Every partition probed: the search's answer does not depend on the
+    routing, so a byte-identical row move leaves its bytes unchanged."""
+    sv, si = index.search(q, "text", n_probe=MAINT_FULL_PROBE)
+    return sv.cpu(), si.cpu()
+
+
+def same_bytes(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def visible_ids(m) -> torch.Tensor:
+    """Every id the modality serves: slab rows not hidden by a tombstone or
+    a superseded bit, and the delta's live rows."""
+    from repro_torch.core import delta as delta_mod
+    d = m.delta
+    sids = m.ivf.ids.reshape(-1)
+    sids = sids[sids >= 0]
+    sids = sids[~(d.tombstones | d.superseded)[sids.long()]]
+    live = torch.as_tensor(delta_mod.live_slots(d), device=d.ids.device)
+    return torch.cat([sids, d.ids[live]])
+
+
+def _merge_notes(trail: str):
+    """(partition, sibling, moved, purged, overflow) of each merge in a
+    maintenance trail."""
+    return [tuple(map(int, g)) for g in re.findall(
+        r"merge_cold\[p=(\d+) -> p=(\d+): moved (\d+), purged (\d+) dead, "
+        r"(\d+) to delta\]", trail)]
+
+
+def phase_maint(index, corpus):
+    """Adaptive maintenance on the phase-4 index (serve_1m, the default
+    config: maint_auto on), driving each action kind at that size:
+    recluster (rows written off one centroid), merge_cold + split_hot
+    (a skewed probe load on a full partition, then maintain), merge_cold
+    (90% of the emptiest partition deleted), split_hot again through
+    maybe_repartition, and drains (update batches of 256 past the delta's
+    compaction watermark). Holds the moves to their contract (full-probe
+    bytes unchanged by a merge without overflow, a split and a recluster;
+    the card against a CPU copy after each pass; every write found, no
+    delete back, no write dropped), then times one full compact() on the
+    same index as the stop-the-world baseline."""
+    from repro_torch import obs
+    from repro_torch.core import delta as delta_mod
+    from repro_torch.core import ivf as ivf_mod
+    from repro_torch.core import partitioner
+    from repro_torch.core.index import HMGIIndex
+    m = index.modalities["text"]
+    cfg = index.cfg
+    k_parts, cap = m.ivf.n_partitions, m.ivf.capacity
+    vecs = corpus.vectors["text"]
+    rng = np.random.default_rng(21)
+    obs.reset()
+    q16 = (vecs[rng.choice(VEC_N, 16, replace=False)]
+           + 0.05 * rng.normal(size=(16, DIM))).astype(np.float32)
+    q256 = (vecs[rng.choice(VEC_N, BATCH, replace=False)]
+            + 0.05 * rng.normal(size=(BATCH, DIM))).astype(np.float32)
+    delta_live0 = int(delta_mod.live_slots(m.delta).size)
+    delta_cap0 = int(m.delta.ids.shape[0])
+    search_before = host_ms(lambda: index.search(q256, "text"), 10)
+    maint_ms, insert_ms, trail, bytes_ok = {}, [], [], {}
+    # ids deleted before the phase stay deleted: writes go to the others
+    written = {}
+    deleted = set(torch.nonzero(m.delta.tombstones).flatten().tolist())
+
+    def maintain(**kw):
+        t0 = time.perf_counter()
+        rep = index.maintain("text", **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        for kind in {a.kind for a, _ in rep.actions}:
+            maint_ms.setdefault(kind, []).append(ms)
+        trail.append(rep.describe())
+        return rep
+
+    def upsert(ids, rows):
+        t0 = time.perf_counter()
+        index.insert("text", ids, rows)
+        torch.cuda.synchronize()
+        insert_ms.append((time.perf_counter() - t0) * 1e3)
+        for i, r in zip(ids, rows):
+            written[int(i)] = r
+        deleted.difference_update(int(i) for i in ids)
+
+    def agree_cpu(tag):
+        cpu = cpu_copy(index)
+        gv, gi = index.search(q16, "text")
+        cv, ci = cpu.search(q16, "text")
+        check(agree_up_to_ties(gv.cpu(), gi.cpu(), cv, ci, SCORE_ATOL),
+              f"maint {tag}: the card disagrees with the CPU copy")
+        del cpu
+
+    def skew_on(part):
+        """Probe load on one partition: its own stored rows as queries at
+        n_probe 1 (so its neighbours gain no hits), until it is the
+        hottest live partition and its hits pass the planner's imbalance
+        threshold by a quarter."""
+        rows = torch.nonzero(m.ivf.ids[part] >= 0).flatten()[:BATCH]
+        hq = ivf_mod._dequant_rows(*((m.ivf,) + ivf_mod.gather_slots(
+            m.ivf, part * cap + rows)[:3]))
+        for _ in range(200):
+            hits = m.workload.hits_snapshot()
+            if (hits[part] > 1.25 * cfg.maint_heat_imbalance * hits.mean()
+                    and int(np.argmax(np.where(m.stats.parked, -1, hits)))
+                    == part):
+                return
+            index.search(hq, "text", n_probe=1)
+        fail(f"maint: the probe load on p={part} never passed the "
+             "imbalance threshold")
+
+    # (1) recluster: 256 updates with rows that land far off one centroid
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    cand = torch.randn((1 << 16, DIM), device="cuda", generator=gen)
+    cand /= cand.norm(dim=1, keepdim=True)
+    a = partitioner.assign(cand, m.ivf.centroids).long()
+    off = int(torch.bincount(a, minlength=k_parts).argmax())
+    alive = np.setdiff1d(np.arange(VEC_N), np.fromiter(deleted, np.int64))
+    upsert(rng.choice(alive, BATCH, replace=False).astype(np.int32),
+           cand[a == off][:BATCH].cpu().numpy())
+    # the drift signal those writes left: the mean assigned distance of
+    # the writes against the members' at build. A unit row lies at most
+    # 1 + |c| from a centroid c whose members average sqrt(1 - |c|^2), so
+    # no write can reach the planner's threshold when
+    # sqrt((1 + |c|) / (1 - |c|)) < 1 + threshold (``reachable_drift``).
+    # When the writes fall short, the phase raises the partition's
+    # recorded drift past it, as the reference's own recluster test does,
+    # and the recluster runs as planned
+    st = m.stats
+    drift_off = float(st.drift_ratio()[off])
+    c_norm = float(m.ivf.centroids[off].norm())
+    reach = float(np.sqrt((1 + c_norm) / (1 - c_norm)) - 1)
+    trigger = "writes"
+    if drift_off < cfg.maint_drift_threshold:
+        st.drift_sum[off] = (st.drift_cnt[off] * st.baseline[off]
+                             * (1 + 2 * cfg.maint_drift_threshold))
+        trigger = "recorded drift raised past the threshold"
+    before = full_probe(index, q16)
+    rep = maintain()
+    check(any(a.kind == "recluster" for a, _ in rep.actions),
+          f"maint: no recluster planned after off-centroid writes: "
+          f"{rep.describe()}")
+    bytes_ok["recluster"] = same_bytes(before, full_probe(index, q16))
+    check(bytes_ok["recluster"], "maint: a recluster changed full-probe bytes")
+    agree_cpu("recluster")
+
+    # (2) merge_cold + split_hot by maintain: a skewed probe load on the
+    # full partition that holds most of the delta's oldest live rows
+    live = torch.as_tensor(delta_mod.live_slots(m.delta)[:BATCH],
+                           device="cuda")
+    hot = int(torch.bincount(partitioner.assign(
+        m.delta.vectors[live], m.ivf.centroids).long(),
+        minlength=k_parts).argmax())
+    hot_fill = int(m.ivf.counts[hot]) / cap
+    check(hot_fill >= cfg.maint_split_min_fill,
+          f"maint: p={hot} is {hot_fill:.2f} full")
+    before = full_probe(index, q16)      # (a search records heat too)
+    skew_on(hot)
+    for _ in range(4):
+        rep = maintain()
+        if any(a.kind == "split_hot" for a, _ in rep.actions):
+            break
+    check(any(a.kind == "split_hot" for a, _ in rep.actions),
+          f"maint: no split of p={hot}: {trail[-3:]}")
+    split_merges = _merge_notes(" ".join(trail))
+    after = full_probe(index, q16)
+    bytes_ok["split"] = same_bytes(before, after)
+    overflow = sum(n[4] for n in split_merges)
+    check(bytes_ok["split"] or overflow > 0,
+          "maint: a split (and its enabling merge, no overflow) changed "
+          "full-probe bytes")
+    if not bytes_ok["split"]:
+        # rows the enabling merge sent to the delta are scored in fp32 now
+        check(agree_up_to_ties(*before, *after, 0.02),
+              "maint: full-probe results moved beyond one int8 step")
+    agree_cpu("split")
+
+    # (3) merge_cold by deletes: 90% of the emptiest live partition, held
+    # against a twin of the index without maintenance
+    counts = m.ivf.counts.cpu().numpy()
+    e = int(np.argmin(np.where(m.stats.parked, np.iinfo(np.int64).max,
+                               counts)))
+    e_ids = m.ivf.ids[e]
+    e_ids = e_ids[e_ids >= 0]
+    e_ids = e_ids[~(m.delta.tombstones | m.delta.superseded)[e_ids.long()]]
+    e_ids = e_ids.cpu().numpy()
+    del_ids = e_ids[: -(-9 * e_ids.size // 10)]
+    twin = HMGIIndex(cfg.replace(maint_auto=False), seed=index.seed)
+    twin.restore_state(*index.state_tree())
+    twin.delete("text", del_ids)
+    before = full_probe(twin, q16)
+    del twin
     torch.cuda.empty_cache()
-    return delta_cap, delta_rows / delta_cap
+    t0 = time.perf_counter()
+    index.delete("text", del_ids)
+    torch.cuda.synchronize()
+    delete_ms = (time.perf_counter() - t0) * 1e3
+    deleted.update(int(i) for i in del_ids)
+    for i in del_ids:
+        written.pop(int(i), None)
+    merges = [n for n in _merge_notes(index.metrics()["maintenance"])
+              if n[0] == e]
+    check(len(merges) == 1 and bool(m.stats.parked[e]),
+          f"maint: deleting 90% of p={e} did not merge it: "
+          f"{index.metrics()['maintenance']}")
+    trail.append(index.metrics()["maintenance"])
+    after = full_probe(index, q16)
+    bytes_ok["merge"] = same_bytes(before, after)
+    check(bytes_ok["merge"] or merges[0][4] > 0,
+          "maint: a merge without overflow changed full-probe bytes")
+    agree_cpu("merge")
+
+    # (4) split_hot by maybe_repartition, on the fullest live partition
+    counts = m.ivf.counts.cpu().numpy()
+    hot2 = int(np.argmax(np.where(m.stats.parked, -1, counts)))
+    before = full_probe(index, q16)
+    skew_on(hot2)
+    split_done, split_prof = profile_once(
+        lambda: index.maybe_repartition("text"), top=8)
+    check(split_done, f"maint: maybe_repartition did not split p={hot2}")
+    bytes_ok["repartition"] = same_bytes(before, full_probe(index, q16))
+    check(bytes_ok["repartition"],
+          "maint: maybe_repartition changed full-probe bytes")
+    agree_cpu("repartition")
+
+    # (5) drains: update batches of 256 until the delta reaches its
+    # compaction watermark, then a few more (each insert then maintains)
+    alive = np.setdiff1d(np.arange(VEC_N), np.fromiter(deleted, np.int64))
+    crossed, extra = None, 0
+    for b in range(64):
+        ids = rng.choice(alive, BATCH, replace=False).astype(np.int32)
+        src = rng.choice(VEC_N, BATCH, replace=False)
+        upsert(ids, (vecs[src] + 0.05 * rng.normal(size=(BATCH, DIM))
+                     ).astype(np.float32))
+        # past the watermark the insert maintains on its own (drains)
+        if crossed is None and obs.counter(
+                "maintenance.actions.compact_chunk").value:
+            crossed = b + 1
+        extra += crossed is not None
+        if extra >= 4:
+            break
+    check(crossed is not None, "maint: the delta never reached its "
+                               "compaction watermark")
+    # the insert path's hook: passes that must free a chunk of delta slots
+    for _ in range(3):
+        maintain(need_rows=cfg.maint_chunk)
+    agree_cpu("drain")
+    counters = {k: v for k, v in obs.registry().to_dict()
+                .get("counters", {}).items() if k.startswith("maintenance")}
+    for kind in ("compact_chunk", "merge_cold", "split_hot", "recluster"):
+        check(counters.get(f"maintenance.actions.{kind}", 0) >= 1,
+              f"maint: no {kind} was applied ({counters})")
+    drained = sum(int(n) for n in re.findall(r"drained (\d+) rows",
+                                             " ".join(trail[-3:])))
+
+    # every write found at rank 1 at full probe (a drained update whose
+    # assigned partition is full keeps its old slot: at the default probe
+    # finding it is a recall matter, counted), no delete back, no write
+    # dropped
+    w_ids = np.fromiter(written, np.int64)
+    w_vecs = np.stack([written[int(i)] for i in w_ids])
+    rank1_default = 0
+    for s in range(0, w_ids.size, BATCH):
+        want = w_ids[s:s + BATCH]
+        _, got = index.search(w_vecs[s:s + BATCH], "text", k=1,
+                              n_probe=MAINT_FULL_PROBE)
+        miss = np.nonzero(got[:, 0].cpu().numpy() != want)[0]
+        check(miss.size == 0, f"maint: written ids {want[miss[:5]]} are "
+                              "not at rank 1 for their own vectors")
+        _, got = index.search(w_vecs[s:s + BATCH], "text", k=1)
+        rank1_default += int((got[:, 0].cpu().numpy() == want).sum())
+    d_ids = np.fromiter(deleted, np.int64)
+    for s in range(0, d_ids.size, BATCH):
+        _, got = index.search(vecs[d_ids[s:s + BATCH]], "text")
+        check(not np.isin(got.cpu().numpy(), d_ids).any(),
+              "maint: a deleted id came back")
+    vis = visible_ids(m)
+    want = torch.as_tensor(alive, device="cuda")
+    check(vis.numel() == want.numel() and torch.equal(
+        torch.sort(vis.long()).values, want),
+          f"maint: {vis.numel()} visible rows for {want.numel()} live ids")
+    delta_live1 = int(delta_mod.live_slots(m.delta).size)
+    delta_cap1 = int(m.delta.ids.shape[0])
+    search_after = host_ms(lambda: index.search(q256, "text"), 10)
+    hist = obs.registry().histograms()["index.maintain"]
+
+    # the stop-the-world baseline: one full compaction of the same index
+    t0 = time.perf_counter()
+    index.compact("text")
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    search_compacted = host_ms(lambda: index.search(q256, "text"), 10)
+    line("maint", n=VEC_N, K=k_parts, cap=cap, batch=BATCH,
+         maintain_ms={k: dict(p50=float(np.percentile(v, 50)),
+                              p99=float(np.percentile(v, 99)), n=len(v))
+                      for k, v in maint_ms.items()},
+         maintain_span_ms=dict(p50=hist.percentile(50),
+                               p99=hist.percentile(99), n=hist.count),
+         insert_batch_ms=dict(p50=float(np.percentile(insert_ms, 50)),
+                              p99=float(np.percentile(insert_ms, 99)),
+                              n=len(insert_ms)),
+         recluster=dict(partition=off, write_drift=drift_off,
+                        centroid_norm=c_norm, reachable_drift=reach,
+                        threshold=cfg.maint_drift_threshold,
+                        trigger=trigger),
+         watermark_crossed_after_batches=crossed, delete_ms=delete_ms,
+         repartition_profile=split_prof, counters=counters,
+         rows_drained_by_forced_passes=drained,
+         split_partitions=[hot, hot2],
+         hot_fill=hot_fill, merged_partition=e, deleted=int(d_ids.size),
+         written=int(w_ids.size),
+         written_rank1_at_default_probe=rank1_default / w_ids.size,
+         full_probe_bytes_unchanged=bytes_ok,
+         merge_overflow=[n[4] for n in split_merges + merges],
+         delta_live=dict(before=delta_live0, after=delta_live1,
+                         after_compact=int(delta_mod.live_slots(
+                             m.delta).size)),
+         delta_capacity=dict(before=delta_cap0, after=delta_cap1),
+         compact_s=compact_s,
+         search_p50_ms=dict(before=search_before[0],
+                            after=search_after[0],
+                            after_compact=search_compacted[0]),
+         search_p99_ms=dict(before=search_before[1],
+                            after=search_after[1],
+                            after_compact=search_compacted[1]),
+         cpu_copy_agrees=True, writes_found=True, deletes_gone=True,
+         no_write_dropped=True, trail=[t[:300] for t in trail[-6:]])
+
+
+def stage_bytes(index, raw_queries) -> dict:
+    """Time-free, per stage: the rows of a batch of queries against each
+    query alone, byte for byte (True = every row the same). The stages of
+    a retrieval with one hop, each fed the batch's own inputs row by row:
+    query normalisation, centroid scores and probes, the probe scan with
+    its stage-2 rescore, the delta scan with its exact rescore, the hop,
+    and fusion; and, for comparison, the library calls the port used
+    before (``info_lib_*``: cuBLAS and the reduction kernels size their
+    work from the whole batch)."""
+    from repro_torch.core import delta as delta_mod
+    from repro_torch.core import ivf as ivf_mod
+    from repro_torch.core import partitioner
+    from repro_torch.core import traversal as trav_mod
+    from repro_torch.core.fusion import adaptive_weights
+    from repro_torch.core.index import _fuse_candidates
+
+    def rows_alone(fn, *args):
+        big = fn(*args)
+        big = big if isinstance(big, tuple) else (big,)
+        for i in range(args[0].shape[0]):
+            one = fn(*(a[i:i + 1] for a in args))
+            one = one if isinstance(one, tuple) else (one,)
+            if not all(torch.equal(b[i:i + 1], o) for b, o in zip(big, one)):
+                return False
+        return True
+
+    m = index.modalities["text"]
+    cfg = index.cfg
+    raw = torch.as_tensor(raw_queries, device="cuda")
+    q = index._norm_queries(raw)
+    cents = m.ivf.centroids
+    probes, _ = partitioner.assign_topk(q, cents, cfg.n_probe)
+    k = 8
+    sv, si = delta_mod.search_with_delta(m.ivf, m.delta, q, n_probe=cfg.n_probe,
+                                         k=k, probes=probes)
+    g = index.graph._replace(edge_weight=index.boosted_weights)
+    gs = trav_mod.multi_hop_batch(g, si, sv, n_hops=1)
+    w = adaptive_weights(sv, base_wv=cfg.w_vector, base_wg=cfg.w_graph)
+    # rows gathered per query, as the delta's rescore (k + margin = 26)
+    # and the probe path's stage 2 (k chunks of 16 = 160) take them
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = {r: m.delta.vectors[torch.randint(
+        0, max(int(m.delta.count), 1), (q.shape[0], r), device="cuda",
+        generator=gen)] for r in (26, 160)}
+    out = {
+        "norm": rows_alone(index._norm_queries, raw),
+        "centroid_scores": rows_alone(
+            lambda x: partitioner.assign_topk(x, cents, cfg.n_probe), q),
+        "probe_scan_stage2": rows_alone(
+            lambda x, p: ivf_mod.search(m.ivf, x, n_probe=cfg.n_probe, k=k,
+                                        probes=p), q, probes),
+        "delta_rescore": rows_alone(
+            lambda x: delta_mod._scan_delta(m.delta, x, k=k), q),
+        "hops": rows_alone(
+            lambda s, i: trav_mod.multi_hop_batch(g, i, s, n_hops=1), sv, si),
+        "hops_same_twice": torch.equal(
+            gs, trav_mod.multi_hop_batch(g, si, sv, n_hops=1)),
+        "fusion": rows_alone(
+            lambda s, i, x, a, b: _fuse_candidates(
+                s, i, x, a, b, k_fuse=2 * k, frontier=3 * k),
+            sv, si, gs, w.w_vector, w.w_graph),
+        "info_lib_norm": rows_alone(
+            lambda x: torch.linalg.vector_norm(x, dim=-1), raw),
+        "info_lib_centroid_matmul": rows_alone(lambda x: x @ cents.T, q),
+        "info_lib_einsum_rescore_26": rows_alone(
+            lambda x, r: torch.einsum("qd,qrd->qr", x, r), q, rows[26]),
+        "info_lib_einsum_rescore_160": rows_alone(
+            lambda x, r: torch.einsum("qd,qrd->qr", x, r), q, rows[160]),
+    }
+    torch.cuda.synchronize()
+    return out
 
 
 def phase_hybrid():
@@ -576,7 +998,7 @@ def phase_hybrid():
     rng = np.random.default_rng(2)
     attr = rng.integers(0, 10, HYB_N)
     data_s = time.perf_counter() - t0
-    cfg = get_config("hmgi").replace(maint_auto=False)
+    cfg = get_config("hmgi")
     index = HMGIIndex(cfg, seed=0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -742,8 +1164,7 @@ def phase_rag(index, corpus) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     engine = RAGEngine(cfg, params, index, EngineConfig(
-        n_slots=RAG_SLOTS, max_seq=RAG_SEQ, retrieve_k=4, hops=1,
-        maintenance_interval=0))
+        n_slots=RAG_SLOTS, max_seq=RAG_SEQ, retrieve_k=4, hops=1))
     rng = np.random.default_rng(12)
     rows = rng.choice(HYB_N, RAG_REQUESTS, replace=False)
     queries = (corpus.vectors["text"][rows] + 0.05 * rng.normal(
@@ -800,12 +1221,18 @@ def phase_rag(index, corpus) -> dict:
               f"{news[i]} tokens")
     hist = obs.registry().histograms()
     dec, pre = hist["serving.decode_step"], hist["serving.prefill"]
+    stall, tick_h = hist["maintenance.stall"], hist["serving.tick"]
+    check(engine.maintenance is not None
+          and engine.stats["maintenance_runs"] == stall.count > 0,
+          f"rag: {engine.stats['maintenance_runs']} maintenance passes, "
+          f"{stall.count} stall spans")
     prompt_lens = [len(reqs[i].prompt) for i in range(RAG_REQUESTS)]
     n_tokens = sum(news)
     peak = torch.cuda.max_memory_allocated()
 
-    # for information, not a gate: byte identity of retrieval across batch
-    # sizes, and the bf16 full-depth streams against sequential decode
+    # retrieval's bytes do not depend on the batch (the serving contract):
+    # 8 requests batched against each alone, and stage by stage; the bf16
+    # full-depth streams against sequential decode are for information
     plan = RetrievalPlan(modality="text", k=4, n_hops=1)
     n_info = min(8, RAG_REQUESTS)
     sv, si = run_plan(index, plan, queries[:n_info])
@@ -813,7 +1240,12 @@ def phase_rag(index, corpus) -> dict:
     bytes_same = all(sv[i].tobytes() == solo[i][0].tobytes()
                      and si[i].tobytes() == solo[i][1].tobytes()
                      for i in range(n_info))
-    ids_same = all((si[i] == solo[i][1]).all() for i in range(n_info))
+    stages = stage_bytes(index, queries[:n_info])
+    line("rag.stage_bytes", queries=n_info, **stages)
+    check(bytes_same, "rag: search_many gave 8 requests other bytes batched "
+                      f"than alone (stages: {stages})")
+    check(all(v for k, v in stages.items() if not k.startswith("info_")),
+          f"rag: a retrieval stage depends on its batch: {stages}")
     seq_same = [sequential_decode(cfg, params, reqs[i].prompt, news[i],
                                   RAG_SEQ) == reqs[i].generated
                 for i in range(n_info // 2)]
@@ -831,13 +1263,19 @@ def phase_rag(index, corpus) -> dict:
                          n=pre.count),
          decode_tick_ms=dict(p50=dec.percentile(50), p99=dec.percentile(99),
                              n=dec.count),
+         tick_ms=dict(p50=tick_h.percentile(50), p99=tick_h.percentile(99),
+                      n=tick_h.count),
+         maintenance_stall_ms=dict(p50=stall.percentile(50),
+                                   p99=stall.percentile(99), n=stall.count,
+                                   interval=engine.cfg.maintenance_interval,
+                                   budget_rows=engine.cfg
+                                   .maintenance_budget_rows),
          decode_tokens_per_s_8_slots=RAG_SLOTS / (dec.percentile(50) / 1e3),
          run_s=run_s, tokens_per_s=n_tokens / run_s, ticks=ticks,
          launches=launches, peak_mem_gib=peak / 2 ** 30, tick_profile=prof,
          decode_kernel_in_tick=dec_prof if dec_prof is not None
          else "not measured (the profiler saw no kernels)",
-         info_search_many_bytes_identical_8_vs_1=bytes_same,
-         info_search_many_ids_identical_8_vs_1=ids_same,
+         search_many_bytes_identical_8_vs_1=bytes_same,
          info_bf16_streams_equal_sequential=seq_same)
     del engine, params
     torch.cuda.empty_cache()
@@ -1122,8 +1560,12 @@ def main():
     small_seg_err = measure_segment_small()
     ops.probe_scan.launches = 0
     ops.shared_scan.launches = 0
-    delta_cap, delta_live = phase_vector()
+    index, corpus, delta_cap, delta_live = phase_vector()
     after_vector = (ops.probe_scan.launches, ops.shared_scan.launches)
+    phase_maint(index, corpus)
+    after_maint = (ops.probe_scan.launches, ops.shared_scan.launches)
+    del index, corpus
+    torch.cuda.empty_cache()
     index, corpus = phase_hybrid()
     launches = {"probe": ops.probe_scan.launches,
                 "shared": ops.shared_scan.launches}
@@ -1138,8 +1580,10 @@ def main():
         kern["shared"] = measure_shared(delta_cap, delta_live)
     kern["segment"], gnn_launches = phase_gnn(small_seg_err)
     line("launches", vector=dict(zip(("probe", "shared"), after_vector)),
-         hybrid={"probe": launches["probe"] - after_vector[0],
-                 "shared": launches["shared"] - after_vector[1]},
+         maint={"probe": after_maint[0] - after_vector[0],
+                "shared": after_maint[1] - after_vector[1]},
+         hybrid={"probe": launches["probe"] - after_maint[0],
+                 "shared": launches["shared"] - after_maint[1]},
          rag=rag, gnn={"segment_sum": gnn_launches})
     src = "src/repro_torch/kernels/ivf_topk/csrc/ivf_topk.cu"
     kernels = [

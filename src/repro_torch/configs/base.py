@@ -67,7 +67,8 @@ class HMGIConfig:
     cost_alpha: float = 1.0
     cost_beta: float = 0.01
     cost_gamma: float = 0.1
-    # adaptive maintenance (not ported yet: the port needs maint_auto=False)
+    # adaptive maintenance (maintenance/): maint_auto routes insert/delete
+    # through HMGIIndex.maintain's bounded passes instead of compact()
     maint_auto: bool = True
     maint_budget_rows: int = 1024
     maint_chunk: int = 256

@@ -6,13 +6,12 @@ into the port.
 ``np.asarray`` (so this module never touches JAX), and returns a port
 ``HMGIIndex`` holding the same bytes: the int8 slabs, vmin/scale, ids and
 counts, the centroids (parked sentinels included), every ``DeltaStore``
-field, the fp32 master vectors and ids, the workload hits, the graph CSR,
-communities, boosted weights and attribute columns.
+field, the fp32 master vectors and ids, the workload hits, the write-time
+partition statistics (``stats/*``), the graph CSR, communities, boosted
+weights and attribute columns.
 
 What does not carry over:
 
-- ``stats/*`` (write-time partition statistics) are accepted and dropped:
-  ``PartitionStats`` is not ported yet (ROADMAP Queue 1 item 11).
 - ``nsw/*`` and ``sparse/*`` raise ``NotImplementedError`` (item 10).
 - The JAX PRNG key cannot seed a ``torch.Generator``: the port's generator
   is reseeded from ``seed``, so later random draws (none on the search
@@ -53,8 +52,10 @@ def index_from_jax_state(tree: Dict[str, np.ndarray], meta: Dict[str, object],
             raise NotImplementedError(
                 f"state key {key!r}: NSW and sparse-rerank state are not "
                 "ported to repro_torch yet (ROADMAP.md Queue 1 item 10)")
-    tree = {k: np.asarray(v) for k, v in tree.items()
-            if "/stats/" not in k}
+    cpu = torch.device("cpu")
+    # bfloat16 leaves (a 16-bit slab) have no numpy dtype torch reads
+    tree = {k: (_leaf(v, cpu) if np.asarray(v).dtype.name == "bfloat16"
+                else np.asarray(v)) for k, v in tree.items()}
     index = HMGIIndex(cfg or get_config("hmgi"), seed=seed, device=device)
     index.restore_state(tree, meta)
     return index

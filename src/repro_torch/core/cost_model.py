@@ -200,7 +200,7 @@ def plan_fusion(n_nodes: int, k: int, c_in: int) -> FusionPlan:
 
 
 # ---------------------------------------------------------------------------
-# adaptive index maintenance planning (the maintenance executor consumes this; not in this package yet)
+# adaptive index maintenance planning (maintenance/executor.py consumes this)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)

@@ -30,6 +30,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.common.reduce import row_dot
+from repro_torch.common.topk import top_k
 from repro_torch.core import ivf as ivf_mod
 from repro_torch.core.graph_store import mask_pass
 from repro_torch.core.ivf import IVFIndex
@@ -207,11 +209,11 @@ def _scan_delta(delta: DeltaStore, queries: torch.Tensor, *, k: int,
                                        delta.qscale, valid, k=k_scan, chunk=1)
     rows = qrows.clamp(0, cap - 1).long()
     vecs = delta.vectors[rows]                                # (Q, k_scan, d)
-    exact = torch.einsum("qd,qrd->qr", q, vecs)
+    exact = row_dot(q[:, None, :], vecs)
     exact = torch.where((qrows >= 0) & torch.isfinite(qvals), exact,
                         float("-inf"))
     kk = min(k, exact.shape[1])
-    vals, pos = torch.topk(exact, kk, dim=1)
+    vals, pos = top_k(exact, kk)
     di = torch.gather(delta.ids[rows], 1, pos)
     di = torch.where(torch.isfinite(vals), di, -1)
     return pad_topk(vals, di, k)

@@ -19,6 +19,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.common.topk import top_k
+
 
 class FusionWeights(NamedTuple):
     w_vector: torch.Tensor   # (Q,) or scalar
@@ -75,7 +77,7 @@ def fuse_topk_sparse(cand_sim: torch.Tensor, cand_graph: torch.Tensor,
     axis; the caller owns the candidate-id mapping."""
     fused = fuse(cand_sim, cand_graph, weights, graph_max=graph_max,
                  valid=valid)
-    return torch.topk(fused, k, dim=-1)
+    return top_k(fused, k)
 
 
 def fuse_topk(vector_sim_full: torch.Tensor, graph_score: torch.Tensor,

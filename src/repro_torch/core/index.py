@@ -7,11 +7,15 @@ explicit ``device="cpu"`` runs on the CPU, where the scan kernels' plain
 versions take their place. Ids are global graph-node ids across all
 modalities, so vector hits seed traversals directly.
 
+Writes take the paper's adaptive path: write-time partition statistics
+(``maintenance.PartitionStats``) feed ``maintain``, which applies bounded
+drains, merges, splits and reclusters as slot surgery; with
+``cfg.maint_auto`` (the default) ``insert`` and ``delete`` trigger it, and
+``compact`` stays the stop-the-world fallback.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: the NSW refine lane and sparse rerank (Queue 1 item 10),
-adaptive maintenance (``maintain``, ``cfg.maint_auto=True``, item 11), a
-device mesh (item 15) and span traces (item 13). Write-time partition
-statistics (``PartitionStats``, item 11) are not kept.
+ROADMAP item: the NSW refine lane and sparse rerank (Queue 1 item 10), a
+device mesh and ``device_layout`` (item 15) and span traces (item 13).
 """
 from __future__ import annotations
 
@@ -23,22 +27,32 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.common.params import resolve_device
+from repro_torch.common.reduce import row_sum
+from repro_torch.common.topk import top_k
 from repro_torch.configs.base import HMGIConfig
 from repro_torch.core import community as comm_mod
 from repro_torch.core import delta as delta_mod
 from repro_torch.core import ivf as ivf_mod
 from repro_torch.core import partitioner
-from repro_torch.core.cost_model import CostModel, select_plan
+from repro_torch.core.cost_model import (CostModel, plan_maintenance,
+                                         select_plan)
 from repro_torch.core.fusion import FusionWeights, fuse_topk_sparse
 from repro_torch.core.graph_store import (GraphStore, NodeAttributes,
                                           from_edges as graph_from_edges,
                                           mask_pass)
 from repro_torch.core.partitioner import WorkloadStats
 from repro_torch.core.quantization import AdaptiveQuantPolicy
+from repro_torch.maintenance import MaintenanceReport, PartitionStats
 
 # repro_torch.query (planner/executor) imports core submodules at module
-# scope, so the facade imports it inside methods.
+# scope, so the facade imports it inside methods; the maintenance executor
+# is imported there too.
+
+
+# the host-side PartitionStats arrays a snapshot carries
+_STATS_FIELDS = ("baseline", "drift_sum", "drift_cnt", "dead", "parked")
 
 
 def _todo(what: str, item: str) -> NotImplementedError:
@@ -61,7 +75,7 @@ def _fuse_candidates(vs, vi, graph_scores, wv, wg, *, k_fuse: int,
 
     node_pass: optional (N,) bool predicate mask — excluded nodes are struck
     from both the seed and frontier candidate lanes."""
-    g_vals, g_ids = torch.topk(graph_scores, frontier, dim=1)       # (Q, F)
+    g_vals, g_ids = top_k(graph_scores, frontier)                   # (Q, F)
     g_ids = g_ids.to(torch.int32)
     n_nodes = graph_scores.shape[1]
     vi = vi.to(torch.int32)
@@ -99,6 +113,10 @@ class ModalityIndex:
     vectors: torch.Tensor       # fp32 master copy (compaction, cross-modal)
     ids: torch.Tensor           # (N,) global node ids
     workload: Optional[WorkloadStats] = None
+    # write-time per-partition maintenance statistics (heat lives in
+    # ``workload``; this adds delta pressure, tombstone ratio, drift) —
+    # consumed by cost_model.plan_maintenance via HMGIIndex.maintain
+    stats: Optional[PartitionStats] = None
     # True once any delete/update touched this modality: gates the MVCC
     # visibility pushdown in the scan (never reset — conservative)
     has_dead: bool = False
@@ -213,7 +231,9 @@ class HMGIIndex:
                 dstore = delta_mod.insert_grow(dstore, vecs[ov], ids[ov])
             self.modalities[mod] = ModalityIndex(
                 ivf=index, delta=dstore, vectors=vecs, ids=ids,
-                workload=WorkloadStats(k))
+                workload=WorkloadStats(k),
+                stats=PartitionStats.from_build(vecs, ids, index,
+                                                max_ids=max(n_nodes, 1)))
             lap("layout", t)
         if edges is not None:
             t = time.perf_counter()
@@ -243,11 +263,18 @@ class HMGIIndex:
                 self.n_nodes, node_attrs, device=self.device)
             self._bump_version()
 
+    def set_sparse_docs(self, docs):
+        raise _todo("the sparse-dense rerank lane (set_sparse_docs)", "10")
+
+    def device_layout(self, modality: str):
+        raise _todo("device layouts over a mesh (device_layout)", "15")
+
     # ----------------------------------------------------------------- search
     def _norm_queries(self, queries) -> torch.Tensor:
+        """Unit rows; the norm sums each row in ``row_sum``'s order, so a
+        query's bits do not depend on its batch."""
         q = self._tensor(queries, torch.float32)
-        return q / torch.clamp_min(
-            torch.linalg.vector_norm(q, dim=-1, keepdim=True), 1e-12)
+        return q / torch.clamp_min(row_sum(q * q).sqrt()[:, None], 1e-12)
 
     def _node_pass(self, where) -> Optional[torch.Tensor]:
         """Compiles a where clause against the attribute store -> (N,) bool."""
@@ -351,34 +378,44 @@ class HMGIIndex:
         return fvals[:, :k], fids[:, :k]
 
     # ----------------------------------------------------------------- update
-    def _no_auto_maintenance(self) -> None:
-        if self.cfg.maint_auto:
-            raise _todo("adaptive maintenance (cfg.maint_auto=True); set "
-                        "maint_auto=False for compaction on the write path",
-                        "11")
-
-    def maintain(self, *args, **kwargs):
-        raise _todo("adaptive maintenance", "11")
+    def _record_dead(self, m: ModalityIndex, ids32: torch.Tensor):
+        """Maintenance stats: ids whose stable row just became invisible
+        (tombstoned or superseded). Counts only freshly dead ids — an id
+        already hidden must not inflate the partition's dead counter."""
+        if m.stats is None or not ids32.numel():
+            return
+        c = ids32.clamp(0, m.delta.tombstones.shape[0] - 1).long()
+        fresh = ~(m.delta.tombstones[c] | m.delta.superseded[c])
+        m.stats.record_dead(ids32[fresh].cpu().numpy(), m.ivf)
 
     def insert(self, modality: str, ids, vectors):
-        """Insert-or-update a batch (the ``cfg.maint_auto=False`` path).
+        """Insert-or-update a batch.
 
         ids: (B,) global node ids; vectors: (B, d_m) — L2-normalised here.
         Existing ids are superseded (MVCC update path): the stable row is
         hidden, the fp32 master row is rewritten in place, and the new
-        version lands in the delta. When the delta lacks room or crosses the
-        compaction threshold, the modality is compacted. Writes are never
-        dropped."""
-        self._no_auto_maintenance()
+        version lands in the delta. When the delta lacks room (or crosses
+        the compaction threshold), ``cfg.maint_auto`` routes the work
+        through ``maintain`` — bounded incremental drains instead of a
+        stop-the-world ``compact`` — growing the delta only if maintenance
+        could not free enough slots. Writes are never dropped."""
         with self._write_lock:
             self._insert_locked(modality, ids, vectors)
 
     def _insert_locked(self, modality: str, ids, vectors):
         m = self.modalities[modality]
         v = self._norm_queries(vectors)
-        # free delta room before any visibility change
+        # free delta room BEFORE any visibility change: a forced drain here
+        # still sees consistent MVCC state. Draining after supersede() would
+        # move the id's *old* delta version into stable and clear its
+        # superseded bit — then appending the new version would leave two
+        # visible copies (the stale one served from stable).
         if delta_mod.free_slots(m.delta) < v.shape[0]:
-            self._compact_locked(modality)
+            if self.cfg.maint_auto:
+                self.maintain(modality, need_rows=v.shape[0]
+                              - delta_mod.free_slots(m.delta))
+            else:
+                self._compact_locked(modality)
             m = self.modalities[modality]
         ids32 = self._tensor(ids, torch.int32)
         ids_np = ids32.cpu().numpy()
@@ -393,6 +430,7 @@ class HMGIIndex:
         if upd_mask.any():
             upd = torch.as_tensor(upd_mask, device=self.device)
             m.has_dead = True
+            self._record_dead(m, ids32[upd])
             m.delta = delta_mod.supersede(m.delta, ids32[upd])
             rows = torch.as_tensor(order[pos_c[upd_mask]], device=self.device)
             # in place: the master copy is this modality's own tensor
@@ -403,31 +441,161 @@ class HMGIIndex:
             m.ids = torch.cat([m.ids, ids32[sel]])
             with self._cache_lock:
                 m.id_rows = None    # new ids -> the row cache is stale
+        # never drop writes: insert_grow widens the store if the (already
+        # drained, above) delta still lacks room for the batch
         m.delta = delta_mod.insert_grow(m.delta, v, ids32)
+        if m.stats is not None:
+            a, d2 = partitioner.assign_with_distance(v, m.ivf.centroids)
+            m.stats.record_writes(a.cpu().numpy(), d2.cpu().numpy())
         if delta_mod.should_compact(m.delta, self.cfg.compact_threshold):
-            self._compact_locked(modality)
+            if self.cfg.maint_auto:
+                self.maintain(modality)
+            else:
+                self._compact_locked(modality)
         self._bump_version()
 
     def delete(self, modality: str, ids):
         """Tombstones the ids in ``modality``: the rows vanish from every
-        scan path at once and are purged by compaction."""
-        self._no_auto_maintenance()
+        scan path at once and are purged by maintenance or compaction.
+        With ``cfg.maint_auto`` a maintenance pass follows, so hollowed-out
+        partitions eventually merge away."""
         with self._write_lock:
             m = self.modalities[modality]
+            ids32 = self._tensor(ids, torch.int32)
+            self._record_dead(m, ids32)
             m.has_dead = True
-            m.delta = delta_mod.delete(m.delta, self._tensor(ids, torch.int32))
+            m.delta = delta_mod.delete(m.delta, ids32)
             self._bump_version()
+            if self.cfg.maint_auto:
+                self.maintain(modality)
 
     def compact(self, modality: str):
         """Full compaction: merge the whole delta into the stable store in
-        one synchronous rebuild against the existing centroids."""
+        one synchronous rebuild against the existing centroids. The adaptive
+        path (``maintain`` / ``cfg.maint_auto``) drains the delta in bounded
+        chunks instead; this stays the one-shot fallback."""
         with self._write_lock:
             self._compact_locked(modality)
 
     def _compact_locked(self, modality: str):
         m = self.modalities[modality]
         m.ivf, m.delta = delta_mod.compact(m.ivf, m.delta, m.vectors, m.ids)
+        if m.stats is not None:
+            # the rebuild dropped every dead stable row and re-packed slots
+            m.stats.dead[:] = 0
+            m.stats.invalidate_slab()
         self._bump_version()
+
+    def maybe_repartition(self, modality: str) -> bool:
+        """Workload-aware online adjustment (paper §3.2), as bounded work.
+
+        When the probe-heat tracker reports imbalance, the hottest
+        partition is split in place by the maintenance executor: a local
+        K=2 fit over that partition's stored rows, moved byte-identically
+        between the hot slab and a freed partition (merging the coldest
+        away first when none is parked). Only the hot partition's rows move
+        — no full rebuild, and survivors that don't fit anywhere are routed
+        to the delta, never dropped. Returns True if a split was applied."""
+        from repro_torch.maintenance import executor as maint_exec
+        with self._write_lock:
+            m = self.modalities[modality]
+            if m.workload is None or not m.workload.should_repartition():
+                return False
+            # a parked partition's pre-merge hits must not win the argmax
+            # (its heat is never reset on merge) and suppress the real hot
+            # split
+            hits = m.workload.hits_snapshot()
+            if m.stats is not None:
+                hits = np.where(m.stats.parked, -1, hits)
+            hot = int(np.argmax(hits))
+            res = maint_exec.split_hot(m, self.cfg, self.generator, m.stats,
+                                       hot)
+            m.workload.reset()
+            self._bump_version()
+            return bool(res.get("moved", 0))
+
+    def maintain(self, modality: Optional[str] = None,
+                 budget: Optional[int] = None, *, need_rows: int = 0):
+        """One adaptive-maintenance pass: plan cost-worthy actions from the
+        write-time partition statistics and apply them as bounded-work
+        steps.
+
+        budget: row budget for this pass (default ``cfg.maint_budget_rows``)
+        — the planner picks the best benefit/row actions that fit.
+        need_rows: caller must free at least this many delta slots (the
+        insert path's never-drop-a-write hook); forces drain chunks ahead
+        of the budget.
+
+        Returns the ``MaintenanceReport`` for ``modality`` (or a dict of
+        reports over all modalities when ``modality`` is None). The applied
+        decision trail is also surfaced in ``metrics()['maintenance']``.
+
+        Obs: the pass's wall time lands in the ``index.maintain`` histogram
+        (write-path stall, since maintenance runs inline with mutations);
+        each applied action bumps ``maintenance.actions.<kind>`` and its
+        moved/drained/reclaimed rows accumulate in
+        ``maintenance.rows_moved``."""
+        with obs.span("index.maintain"), self._write_lock:
+            return self._maintain_locked(modality, budget,
+                                         need_rows=need_rows)
+
+    def _maintain_locked(self, modality: Optional[str] = None,
+                         budget: Optional[int] = None, *,
+                         need_rows: int = 0):
+        from repro_torch.maintenance import executor as maint_exec
+        cfg = self.cfg
+        budget = cfg.maint_budget_rows if budget is None else int(budget)
+        if budget <= 0 and need_rows <= 0:
+            # an explicit zero budget is "no optional work", not "default"
+            return ({m: MaintenanceReport(m) for m in self.modalities}
+                    if modality is None else MaintenanceReport(modality))
+        reports: Dict[str, MaintenanceReport] = {}
+        for mod in ([modality] if modality else list(self.modalities)):
+            m = self.modalities[mod]
+            if m.stats is None:
+                m.stats = PartitionStats.from_build(
+                    m.vectors, m.ids, m.ivf,
+                    max_ids=int(m.delta.tombstones.shape[0]))
+            heat = None if m.workload is None else m.workload.hits_snapshot()
+            actions = plan_maintenance(
+                m.stats.summarize(m, heat),
+                budget_rows=budget,
+                chunk=cfg.maint_chunk, need_rows=need_rows,
+                delta_pressure=cfg.maint_delta_pressure,
+                heat_imbalance=cfg.maint_heat_imbalance,
+                split_min_fill=cfg.maint_split_min_fill,
+                merge_max_fill=cfg.maint_merge_max_fill,
+                drift_threshold=cfg.maint_drift_threshold)
+            report = MaintenanceReport(mod)
+            skip_chunks = False
+            for act in actions:
+                if act.kind == "compact_chunk" and skip_chunks:
+                    continue
+                res = maint_exec.apply(m, cfg, self.generator, m.stats, act)
+                report.actions.append((act, res))
+                obs.counter(f"maintenance.actions.{act.kind}").inc()
+                obs.counter("maintenance.rows_moved").inc(
+                    res.get("drained", 0) + res.get("moved", 0)
+                    + res.get("reclaimed", 0))
+                if act.kind == "compact_chunk" and not (
+                        res.get("drained", 0) or res.get("reclaimed", 0)):
+                    # every target partition is full (or the delta emptied):
+                    # further chunks this pass would spin without progress
+                    skip_chunks = True
+                if (act.kind == "split_hot" and res.get("ivf_changed", False)
+                        and m.workload is not None):
+                    m.workload.reset()
+            reports[mod] = report
+        trail = "; ".join(r.describe() for r in reports.values()
+                          if not r.is_noop)
+        if trail:
+            # the latest *applied* decision trail (a no-op pass leaves the
+            # last real decision visible — that is the interesting one)
+            self._metrics["maintenance"] = trail
+            # only an *applied* pass can change results: a no-op plan must
+            # not invalidate serving caches (MaintenanceDriver ticks constantly)
+            self._bump_version()
+        return reports[modality] if modality else reports
 
     # ------------------------------------------------------- durability state
     # The complete state as a flat {key: tensor} dict + JSON-able metadata,
@@ -459,13 +627,17 @@ class HMGIIndex:
                 tree[f"{p}/ids"] = m.ids
                 if m.workload is not None:
                     tree[f"{p}/workload_hits"] = m.workload.hits_snapshot()
+                if m.stats is not None:
+                    for f in _STATS_FIELDS:
+                        tree[f"{p}/stats/{f}"] = getattr(m.stats, f).copy()
                 meta["modalities"][mod] = {
                     "bits": int(m.ivf.bits),
                     "has_dead": bool(m.has_dead),
                     "nsw": False,
                     "workload": m.workload is not None,
-                    "stats": False,
-                    "stats_max_ids": 0,
+                    "stats": m.stats is not None,
+                    "stats_max_ids": (int(m.stats.max_ids)
+                                      if m.stats is not None else 0),
                 }
             if self.graph is not None:
                 for f in GraphStore._fields:
@@ -485,9 +657,9 @@ class HMGIIndex:
         """Rebuilds this (freshly constructed) index from ``state_tree``
         output — tensors or numpy arrays, on any device — onto this index's
         device. A "key" that is not a torch.Generator state (a reference
-        JAX PRNG key) reseeds the generator from ``seed`` instead.
-        ``stats/*`` entries are accepted and dropped (partition statistics
-        are not ported yet); NSW and sparse-document state raise."""
+        JAX PRNG key) reseeds the generator from ``seed`` instead. The
+        partition statistics (``stats/*``, host numpy) keep their stored
+        dtypes; NSW and sparse-document state raise."""
         for mod, mm in meta["modalities"].items():
             if mm.get("nsw"):
                 raise _todo(f"NSW state (modality {mod!r})", "10")
@@ -526,6 +698,11 @@ class HMGIIndex:
             if mm["workload"]:
                 m.workload = WorkloadStats(ivf.n_partitions)
                 m.workload.load_hits(np.asarray(tree[f"{p}/workload_hits"]))
+            if mm["stats"]:
+                st = PartitionStats(ivf.n_partitions, int(mm["stats_max_ids"]))
+                for f in _STATS_FIELDS:
+                    setattr(st, f, np.array(tree[f"{p}/stats/{f}"], copy=True))
+                m.stats = st
             self.modalities[mod] = m
         self.graph = (GraphStore(**{f: t(tree[f"graph/{f}"])
                                     for f in GraphStore._fields})
@@ -545,7 +722,9 @@ class HMGIIndex:
     # ------------------------------------------------------------------ stats
     def metrics(self) -> Dict[str, object]:
         """Execution-side observability: the filter selectivity/mode of the
-        last filtered seed scan and the stage times of the last ingest."""
+        last filtered seed scan, the stage times of the last ingest, and the
+        latest applied maintenance decision trail under ``"maintenance"``
+        (one line per modality acted on)."""
         return dict(self._metrics)
 
     def memory_usage(self) -> Dict[str, int]:

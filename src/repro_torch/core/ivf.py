@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.common.topk import top_k
 from repro_torch.core import partitioner
 from repro_torch.core.graph_store import mask_pass
 from repro_torch.core.quantization import _unpack4, quantize
@@ -253,7 +254,7 @@ def search(index: IVFIndex, queries: torch.Tensor, *, n_probe: int, k: int,
         scores = torch.where(_row_valid(bids), scores, float("-inf"))
         flat = scores.reshape(qs.shape[0], -1)
         fids = bids.reshape(qs.shape[0], -1)
-        vals, pos = torch.topk(flat, min(k, flat.shape[1]), dim=1)
+        vals, pos = top_k(flat, min(k, flat.shape[1]))
         ids = torch.where(torch.isfinite(vals), torch.gather(fids, 1, pos), -1)
         vals, ids = pad_topk(vals, ids, k)
         out_v.append(vals)
@@ -266,7 +267,7 @@ def brute_force(vectors: torch.Tensor, valid: torch.Tensor, ids: torch.Tensor,
     """Monolithic-baseline / delta-store scoring: exact matmul + top-k."""
     scores = queries.to(torch.float32) @ vectors.to(torch.float32).T
     scores = torch.where(valid[None, :], scores, float("-inf"))
-    vals, pos = torch.topk(scores, min(k, vectors.shape[0]), dim=1)
+    vals, pos = top_k(scores, min(k, vectors.shape[0]))
     return vals, ids[pos]
 
 
@@ -274,7 +275,7 @@ def merge_topk(scores_a, ids_a, scores_b, ids_b, k: int):
     """Exact merge of two descending top-k lists. Assumes disjoint id sets."""
     s = torch.cat([scores_a, scores_b], dim=-1)
     i = torch.cat([ids_a, ids_b], dim=-1)
-    vals, pos = torch.topk(s, k, dim=-1)
+    vals, pos = top_k(s, k)
     return vals, torch.gather(i, -1, pos)
 
 
@@ -292,5 +293,5 @@ def dedup_merge_topk(scores_a, ids_a, scores_b, ids_b, k: int):
                          diagonal=-1)
     is_dup = ((i[..., :, None] == i[..., None, :]) & earlier).any(dim=-1)
     s = torch.where(is_dup | (i < 0), float("-inf"), s)
-    vals, pos = torch.topk(s, k, dim=-1)
+    vals, pos = top_k(s, k)
     return vals, torch.gather(i, -1, pos)

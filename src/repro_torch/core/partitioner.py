@@ -23,6 +23,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.common.reduce import row_dot
+from repro_torch.common.topk import top_k
+
 
 class KMeansState(NamedTuple):
     centroids: torch.Tensor     # (K, d)
@@ -41,8 +44,12 @@ def assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
 
 
 def assign_topk(x: torch.Tensor, centroids: torch.Tensor, k: int):
-    """Top-k nearest centroids (used for n_probe partition selection)."""
-    vals, idx = torch.topk(_scores(x, centroids), k, dim=-1)
+    """Top-k nearest centroids (used for n_probe partition selection). The
+    query rows are scored in ``row_dot``'s order (one (Q, K, d) product):
+    a query's probes and their order do not depend on its batch."""
+    half_sq = 0.5 * torch.sum(centroids * centroids, dim=-1)
+    scores = row_dot(x[:, None, :], centroids[None, :, :]) - half_sq[None, :]
+    vals, idx = top_k(scores, k)
     return idx.to(torch.int32), vals
 
 
@@ -156,3 +163,37 @@ class WorkloadStats:
     def reset(self):
         with self._lock:
             self.hits[:] = 0
+
+
+def split_two(members: torch.Tensor, n_iters: int = 8, *,
+              generator: Optional[torch.Generator] = None,
+              init_idx: Optional[torch.Tensor] = None):
+    """K=2 Lloyd's fit over one partition's members — the local step behind
+    an incremental split (``maintenance/executor.py``). Returns
+    ``(centroids (2, d), assignment (n,))``; only the members move, never
+    the rest of the corpus. ``init_idx`` / ``generator`` seed the fit as in
+    ``fit``."""
+    sub = fit(members, 2, n_iters, generator=generator, init_idx=init_idx)
+    return sub.centroids, assign(members, sub.centroids)
+
+
+def split_hot_partition(x: torch.Tensor, state: KMeansState, hot: int, *,
+                        generator: Optional[torch.Generator] = None,
+                        init_idx: Optional[torch.Tensor] = None
+                        ) -> KMeansState:
+    """Legacy stop-the-world split: re-fit K=2 on the hot partition's
+    members and overwrite the (hot, coldest) centroids; the caller then
+    rebuilds the whole slab against the new centroid set. Superseded by the
+    bounded-work split in ``maintenance.executor`` (which moves only the
+    hot partition's rows, byte-identically) — kept as the reference
+    implementation."""
+    a = assign(x, state.centroids)
+    members = x[a == hot]
+    if members.shape[0] < 2:
+        return state
+    sub = fit(members, 2, 8, generator=generator, init_idx=init_idx)
+    cents = state.centroids.clone()
+    cold = int(torch.argmin(state.counts))
+    cents[hot] = sub.centroids[0]
+    cents[cold] = sub.centroids[1]
+    return KMeansState(cents, state.counts, state.inertia)

@@ -71,6 +71,8 @@ def _expand(a: torch.Tensor, seed: torch.Tensor, n_hops: int,
         if nm is not None:
             nxt = nxt * nm[:, None]
         if top_m:
+            # only the m-th value is used, so the order among ties
+            # (which torch.topk leaves open) does not matter here
             kth = torch.topk(nxt, min(top_m, n), dim=0).values[-1]
             nxt = torch.where(nxt >= kth[None, :], nxt, 0.0)
         out.append(nxt)

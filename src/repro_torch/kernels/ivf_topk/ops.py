@@ -28,6 +28,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.common.reduce import row_dot, row_sum
+from repro_torch.common.topk import top_k
 from repro_torch.kernels import _build
 from repro_torch.kernels.ivf_topk import ref
 from repro_torch.kernels.ivf_topk.ref import NEG, pad_topk, topk_from_chunks
@@ -236,7 +238,7 @@ def scan_topk_quantized(queries: torch.Tensor, data_i8: torch.Tensor,
     bool. Returns (scores (Q, k), row ids (Q, k)) — descending, -inf/-1
     padded."""
     q = queries.to(torch.float32).contiguous()
-    qsum = q.sum(dim=-1)
+    qsum = row_sum(q)
     aff = 128.0 * scale + vmin
     bias = torch.where(valid, 0.0, NEG).to(torch.float32)
     cmax, carg = shared_scan(q, qsum, data_i8.contiguous(), aff.contiguous(),
@@ -258,7 +260,7 @@ def scan_topk_probe(queries: torch.Tensor, slab: torch.Tensor,
     slab axis; -inf/-1 padded."""
     q = queries.to(torch.float32).contiguous()
     nq = q.shape[0]
-    qsum = q.sum(dim=-1)
+    qsum = row_sum(q)
     aff = 128.0 * scale + vmin
     probes = probes.to(torch.int32).contiguous()
     cmax, _ = probe_scan(q, qsum, slab, aff.contiguous(), scale.contiguous(),
@@ -268,7 +270,7 @@ def scan_topk_probe(queries: torch.Tensor, slab: torch.Tensor,
     # query's own rows j·cap + [c·chunk, min((c + 1)·chunk, cap))
     nchp = -(-cap // chunk)
     kc = min(k, cmax.shape[1])
-    _, cpos = torch.topk(cmax, kc, dim=1)                            # (Q, kc)
+    _, cpos = top_k(cmax, kc)                                        # (Q, kc)
     cpos = cpos.to(torch.int64)
     within = ((cpos % nchp)[:, :, None] * chunk
               + torch.arange(chunk, device=q.device)[None, None, :])
@@ -279,9 +281,9 @@ def scan_topk_probe(queries: torch.Tensor, slab: torch.Tensor,
             + rows % cap)
     dsel = slab[srow].to(torch.float32)                              # (Q, R, d)
     ssel, vsel, bsel = scale[srow], vmin[srow], bias[srow]
-    dots = torch.einsum("qd,qrd->qr", q, dsel)
+    dots = row_dot(q[:, None, :], dsel)
     scores = dots * ssel + qsum[:, None] * (128.0 * ssel + vsel) + bsel
     scores = torch.where(inside, scores, NEG)
-    vals, pos = torch.topk(scores, min(k, scores.shape[1]), dim=1)
+    vals, pos = top_k(scores, min(k, scores.shape[1]))
     out_rows = torch.gather(rows, 1, pos).to(torch.int32)
     return _dead_to_pad(vals, out_rows, k)

@@ -26,6 +26,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.common.topk import top_k
+
 NEG = -3e38   # additive mask bias (sign-safe, unlike -inf)
 
 
@@ -164,6 +166,6 @@ def topk_from_chunks(chunk_max_: torch.Tensor, chunk_arg: torch.Tensor, k: int):
 
     Clamps k to the available chunk count and pads (-inf, -1)."""
     kk = min(k, chunk_max_.shape[-1])
-    vals, pos = torch.topk(chunk_max_, kk, dim=-1)
+    vals, pos = top_k(chunk_max_, kk)
     ids = torch.gather(chunk_arg, -1, pos)
     return pad_topk(vals, ids, k)

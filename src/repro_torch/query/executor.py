@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.common.reduce import row_dot
+from repro_torch.common.topk import top_k
 from repro_torch.core import delta as delta_mod
 from repro_torch.core import graph_store as graph_mod
 from repro_torch.core import ivf as ivf_mod
@@ -40,7 +42,7 @@ _NEG_INF = float("-inf")
 def _topk_state(sv: torch.Tensor, si: torch.Tensor, k: int) -> State:
     """Top-k scores descending, ids gathered along, −1 wherever the score is
     −inf (empty slots must never leak a masked id)."""
-    vals, pos = torch.topk(sv, k, dim=1)
+    vals, pos = top_k(sv, k)
     ids = torch.gather(si, 1, pos)
     return vals, torch.where(torch.isfinite(vals), ids, -1)
 
@@ -156,7 +158,7 @@ def _rescore(q2, vectors, rows, tombstones, sv, si, weight: float):
     present = (si >= 0) & (rr >= 0)
     present = present & ~tombstones[si.clamp(0, tombstones.shape[0] - 1).long()]
     vecs = vectors[rr.clamp(0, vectors.shape[0] - 1).long()]      # (Q, C, d2)
-    sim2 = torch.einsum("qd,qcd->qc", q2, vecs)
+    sim2 = row_dot(q2[:, None, :], vecs)
     sim2 = torch.where(present, sim2, 0.0)
     new = torch.where(torch.isfinite(sv), (1.0 - weight) * sv + weight * sim2,
                       _NEG_INF)

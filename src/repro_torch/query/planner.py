@@ -11,7 +11,7 @@ the cost model (core/cost_model.py), as the reference planner does:
 - **Probe widths** — the explicit ``n_probe`` wins, else a ``min_recall``
   constraint resolves through ``select_plan``, else the config default;
   clamped to the *live* (unparked) partition count, read from the
-  centroids. Seed scan width is ``plan_seed_width``.
+  modality's ``PartitionStats``. Seed scan width is ``plan_seed_width``.
 - **Fusion representation** — per traverse stage, ``plan_fusion`` chooses
   candidate-sparse vs dense fusion; ``fusion_repr`` forces a choice.
 
@@ -24,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core import partitioner
@@ -140,7 +141,8 @@ def compile_plan(index, plan, *, k: Optional[int] = None,
                                   min_recall=vs.min_recall).n_probe
         # parked partitions hold no rows and their sentinel centroids rank
         # last: clamping to the live count scans exactly the same rows
-        n_live = partitioner.live_partitions(m.ivf.centroids)
+        n_live = (int(np.sum(~m.stats.parked)) if m.stats is not None
+                  else partitioner.live_partitions(m.ivf.centroids))
         n_probe = min(int(n_probe or cfg.n_probe), max(n_live, 1))
         k_seed = plan_seed_width(k, downstream)
         fplan = None

@@ -17,10 +17,12 @@ index and attends only to its own history, so a batched tick produces the
 tokens sequential per-request decoding would. The decode attention of
 every layer of every tick runs the CUDA flash-decode kernel on the card.
 
-The reference's ``jax.jit`` calls are eager calls here. Adaptive index
-maintenance between ticks needs ``HMGIIndex.maintain``, which the port
-does not have yet (ROADMAP Queue 1 item 11): with an index attached and
-``maintenance_interval > 0`` the constructor raises.
+With an index attached and ``maintenance_interval > 0``, a
+``MaintenanceDriver`` runs one bounded ``HMGIIndex.maintain`` pass every
+``maintenance_interval``-th tick, between admission and the decode step:
+ingest-while-search pays a small constant tax per tick instead of rare
+full-compaction stalls. The reference's ``jax.jit`` calls are eager calls
+here.
 """
 from __future__ import annotations
 
@@ -36,7 +38,8 @@ from repro_torch.models import lm
 from repro_torch.serving.cache import HotResultCache
 from repro_torch.serving.retrieval import RetrievalPlan, RetrievalService
 from repro_torch.serving.scheduler import (AdmissionController,
-                                           ContinuousBatcher, Request)
+                                           ContinuousBatcher,
+                                           MaintenanceDriver, Request)
 
 
 @dataclasses.dataclass
@@ -45,10 +48,12 @@ class EngineConfig:
     max_seq: int = 256
     retrieve_k: int = 4
     hops: int = 1
-    # adaptive index maintenance between decode steps (0 = off). Not ported
-    # (nor its budget and snapshot pacing): an engine with an index needs
-    # maintenance_interval=0
+    # adaptive index maintenance between decode steps (0 = off): every
+    # maintenance_interval-th tick runs index.maintain(budget=...) so
+    # ingest-while-search pays bounded work per tick, never a full rebuild
+    # (snapshot pacing waits for persistence, ROADMAP Queue 1 item 12)
     maintenance_interval: int = 4
+    maintenance_budget_rows: int = 256
     # retrieval path (RetrievalService): micro-batch retrievals through the
     # pow2-bucketed (Q, k) entry, with an optional version-invalidated
     # hot-result cache (0 = no cache)
@@ -72,11 +77,6 @@ class RAGEngine:
             raise ValueError(f"RAGEngine: lm_params live on "
                              f"{lm_params['embed'].device}, the engine on "
                              f"{self.device}")
-        if index is not None and cfg.maintenance_interval > 0:
-            raise NotImplementedError(
-                "RAGEngine with an index and maintenance_interval > 0 needs "
-                "HMGIIndex.maintain, which is not ported to repro_torch yet "
-                "(ROADMAP.md Queue 1 item 11); pass maintenance_interval=0")
         self.lm_cfg = lm_cfg
         self.params = lm_params
         self.index = index
@@ -93,7 +93,12 @@ class RAGEngine:
         self._cache = lm.init_cache(lm_cfg, cfg.n_slots, clen,
                                     device=self.device)
         self._tokens = np.zeros((cfg.n_slots,), np.int32)
-        self.stats = {"ticks": 0, "tokens": 0, "retrievals": 0}
+        self.maintenance = (
+            MaintenanceDriver(index, cfg.maintenance_budget_rows,
+                              cfg.maintenance_interval)
+            if index is not None and cfg.maintenance_interval > 0 else None)
+        self.stats = {"ticks": 0, "tokens": 0, "retrievals": 0,
+                      "maintenance_runs": 0}
 
     # -- query embedding (mean-pooled token embeddings) -----------------------
     def embed_queries(self, token_batch: np.ndarray) -> np.ndarray:
@@ -165,6 +170,12 @@ class RAGEngine:
             for slot in admitted:
                 req = self.batcher.requests[self.batcher.slots[slot].rid]
                 self._prefill_slot(slot, req.prompt)
+            if self.maintenance is not None:
+                # between decode steps: one bounded maintenance step keeps
+                # ingest-while-search from ever paying a full compaction
+                # stall
+                if self.maintenance.tick() is not None:
+                    self.stats["maintenance_runs"] += 1
             occupancy = int(np.sum(self.batcher.active_mask()))
             if occupancy == 0:
                 return []

@@ -218,11 +218,8 @@ class MaintenanceDriver:
     When the index is durable (has a ``snapshot()`` method) and
     ``snapshot_interval > 0``, every ``snapshot_interval``-th tick also
     writes a versioned snapshot — bounding crash-recovery replay at roughly
-    one snapshot interval's worth of ops.
-
-    The port's ``HMGIIndex`` has no ``maintain`` yet (ROADMAP Queue 1 item
-    11; it raises), so ``RAGEngine`` refuses an index with maintenance on
-    rather than pace a maintenance it cannot run."""
+    one snapshot interval's worth of ops (the port's index has no
+    ``snapshot`` until persistence lands, ROADMAP Queue 1 item 12)."""
 
     def __init__(self, index, budget_rows: int = 256, interval: int = 4,
                  snapshot_interval: int = 0):

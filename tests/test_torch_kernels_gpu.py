@@ -1,6 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
-(the IVF scans, the flash-decode kernel and the segment sum), and the
-facade and the EGNN forward on the card against the same on the CPU.
+(the IVF scans, the flash-decode kernel and the segment sum), the facade
+(search, hybrid search, a maintenance drain) and the EGNN forward on the
+card against the same on the CPU, and ``search_bucketed``'s bytes batched
+against alone.
 
 Every test carries the ``gpu`` marker and skips itself when
 ``torch.cuda.is_available()`` is false (decided inside the test, so every
@@ -253,6 +255,82 @@ def test_facade_on_the_card_matches_the_cpu():
         # ids equal except where neighbouring scores tie to rounding
         same = gi.cpu().numpy() == ci.numpy()
         assert same.mean() >= 0.98
+
+
+def _small_card_index(maint_auto=True):
+    from repro_torch.configs import get_config
+    from repro_torch.core.index import HMGIIndex
+    from repro_torch.data.synthetic import make_corpus
+    n = 2000
+    c = make_corpus(n_nodes=n, modality_dims={"text": 64}, intra_p=96 / n,
+                    inter_p=2 / n, seed=0)
+    cfg = get_config("hmgi").replace(n_partitions=16, n_probe=4,
+                                     delta_capacity=256,
+                                     maint_auto=maint_auto)
+    gpu = HMGIIndex(cfg)
+    gpu.ingest({"text": (c.node_ids["text"], c.vectors["text"])}, n,
+               edges=(c.src, c.dst, c.edge_type))
+    return gpu, c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_hops", [0, 1, 2])
+def test_search_bucketed_bytes_do_not_depend_on_the_batch(n_hops):
+    """8 queries batched give the bytes each gives alone (bucket 8 vs
+    bucket 2): every per-row reduction on the path sums in an order fixed
+    by the row's length, not by the batch."""
+    _need_card()
+    from repro_torch.query.executor import search_bucketed
+    gpu, c = _small_card_index()
+    rng = np.random.default_rng(1)
+    q = (c.vectors["text"][:8]
+         + 0.05 * rng.normal(size=(8, 64))).astype(np.float32)
+    bv, bi = search_bucketed(gpu, q, "text", k=6, n_hops=n_hops)
+    for i in range(8):
+        sv, si = search_bucketed(gpu, q[i:i + 1], "text", k=6,
+                                 n_hops=n_hops)
+        assert sv[0].tobytes() == bv[i].tobytes(), i
+        assert si[0].tobytes() == bi[i].tobytes(), i
+
+
+@pytest.mark.gpu
+def test_drain_then_search_on_the_card_matches_the_cpu():
+    """Writes under maint_auto and one forced drain on the card, the same
+    writes and drain on a CPU copy: the same slab bytes, and searches that
+    agree."""
+    _need_card()
+    from repro_torch.core.index import HMGIIndex
+    gpu, c = _small_card_index()
+    tree, meta = gpu.state_tree()
+    cpu = HMGIIndex(gpu.cfg, device="cpu")
+    cpu.restore_state(tree, meta)
+    rng = np.random.default_rng(2)
+    ids = rng.choice(2000, 100, replace=False).astype(np.int32)
+    vecs = rng.normal(size=(100, 64)).astype(np.float32)
+    for idx in (gpu, cpu):
+        idx.insert("text", ids, vecs)
+        idx.delete("text", ids[:5])
+    # the writes were quantized on each device: carry the card's delta to
+    # the CPU so the drain moves the same bytes
+    tree, meta = gpu.state_tree()
+    cpu = HMGIIndex(gpu.cfg, device="cpu")
+    cpu.restore_state(tree, meta)
+    reports = [idx.maintain("text", budget=4096, need_rows=100)
+               for idx in (gpu, cpu)]
+    assert reports[0].describe() == reports[1].describe()
+    assert "compact_chunk" in reports[0].describe()
+    gm, cm = gpu.modalities["text"], cpu.modalities["text"]
+    for f in ("data", "vmin", "scale", "ids", "counts"):
+        assert torch.equal(getattr(gm.ivf, f).cpu(), getattr(cm.ivf, f)), f
+    for call in (lambda i: i.search(vecs, "text", n_probe=16),
+                 lambda i: i.search(c.vectors["text"][:32], "text")):
+        gv, gi = call(gpu)
+        cv, ci = call(cpu)
+        np.testing.assert_allclose(gv.cpu().numpy(), cv.numpy(), rtol=0,
+                                   atol=1e-4)
+        assert (gi.cpu().numpy() == ci.numpy()).mean() >= 0.98
+    got = gpu.search(vecs[5:], "text", k=1, n_probe=16)[1].cpu().numpy()
+    np.testing.assert_array_equal(got[:, 0], ids[5:])
 
 
 # ---------------------------------------------------------------- decode

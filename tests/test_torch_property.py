@@ -1,0 +1,228 @@
+"""Twin of ``tests/test_property.py``: the same hypothesis properties, on
+the port's functions.
+
+K-means seeds with ``jax.random.choice``, which torch cannot reproduce:
+the k-means property runs the port's own ``fit`` (seeded from a
+``torch.Generator``), and the delta property builds the port's stable
+store over the reference's centroids, so both packages hold the same
+layout. ``test_delta_tie_order_matches_reference`` pins the tie order of
+``search_with_delta`` against the reference on six identical rows, the
+input on which ``torch.topk``'s unspecified tie order once failed the
+delta property.
+"""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+pytest.importorskip("hypothesis")
+from hypothesis import given, settings, strategies as st
+
+from repro.core import delta as jdelta
+from repro.core import ivf as jivf
+from repro_torch.core import delta as delta_mod
+from repro_torch.core import ivf as ivf_mod
+from repro_torch.core import partitioner
+from repro_torch.core.fusion import FusionWeights, fuse
+from repro_torch.core.quantization import (dequantize, quantize,
+                                           quantized_scores)
+from repro_torch.common.topk import top_k
+from repro_torch.sparse import segment as seg
+
+settings.register_profile("ci", max_examples=25, deadline=None)
+settings.load_profile("ci")
+
+_f32 = st.floats(-10, 10, allow_nan=False, width=32, allow_subnormal=False)
+
+
+@st.composite
+def small_matrix(draw, max_n=24, max_d=16, min_d=2):
+    n = draw(st.integers(2, max_n))
+    d = draw(st.integers(min_d, max_d))
+    data = draw(st.lists(_f32, min_size=n * d, max_size=n * d))
+    return np.asarray(data, np.float32).reshape(n, d)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+class TestQuantization:
+    @given(small_matrix())
+    def test_roundtrip_error_bound(self, x):
+        """Eq. 2 invariant: |e - deq(q)|inf <= per-vector step size."""
+        qv = quantize(_t(x), 8)
+        err = np.abs(dequantize(qv).numpy() - x)
+        assert np.all(err <= qv.scale.numpy() + 1e-5)
+
+    @given(small_matrix())
+    def test_4bit_within_bound(self, x):
+        qv = quantize(_t(x), 4)
+        err = np.abs(dequantize(qv).numpy() - x)
+        assert np.all(err <= qv.scale.numpy() + 1e-5)
+
+    @given(small_matrix(max_n=12, max_d=12))
+    def test_score_identity(self, x):
+        """scale*(q . qint) + min*sum(q) == q . dequant(e)."""
+        qv = quantize(_t(x), 8)
+        q = _t(x[:2])
+        s1 = quantized_scores(q, qv).numpy()
+        s2 = (q @ dequantize(qv).T).numpy()
+        np.testing.assert_allclose(s1, s2, rtol=1e-4, atol=1e-4)
+
+    @given(small_matrix())
+    def test_memory_halves_per_bit_drop(self, x):
+        n = x.shape[0]
+
+        def nbytes(bits):
+            d = quantize(_t(x), bits).data
+            return d.numel() * d.element_size()
+        b16, b8, b4 = nbytes(16), nbytes(8), nbytes(4)
+        assert b8 * 2 == b16
+        assert b4 <= b8 // 2 + n
+
+
+class TestKMeans:
+    @given(small_matrix(max_n=32))
+    def test_assignment_is_argmin(self, x):
+        k = min(4, len(x))
+        st_ = partitioner.fit(_t(x), k, 4,
+                              generator=torch.Generator().manual_seed(0))
+        a = partitioner.assign(_t(x), st_.centroids).numpy()
+        d = ((x[:, None, :] - st_.centroids.numpy()[None]) ** 2).sum(-1)
+        np.testing.assert_array_equal(a, d.argmin(1))
+
+
+class TestTopKMerge:
+    @given(st.integers(1, 6), st.lists(_f32, min_size=12, max_size=12))
+    def test_merge_associative_equals_global(self, k, vals):
+        s = np.asarray(vals, np.float32).reshape(1, -1)
+        ids = np.arange(12, dtype=np.int32).reshape(1, -1)
+        a = (_t(s[:, :4]), _t(ids[:, :4]))
+        b = (_t(s[:, 4:8]), _t(ids[:, 4:8]))
+        c = (_t(s[:, 8:]), _t(ids[:, 8:]))
+        ab_c = ivf_mod.merge_topk(*ivf_mod.merge_topk(*a, *b, k), *c, k)
+        a_bc = ivf_mod.merge_topk(*a, *ivf_mod.merge_topk(*b, *c, k), k)
+        glob = np.asarray(jax.lax.top_k(jnp.asarray(s), k)[0])
+        np.testing.assert_allclose(ab_c[0].numpy(), glob)
+        np.testing.assert_allclose(a_bc[0].numpy(), glob)
+        # and the tie order is the reference's: equal scores keep id order
+        np.testing.assert_array_equal(
+            ab_c[1].numpy(), np.asarray(jax.lax.top_k(jnp.asarray(s), k)[1]))
+
+    @given(st.integers(1, 12), st.lists(st.integers(-2, 2), min_size=12,
+                                        max_size=12))
+    def test_top_k_order_equals_lax_top_k(self, k, vals):
+        s = np.asarray(vals, np.float32).reshape(1, -1)
+        got = top_k(_t(s), k)
+        want = jax.lax.top_k(jnp.asarray(s), k)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+def _stable_pair(x, n_stable):
+    """The reference's stable store over x[:n_stable] and the port's over
+    the reference's centroids (identical layouts)."""
+    j, over = jivf.build(jax.random.PRNGKey(0), jnp.asarray(x[:n_stable]),
+                         jnp.arange(n_stable),
+                         n_partitions=min(2, n_stable), bits=16)
+    p, pover = ivf_mod.build(_t(x[:n_stable]),
+                             torch.arange(n_stable, dtype=torch.int32),
+                             n_partitions=min(2, n_stable), bits=16,
+                             centroids=_t(np.asarray(j.centroids)))
+    np.testing.assert_array_equal(pover.numpy(), np.asarray(over))
+    return j, p, np.asarray(over)
+
+
+class TestDelta:
+    @given(small_matrix(max_n=16, min_d=4))
+    def test_delta_search_equals_concat_search(self, x):
+        """stable+delta search == brute force over the union corpus."""
+        x = x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-9)
+        n = len(x)
+        n_stable = max(n // 2, 1)
+        _, stable, over = _stable_pair(x, n_stable)
+        d = delta_mod.init(16, x.shape[1], max_ids=n)
+        if n > n_stable:
+            d = delta_mod.insert(d, _t(x[n_stable:]),
+                                 torch.arange(n_stable, n, dtype=torch.int32))
+        sv, si = delta_mod.search_with_delta(stable, d, _t(x[:2]),
+                                             n_probe=2, k=min(3, n))
+        full = x @ x[:2].T
+        best = np.argsort(-full[:, 0])[: min(3, n)]
+        overflowed = set(np.where(over)[0])
+        got = [i for i in si.numpy()[0] if i >= 0]
+        want = [b for b in best if b not in overflowed]
+        # top-1 (excluding capacity-overflow rows) must be found
+        if want:
+            assert want[0] in got
+
+    @pytest.mark.parametrize("fill", [0.0, 0.5])
+    def test_delta_tie_order_matches_reference(self, fill):
+        """Six identical rows of width 4 (three stable, bits=16, two
+        partitions over the reference's centroids; three in the delta):
+        every score ties, and both packages return ids [0, 1, 2]."""
+        x = np.full((6, 4), fill, np.float32)
+        x = x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-9)
+        j, p, _ = _stable_pair(x, 3)
+        jd = jdelta.insert(jdelta.init(16, 4, max_ids=6), jnp.asarray(x[3:]),
+                           jnp.arange(3, 6))
+        pd = delta_mod.insert(delta_mod.init(16, 4, max_ids=6), _t(x[3:]),
+                              torch.arange(3, 6, dtype=torch.int32))
+        jv, ji = jdelta.search_with_delta(j, jd, jnp.asarray(x[:2]),
+                                          n_probe=2, k=3)
+        pv, pi = delta_mod.search_with_delta(p, pd, _t(x[:2]), n_probe=2, k=3)
+        np.testing.assert_array_equal(np.asarray(ji), [[0, 1, 2]] * 2)
+        np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(pv.numpy(), np.asarray(jv), rtol=0,
+                                   atol=1e-6)
+
+
+class TestFusion:
+    @given(st.floats(0.05, 0.95, allow_subnormal=False),
+           st.floats(0.0, 1.0, allow_subnormal=False),
+           st.floats(0.0, 1.0, allow_subnormal=False))
+    def test_graph_term_orders_vector_ties(self, wv, g1, g2):
+        vs = torch.tensor([[0.7, 0.7]])
+        g = torch.tensor([[g1, g2]], dtype=torch.float32)
+        w = FusionWeights(torch.tensor([wv], dtype=torch.float32),
+                          torch.tensor([1.0 - wv], dtype=torch.float32))
+        f = fuse(vs, g, w).numpy()[0]
+        if g1 > g2:
+            assert f[0] >= f[1] - 1e-6
+        elif g2 > g1:
+            assert f[1] >= f[0] - 1e-6
+
+    @given(st.floats(0.05, 0.95, allow_subnormal=False))
+    def test_vector_term_orders_graph_ties(self, wv):
+        vs = torch.tensor([[0.9, 0.2]])
+        g = torch.tensor([[0.5, 0.5]])
+        w = FusionWeights(torch.tensor([wv], dtype=torch.float32),
+                          torch.tensor([1.0 - wv], dtype=torch.float32))
+        f = fuse(vs, g, w).numpy()[0]
+        assert f[0] > f[1]
+
+
+class TestSegmentOps:
+    @given(st.integers(2, 20), st.integers(2, 8))
+    def test_segment_sum_vs_numpy(self, e, n):
+        rng = np.random.default_rng(e * 31 + n)
+        data = rng.normal(size=(e, 3)).astype(np.float32)
+        ids = rng.integers(0, n, e).astype(np.int32)
+        out = seg.segment_sum(_t(data), _t(ids), n).numpy()
+        want = np.zeros((n, 3), np.float32)
+        np.add.at(want, ids, data)
+        np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-5)
+
+    @given(st.integers(2, 20), st.integers(2, 8))
+    def test_segment_softmax_normalised(self, e, n):
+        rng = np.random.default_rng(e * 17 + n)
+        logits = rng.normal(size=(e, 2)).astype(np.float32)
+        ids = rng.integers(0, n, e).astype(np.int32)
+        w = seg.segment_softmax(_t(logits), _t(ids), n).numpy()
+        sums = np.zeros((n, 2))
+        np.add.at(sums, ids, w)
+        present = np.zeros(n, bool)
+        present[ids] = True
+        np.testing.assert_allclose(sums[present], 1.0, rtol=1e-5)

@@ -275,12 +275,25 @@ def _queries(c, n, seed):
             ).astype(np.float32)
 
 
-def test_engine_refuses_maintenance_it_cannot_run(lm_setup, index_pair):
+def test_engine_refuses_maintenance_it_cannot_run(lm_setup):
+    """Nothing is refused any more: maintenance is ported, so an engine
+    with an index at the default ``maintenance_interval=4`` paces one
+    bounded ``maintain`` pass (budget 256 rows) every 4th tick, and
+    ``maintenance_interval=0`` turns it off."""
     _, _, cfg, params = lm_setup
-    _, _, pi = index_pair
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        _engine(cfg, params, pi)                     # default interval 4
-    assert _engine(cfg, params, pi, maintenance_interval=0).index is pi
+    c, _, pi = _index_pair()               # fresh: the passes may act on it
+    eng = _engine(cfg, params, pi)
+    drv = eng.maintenance
+    assert drv is not None and drv.interval == 4 and drv.budget_rows == 256
+    rng = np.random.default_rng(4)
+    for i in range(3):
+        eng.submit(i, rng.integers(0, cfg.vocab_size, 6).astype(np.int32),
+                   retrieved_ids=eng.retrieve(_queries(c, 1, seed=i))[0],
+                   max_new_tokens=5)
+    eng.run_to_completion()
+    assert drv.ticks >= 4 and drv.runs == drv.ticks // 4
+    assert eng.stats["maintenance_runs"] == drv.runs
+    assert _engine(cfg, params, pi, maintenance_interval=0).maintenance is None
 
 
 def test_rag_engine_matches_reference_engine(lm_setup, index_pair):
