@@ -38,6 +38,19 @@ Phases (each prints one line; any failure exits non-zero):
                 baseline.
   5. hybrid   — ingest with a graph, hybrid_search (plain, typed, filtered)
                 at 131,072 nodes, checked against a CPU copy of the index.
+     facade   — the rest of the facade on the same index: the NSW graph
+                built (seconds, peak memory; a 16,384-row twin on the CPU
+                gives the same neighbours up to ties), nsw.search alone
+                (recall@10, latency), search with the NSW refine lane
+                (against plain search, a CPU copy, 8 queries batched vs
+                alone), hybrid_search with the sparse-dense rerank (its
+                span, the match tensor's size, a CPU copy), progressive
+                rounds (recall must not fall, the last equals one-shot
+                n_probe 16), label propagation (equal to the CPU), stage
+                times from the facade's own spans (trace=True, sync
+                spans), and the reference's MVCC sequence on the NSW lane
+                (a delete, an update, compact() with its NSW rebuild). The
+                probe and delta kernels' launches must grow.
   6. rag      — RAGEngine over the phase-5 index with full-width
                 phi4-mini (32 layers, bf16, seeded random weights) and its
                 default maintenance pacing (a bounded maintain() every 4th
@@ -99,6 +112,17 @@ SCORE_ATOL = 1e-4     # fp32 sums over d=384 in another order (scores O(1))
 # the maint phase reads every partition: its answer does not depend on the
 # routing, so byte-identical row moves leave its bytes unchanged
 MAINT_FULL_PROBE = 64
+# the facade phase: the NSW graph over the phase-5 index (degree 16, ef 64,
+# as configured), its CPU twin at 16,384 rows, and the rerank lane's hashed
+# documents (32 terms each, 16 for the batch, 4,096 buckets)
+NSW_CUT = ("facade phase: the NSW graph over the 131,072-node hybrid index, "
+           "not serve_1m: its build scores every row against 4 probed "
+           "partitions of N/16 rows, so 1,048,576 rows cost ~64x the "
+           "131,072 build")
+NSW_CPU_ROWS = 16_384
+NSW_TIE_ATOL = 1e-5   # neighbour scores recomputed in float64 (bf16 rows)
+RERANK_NNZ, RERANK_T, RERANK_BUCKETS = 32, 16, 1 << 12
+PROGRESSIVE = (1, 2, 4, 8, 16)
 # the RAG cell: phi4-mini at full width, 8 decode slots over a 2,048-token
 # cache (ROADMAP Queue 1 item 16)
 RAG_SLOTS, RAG_SEQ, RAG_REQUESTS = 8, 2048, 32
@@ -1039,6 +1063,303 @@ def phase_hybrid():
     return index, c
 
 
+def nsw_scores(vectors: torch.Tensor, lists: torch.Tensor) -> np.ndarray:
+    """float64 scores of each row against the rows its list names, over the
+    bf16 copies the 16-bit build scores (-inf where the list pads)."""
+    v = vectors.double()
+    vb = vectors.to(torch.bfloat16).double()
+    out = []
+    for s in range(0, v.shape[0], 2048):
+        li = lists[s:s + 2048].long()
+        sc = (v[s:s + 2048, None, :] * vb[li.clamp(min=0)]).sum(-1)
+        out.append(torch.where(li >= 0, sc, float("-inf")))
+    return torch.cat(out).numpy()
+
+
+def phase_facade(index, corpus) -> dict:
+    """The NSW refine lane, the sparse-dense rerank, progressive search,
+    label propagation and span traces on the phase-5 index (131,072 nodes);
+    returns the probe and delta kernels' launches of this phase."""
+    from repro_torch import obs
+    from repro_torch.core import community, ivf as ivf_mod
+    from repro_torch.core import nsw as nsw_mod, partitioner
+    from repro_torch.core.graph_store import GraphStore
+    from repro_torch.core.progressive import progressive_search
+    from repro_torch.core.rerank import (SparseVectors, hash_terms,
+                                         rrf_rerank, sparse_overlap_scores)
+    from repro_torch.kernels.ivf_topk import ops
+    from repro_torch.query.ast import Q
+    from repro_torch.query.executor import execute, search_bucketed
+    from repro_torch.query.planner import compile_plan
+    print(f"[facade.cut] {NSW_CUT}", flush=True)
+    m = index.modalities["text"]
+    base_cfg = index.cfg
+    start = (ops.probe_scan.launches, ops.shared_scan.launches)
+    rng = np.random.default_rng(31)
+    gen = torch.Generator().manual_seed(31)
+    rows = rng.choice(HYB_N, BATCH, replace=False)
+    queries = (corpus.vectors["text"][rows] + 0.05 * rng.normal(
+        size=(BATCH, DIM))).astype(np.float32)
+    qn = index._norm_queries(queries)
+    true_ids = m.ids[torch.topk(qn @ m.vectors.T, 10, dim=1).indices
+                     ].cpu().numpy()
+
+    def recall(ids) -> float:
+        ids = ids.cpu().numpy()
+        return float(np.mean([len(set(a) & set(b)) / 10
+                              for a, b in zip(ids, true_ids)]))
+
+    # the graph at full size, as ingest(build_nsw=True) and compact build it
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graph = nsw_mod.build(m.vectors, degree=base_cfg.nsw_degree,
+                          generator=index.generator)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+    nb = graph.neighbors
+    check(tuple(nb.shape) == (HYB_N, base_cfg.nsw_degree)
+          and bool(((nb >= -1) & (nb < HYB_N)).all())
+          and not bool((nb == torch.arange(HYB_N, device="cuda")[:, None])
+                       .any()),
+          "facade: the NSW graph's neighbour lists are malformed")
+    m.nsw = graph
+
+    # its CPU twin at 16,384 rows, the same rows and centroids: neighbours
+    # equal up to ties, except on rows whose 4 probes differ between the
+    # devices (near-tied centroid scores route a row another way)
+    sub = m.vectors[:NSW_CPU_ROWS]
+    cents = partitioner.fit(sub, 16, 16, generator=index.generator).centroids
+    small = nsw_mod.build(sub, degree=base_cfg.nsw_degree, centroids=cents)
+    t0 = time.perf_counter()
+    small_cpu = nsw_mod.build(sub.cpu(), degree=base_cfg.nsw_degree,
+                              centroids=cents.cpu())
+    cpu_build_s = time.perf_counter() - t0
+    pa = partitioner.assign_topk(sub, cents, 4)[0].sort(dim=1).values.cpu()
+    pb = partitioner.assign_topk(sub.cpu(), cents.cpu(), 4)[0].sort(
+        dim=1).values
+    routed_apart = set(np.nonzero((pa != pb).any(dim=1).numpy())[0].tolist())
+    na, nb_cpu = small.neighbors.cpu(), small_cpu.neighbors
+    sa, sb = nsw_scores(sub.cpu(), na), nsw_scores(sub.cpu(), nb_cpu)
+    apart = [int(i) for i in np.nonzero((na != nb_cpu).any(dim=1).numpy())[0]
+             if not agree_up_to_ties(sa[i:i + 1], na[i:i + 1].numpy(),
+                                     sb[i:i + 1], nb_cpu[i:i + 1].numpy(),
+                                     NSW_TIE_ATOL)]
+    check(set(apart) <= routed_apart,
+          f"facade: the NSW build on the card and the CPU disagree beyond "
+          f"ties on rows {apart[:10]} (rows routed apart: "
+          f"{sorted(routed_apart)[:10]})")
+
+    # nsw.search alone
+    def nsw_alone():
+        return nsw_mod.search(graph, qn, ef=base_cfg.nsw_ef, k=10)
+    _, ni = nsw_alone()
+    nsw_recall = recall(torch.where(ni >= 0, m.ids[ni.clamp(min=0).long()],
+                                    -1))
+    nsw_lat = host_ms(nsw_alone, 10)
+    nsw_prof = profile_window(nsw_alone, top=6)
+
+    # search with the NSW refine lane, beside plain search
+    _, plain_i = index.search(queries, "text")
+    plain_lat = host_ms(lambda: index.search(queries, "text"), 10)
+    index.cfg = base_cfg.replace(use_nsw_refine=True)
+    lv, li = index.search(queries, "text")
+    lane_lat = host_ms(lambda: index.search(queries, "text"), 10)
+    lane_prof = profile_window(lambda: index.search(queries, "text"), top=8)
+    cpu = cpu_copy(index)
+    cv, ci = cpu.search(queries[:16], "text")
+    check(agree_up_to_ties(lv[:16].cpu(), li[:16].cpu(), cv, ci, SCORE_ATOL),
+          "facade: the NSW lane on the card disagrees with the CPU copy")
+    bv, bi = search_bucketed(index, queries[:8], "text", k=10)
+    solo = [search_bucketed(index, queries[i:i + 1], "text", k=10)
+            for i in range(8)]
+    lane_bytes = all(bv[i].tobytes() == solo[i][0].tobytes()
+                     and bi[i].tobytes() == solo[i][1].tobytes()
+                     for i in range(8))
+    check(lane_bytes, "facade: the NSW lane gave 8 queries other bytes "
+                      "batched than alone")
+    index.cfg = cpu.cfg = base_cfg
+
+    # hybrid_search with the sparse-dense rerank over the fused set
+    tok = torch.randint(0, RERANK_BUCKETS, (HYB_N, RERANK_NNZ), generator=gen)
+    docs = SparseVectors(hash_terms(tok, RERANK_BUCKETS),
+                         torch.rand((HYB_N, RERANK_NNZ), generator=gen))
+    index.set_sparse_docs(docs)
+    cpu.set_sparse_docs(docs)
+    q_terms = hash_terms(torch.randint(0, RERANK_BUCKETS, (RERANK_T,),
+                                       generator=gen), RERANK_BUCKETS)
+    q_w = torch.rand((RERANK_T,), generator=gen)
+    rr_kw = dict(k=10, n_hops=2, use_rerank=True, q_terms=q_terms,
+                 q_term_weights=q_w)
+    rv, ri = index.hybrid_search(queries, "text", **rr_kw)
+    check(tuple(ri.shape) == (BATCH, 10) and bool((ri >= 0).all()),
+          "facade: reranked hybrid ids malformed")
+    rr_lat = host_ms(lambda: index.hybrid_search(queries, "text", **rr_kw),
+                     10)
+    rr_prof = profile_window(
+        lambda: index.hybrid_search(queries, "text", **rr_kw), top=6)
+    hy_lat = host_ms(lambda: index.hybrid_search(queries, "text", k=10,
+                                                 n_hops=2), 10)
+    # the fused set the lane reranks, as hybrid_search computes it
+    phys = compile_plan(index, Q.vector("text", qn).traverse(2), k=10,
+                        fusion_repr="sparse")
+    fv, fi = execute(index, phys, truncate=False)
+    width = int(fi.shape[1])
+    match_elems = BATCH * width * RERANK_NNZ * RERANK_T
+    # the rerank itself on the same fused set: card against CPU
+    dev_docs = index.sparse_docs
+    got = rrf_rerank(fv, sparse_overlap_scores(
+        dev_docs, q_terms.cuda(), q_w.cuda(), fi), fi, k=10)
+    want = rrf_rerank(fv.cpu(), sparse_overlap_scores(
+        cpu.sparse_docs, q_terms, q_w, fi.cpu()), fi.cpu(), k=10)
+    check(torch.equal(got[1].cpu(), want[1])
+          and float((got[0].cpu() - want[0]).abs().max()) <= 1e-7,
+          "facade: the rerank on the card disagrees with the CPU on the "
+          "same fused set")
+    # end to end on 16 queries: where the card's and the CPU's fused
+    # orders are the same, the reranked ids are the same
+    _, cfi = execute(cpu, compile_plan(
+        cpu, Q.vector("text", cpu._norm_queries(queries[:16])).traverse(2),
+        k=10, fusion_repr="sparse"), truncate=False)
+    same_order = [i for i in range(16) if torch.equal(fi[i].cpu(), cfi[i])]
+    cr = cpu.hybrid_search(queries[:16], "text", **rr_kw)
+    check(all(torch.equal(ri[i].cpu(), cr[1][i]) for i in same_order),
+          "facade: reranked ids on the card differ from the CPU copy's "
+          "where the fused orders agree")
+    del cpu
+
+    # progressive rounds over the hybrid index's IVF
+    rounds = list(progressive_search(m.ivf, qn, k=10,
+                                     probe_schedule=PROGRESSIVE))
+    prog_prof = profile_window(lambda: list(progressive_search(
+        m.ivf, qn, k=10, probe_schedule=PROGRESSIVE)), top=6)
+    prog_recall = [recall(r.ids) for r in rounds]
+    prog_ms = list(np.diff([0.0] + [r.elapsed_s for r in rounds]) * 1e3)
+    check(all(b >= a for a, b in zip(prog_recall, prog_recall[1:])),
+          f"facade: progressive recall fell: {prog_recall}")
+    one = ivf_mod.search(m.ivf, qn, n_probe=PROGRESSIVE[-1], k=10)
+    check(len(rounds) == len(PROGRESSIVE) and agree_up_to_ties(
+        rounds[-1].scores.cpu(), rounds[-1].ids.cpu(), one[0].cpu(),
+        one[1].cpu(), SCORE_ATOL),
+          "facade: the last progressive round differs from one-shot "
+          f"n_probe {PROGRESSIVE[-1]}")
+
+    # label propagation over the graph, against the CPU
+    g = index.graph
+    lp = community.label_propagation(g)
+    lp_ms = cuda_ms(lambda: community.label_propagation(g), 5)
+    lp_cpu = community.label_propagation(GraphStore(*(t.cpu() for t in g)))
+    check(torch.equal(lp.cpu(), lp_cpu),
+          "facade: label propagation on the card differs from the CPU")
+
+    # stage times from the facade's own spans, device work synchronised
+    obs.reset()
+    index.cfg = base_cfg.replace(obs_sync_spans=True)
+    sv0, si0 = index.search(queries, "text")
+    sv1, si1, tr_s = index.search(queries, "text", trace=True)
+    hv0, hi0 = index.hybrid_search(queries, "text", k=10, n_hops=2)
+    hv1, hi1, tr_h = index.hybrid_search(queries, "text", k=10, n_hops=2,
+                                         trace=True)
+    *_, tr_r = index.hybrid_search(queries, "text", trace=True, **rr_kw)
+    check(torch.equal(si0, si1) and torch.equal(sv0, sv1)
+          and torch.equal(hi0, hi1) and torch.equal(hv0, hv1),
+          "facade: traced results differ from untraced")
+    for _ in range(10):
+        index.search(queries, "text")
+        index.hybrid_search(queries, "text", k=10, n_hops=2)
+        index.hybrid_search(queries, "text", **rr_kw)
+    hist = index.metrics()["obs"]["histograms"]
+    stages = ("query.plan", "query.execute", "query.seed_scan",
+              "query.traversal", "query.fusion", "query.rescore")
+    stage_p50 = {n: hist[n]["p50"] for n in stages if n in hist}
+    check(set(stage_p50) == set(stages),
+          f"facade: spans missing: {set(stages) - set(stage_p50)}")
+
+    def names(node):
+        return [node.name] + [x for c in node.children for x in names(c)]
+    index.cfg = base_cfg
+
+    # the reference's MVCC sequence on the NSW lane (tests/
+    # test_mvcc_updates.py::test_nsw_refine_respects_mvcc), on the card
+    index.cfg = base_cfg.replace(use_nsw_refine=True)
+    id5, id7 = int(m.ids[5]), int(m.ids[7])
+    v5, v7 = m.vectors[5:6].clone(), m.vectors[7:8].clone()
+    index.delete("text", np.array([id5], np.int32))
+    _, di = index.search(v5, "text", k=10)
+    check(not bool((di == id5).any()), "facade: a deleted id came back "
+                                       "through the NSW lane")
+    new = torch.zeros((1, DIM), device="cuda")
+    new[0, 3] = 1.0
+    index.insert("text", np.array([id7], np.int32), new)
+    compact_s = None
+    for stage in ("pre-compaction", "post-compaction"):
+        sv, si = index.search(v7, "text", k=10)
+        check(not bool(((si == id7) & (sv >= 0.9)).any()),
+              f"facade: {stage}: the updated id showed its stale score")
+        sv, si = index.search(new, "text", k=1)
+        check(int(si[0, 0]) == id7 and float(sv[0, 0]) > 0.99,
+              f"facade: {stage}: the updated id is not found by its "
+              "new vector")
+        if compact_s is None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            index.compact("text")
+            torch.cuda.synchronize()
+            compact_s = time.perf_counter() - t0
+    check(m.nsw is not graph, "facade: compact() did not rebuild the graph")
+    # the rag phase runs the index as before, without the graph
+    index.cfg, m.nsw = base_cfg, None
+
+    launches = {"probe": ops.probe_scan.launches - start[0],
+                "shared": ops.shared_scan.launches - start[1]}
+    check(launches["probe"] > 0 and launches["shared"] > 0,
+          f"facade: a scan kernel was not launched in this phase: {launches}")
+    line("facade", n=HYB_N, d=DIM, batch=BATCH, nsw=dict(
+        degree=base_cfg.nsw_degree, ef=base_cfg.nsw_ef, build_s=build_s,
+        build_peak_extra_gib=build_peak,
+        graph_mib=(graph.vectors.numel() * 4 + graph.neighbors.numel() * 4)
+        / 2 ** 20,
+        cpu_twin=dict(rows=NSW_CPU_ROWS, cpu_build_s=cpu_build_s,
+                      rows_differing_beyond_ties=len(apart),
+                      rows_routed_apart=len(routed_apart),
+                      entry_same=int(small.entry) == int(small_cpu.entry)),
+        search_alone=dict(recall_at_10=nsw_recall, p50_ms=nsw_lat[0],
+                          p99_ms=nsw_lat[1], profile=nsw_prof)),
+         refine_lane=dict(recall_at_10=recall(li),
+                          plain_recall_at_10=recall(plain_i),
+                          p50_ms=lane_lat[0], p99_ms=lane_lat[1],
+                          plain_p50_ms=plain_lat[0],
+                          plain_p99_ms=plain_lat[1], cpu_copy_agrees=True,
+                          bytes_8_batched_eq_alone=lane_bytes,
+                          profile=lane_prof),
+         rerank=dict(p50_ms=rr_lat[0], p99_ms=rr_lat[1],
+                     hybrid_p50_ms=hy_lat[0],
+                     rescore_span_p50_ms=stage_p50["query.rescore"],
+                     fused_width_C=width, match_tensor_elems=match_elems,
+                     match_bool_mib=match_elems / 2 ** 20,
+                     contrib_fp32_mib=4 * match_elems / 2 ** 20,
+                     nnz=RERANK_NNZ, terms=RERANK_T,
+                     buckets=RERANK_BUCKETS, same_order_queries=len(
+                         same_order), cpu_copy_agrees=True,
+                     profile=rr_prof),
+         progressive=dict(schedule=list(PROGRESSIVE), recall=prog_recall,
+                          round_ms=prog_ms, last_equals_one_shot=True,
+                          profile_5_rounds=prog_prof),
+         label_propagation=dict(edges=int(g.n_edges), ms=lp_ms,
+                                communities=int(lp.unique().numel()),
+                                equals_cpu=True),
+         spans=dict(search_tree=[x for r in tr_s.roots for x in names(r)],
+                    hybrid_tree=[x for r in tr_h.roots for x in names(r)],
+                    rerank_roots=[r.name for r in tr_r.roots],
+                    p50_ms=stage_p50, traced_equals_untraced=True),
+         mvcc=dict(delete_gone=True, stale_score_hidden=True,
+                   compact_with_nsw_rebuild_s=compact_s),
+         launches=launches)
+    return launches
+
+
 def _measure_decode_case(case: str, lengths) -> dict:
     """decode_attention at phi4-mini's decode tick (B 8, S 2048, Hkv 8,
     G 3, hd 128, bf16), row b valid on its first lengths[b] positions (a
@@ -1174,6 +1495,8 @@ def phase_rag(index, corpus) -> dict:
     news = [int(n) for n in rng.integers(32, 65, RAG_REQUESTS)]
     obs.reset()
     obs.set_sync_spans(True)          # the prefill span waits for its work
+    # the facade sets sync spans from its config at every search
+    hyb_cfg, index.cfg = index.cfg, index.cfg.replace(obs_sync_spans=True)
 
     dops.decode_attention.launches = 0
     ops.probe_scan.launches = ops.shared_scan.launches = 0
@@ -1201,6 +1524,7 @@ def phase_rag(index, corpus) -> dict:
                 "probe": ops.probe_scan.launches,
                 "shared": ops.shared_scan.launches}
     obs.set_sync_spans(False)
+    index.cfg = hyb_cfg
 
     ticks = engine.stats["ticks"]
     check(ticks > 0 and launches["decode"] == cfg.n_layers * ticks,
@@ -1567,6 +1891,8 @@ def main():
     del index, corpus
     torch.cuda.empty_cache()
     index, corpus = phase_hybrid()
+    after_hybrid = (ops.probe_scan.launches, ops.shared_scan.launches)
+    facade = phase_facade(index, corpus)
     launches = {"probe": ops.probe_scan.launches,
                 "shared": ops.shared_scan.launches}
     check(launches["probe"] > 0 and launches["shared"] > 0,
@@ -1582,9 +1908,9 @@ def main():
     line("launches", vector=dict(zip(("probe", "shared"), after_vector)),
          maint={"probe": after_maint[0] - after_vector[0],
                 "shared": after_maint[1] - after_vector[1]},
-         hybrid={"probe": launches["probe"] - after_maint[0],
-                 "shared": launches["shared"] - after_maint[1]},
-         rag=rag, gnn={"segment_sum": gnn_launches})
+         hybrid={"probe": after_hybrid[0] - after_maint[0],
+                 "shared": after_hybrid[1] - after_maint[1]},
+         facade=facade, rag=rag, gnn={"segment_sum": gnn_launches})
     src = "src/repro_torch/kernels/ivf_topk/csrc/ivf_topk.cu"
     kernels = [
         dict(name="ivf_probe_scan", route="cuda", source=src,

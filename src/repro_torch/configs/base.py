@@ -6,9 +6,9 @@ fields are folded into each class), so a reference config converts with
 ``HMGIConfig(**dataclasses.asdict(ref_cfg))``,
 ``LMConfig(**dataclasses.asdict(ref_cfg))`` or
 ``GNNConfig(**dataclasses.asdict(ref_cfg))``. Fields the port does not act
-on yet (NSW, maintenance, sharding, durability, obs; the LM's MLA, MoE and
-training knobs) are kept for that round trip; the code raises
-``NotImplementedError`` where one of them would change behaviour (see
+on yet (sharding, durability; the LM's MLA, MoE and training knobs) are
+kept for that round trip; the code raises ``NotImplementedError`` where
+one of them would change behaviour (see
 ``core/index.py`` and ``models/lm.py``).
 """
 from __future__ import annotations
@@ -49,7 +49,7 @@ class HMGIConfig:
     quant_bits: int = 8                    # 16 | 8 | 4
     adaptive_quant: bool = True
     memory_budget_bytes: int = 0           # 0 = unlimited
-    # NSW graph refinement layer (not ported yet)
+    # NSW graph refinement layer (core/nsw.py)
     nsw_degree: int = 16
     nsw_ef: int = 64
     use_nsw_refine: bool = False
@@ -86,7 +86,7 @@ class HMGIConfig:
     # durability (not ported yet)
     wal_sync_every: int = 1
     snapshot_keep: int = 2
-    # observability (not ported yet)
+    # observability: sync the device at span exit (honest stage times)
     obs_sync_spans: bool = False
     dtype: str = "float32"
 

@@ -6,16 +6,15 @@ into the port.
 ``np.asarray`` (so this module never touches JAX), and returns a port
 ``HMGIIndex`` holding the same bytes: the int8 slabs, vmin/scale, ids and
 counts, the centroids (parked sentinels included), every ``DeltaStore``
-field, the fp32 master vectors and ids, the workload hits, the write-time
-partition statistics (``stats/*``), the graph CSR, communities, boosted
-weights and attribute columns.
+field, the fp32 master vectors and ids, the NSW graphs (``nsw/*``), the
+workload hits, the write-time partition statistics (``stats/*``), the
+graph CSR, communities, boosted weights, attribute columns and the
+rerank lane's sparse documents (``sparse/*``).
 
-What does not carry over:
-
-- ``nsw/*`` and ``sparse/*`` raise ``NotImplementedError`` (item 10).
-- The JAX PRNG key cannot seed a ``torch.Generator``: the port's generator
-  is reseeded from ``seed``, so later random draws (none on the search
-  path) differ from the reference's.
+What does not carry over: the JAX PRNG key cannot seed a
+``torch.Generator``, so the port's generator is reseeded from ``seed``,
+and later random draws (none on the search path) differ from the
+reference's.
 
 ``lm_params_from_jax(tree, device)`` takes the reference ``init_lm``'s
 params with numpy leaves and returns the port's layout (see
@@ -47,11 +46,6 @@ def index_from_jax_state(tree: Dict[str, np.ndarray], meta: Dict[str, object],
     port config to run with (default ``get_config("hmgi")``); a reference
     config converts with ``HMGIConfig(**dataclasses.asdict(ref_cfg))``.
     device: as for ``HMGIIndex`` (None = the CUDA device)."""
-    for key in tree:
-        if key.startswith("sparse/") or "/nsw/" in key:
-            raise NotImplementedError(
-                f"state key {key!r}: NSW and sparse-rerank state are not "
-                "ported to repro_torch yet (ROADMAP.md Queue 1 item 10)")
     cpu = torch.device("cpu")
     # bfloat16 leaves (a 16-bit slab) have no numpy dtype torch reads
     tree = {k: (_leaf(v, cpu) if np.asarray(v).dtype.name == "bfloat16"

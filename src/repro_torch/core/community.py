@@ -4,8 +4,8 @@ multi-hop reasoning using Louvain").
 Index-build-time (host-side, numpy): one-level Louvain — greedy modularity
 moves until convergence, the reference's code with its seeded shuffle, so
 the labels are identical. Communities bias traversal (same-community hops
-get a weight boost). The reference's device label-propagation fallback is
-not ported yet.
+get a weight boost). ``label_propagation`` is the reference's device
+fallback for graphs too large for the host sweep; nothing calls it.
 """
 from __future__ import annotations
 
@@ -95,6 +95,20 @@ def modularity(n_nodes: int, src, dst, weight, labels) -> float:
     sig = np.zeros(labels.max() + 1)
     np.add.at(sig, labels, k)
     return float(intra - np.sum((sig / m2) ** 2))
+
+
+def label_propagation(g: GraphStore, n_iters: int = 10) -> torch.Tensor:
+    """Min-label propagation on the graph's device (connected-component
+    flavoured): O(E) per iteration. Each node takes the least label among
+    itself and the sources of its in-edges, ``n_iters`` times. Returns (N,)
+    int32 labels, equal to the reference's."""
+    n = g.n_nodes
+    src, dst = g.src.long(), g.indices.long()
+    labels = torch.arange(n, dtype=torch.int32, device=g.src.device)
+    for _ in range(n_iters):
+        labels = labels.scatter_reduce(0, dst, labels[src], reduce="amin",
+                                       include_self=True)
+    return labels
 
 
 def community_edge_boost(g: GraphStore, labels, boost: float = 1.5) -> torch.Tensor:

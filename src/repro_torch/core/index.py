@@ -13,12 +13,19 @@ drains, merges, splits and reclusters as slot surgery; with
 ``cfg.maint_auto`` (the default) ``insert`` and ``delete`` trigger it, and
 ``compact`` stays the stop-the-world fallback.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: the NSW refine lane and sparse rerank (Queue 1 item 10), a
-device mesh and ``device_layout`` (item 15) and span traces (item 13).
+The optional lanes are the reference's: an NSW graph that refines every
+seed scan (``cfg.use_nsw_refine``, ``core/nsw.py``) and a sparse-dense
+rerank of the fused set (``set_sparse_docs``, ``core/rerank.py``). Spans
+(``repro_torch.obs``) time each stage; ``trace=True`` returns their tree.
+
+Not ported yet: a device mesh and ``device_layout`` (ROADMAP Queue 1 item
+15), refused with ``NotImplementedError`` naming the item, and durable
+persistence, snapshots and the write-ahead log (item 12), which live
+outside the facade.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -35,7 +42,9 @@ from repro_torch.configs.base import HMGIConfig
 from repro_torch.core import community as comm_mod
 from repro_torch.core import delta as delta_mod
 from repro_torch.core import ivf as ivf_mod
+from repro_torch.core import nsw as nsw_mod
 from repro_torch.core import partitioner
+from repro_torch.core import rerank as rerank_mod
 from repro_torch.core.cost_model import (CostModel, plan_maintenance,
                                          select_plan)
 from repro_torch.core.fusion import FusionWeights, fuse_topk_sparse
@@ -110,8 +119,9 @@ def _fuse_candidates(vs, vi, graph_scores, wv, wg, *, k_fuse: int,
 class ModalityIndex:
     ivf: ivf_mod.IVFIndex
     delta: delta_mod.DeltaStore
-    vectors: torch.Tensor       # fp32 master copy (compaction, cross-modal)
+    vectors: torch.Tensor       # fp32 master copy (compaction, NSW, cross-modal)
     ids: torch.Tensor           # (N,) global node ids
+    nsw: Optional[nsw_mod.NSWGraph] = None
     workload: Optional[WorkloadStats] = None
     # write-time per-partition maintenance statistics (heat lives in
     # ``workload``; this adds delta pressure, tombstone ratio, drift) —
@@ -133,9 +143,10 @@ class HMGIIndex:
     serialises every mutation and the state_tree snapshot; ``_cache_lock``
     guards the lazily-built ``ModalityIndex.id_rows``.
 
-    The random draws of ingest (K-means seeding) come from a
-    ``torch.Generator`` seeded with ``seed``; they differ from the
-    reference's ``jax.random`` draws for the same seed."""
+    The random draws of ingest, compaction and maintenance (K-means
+    seeding, the NSW build's) come from a ``torch.Generator`` seeded with
+    ``seed``; they differ from the reference's ``jax.random`` draws for the
+    same seed."""
 
     def __init__(self, cfg: HMGIConfig, mesh=None, seed: int = 0, *,
                  device=None):
@@ -152,6 +163,7 @@ class HMGIIndex:
         self.attributes: Optional[NodeAttributes] = None
         self.communities: Optional[np.ndarray] = None
         self.boosted_weights: Optional[torch.Tensor] = None
+        self.sparse_docs: Optional[rerank_mod.SparseVectors] = None
         self.cost_model = CostModel(cfg.cost_alpha, cfg.cost_beta, cfg.cost_gamma)
         self.quant_policy = AdaptiveQuantPolicy(cfg.memory_budget_bytes)
         self.n_nodes = 0
@@ -188,18 +200,24 @@ class HMGIIndex:
         edge_weight]]) arrays over global node ids. node_attrs: column name
         -> (n_nodes,) int values. Build overflow (rows beyond a partition's
         capacity) is routed to the delta store — grown if needed, never
-        dropped.
+        dropped. build_nsw (or ``cfg.use_nsw_refine``): also build each
+        modality's NSW graph.
 
         The seconds each stage took (the device synchronised at each
         boundary) land in ``metrics()["ingest_seconds"]``."""
-        if build_nsw or self.cfg.use_nsw_refine:
-            raise _todo("the NSW refine layer", "10")
         with self._write_lock:
-            self._ingest_locked(embeddings, n_nodes, edges, node_attrs)
+            self._ingest_locked(embeddings, n_nodes, edges, build_nsw,
+                                node_attrs)
 
-    def _ingest_locked(self, embeddings, n_nodes, edges, node_attrs):
+    def _build_nsw(self, vectors: torch.Tensor) -> nsw_mod.NSWGraph:
+        return nsw_mod.build(
+            vectors, degree=min(self.cfg.nsw_degree, vectors.shape[0] - 1),
+            generator=self.generator)
+
+    def _ingest_locked(self, embeddings, n_nodes, edges, build_nsw,
+                       node_attrs):
         clock = {"to_device": 0.0, "kmeans": 0.0, "layout": 0.0,
-                 "graph": 0.0, "louvain": 0.0}
+                 "nsw": 0.0, "graph": 0.0, "louvain": 0.0}
 
         def lap(stage, t0):
             self._sync()
@@ -229,12 +247,16 @@ class HMGIIndex:
             if bool(overflow.any()):
                 ov = torch.nonzero(overflow).flatten()
                 dstore = delta_mod.insert_grow(dstore, vecs[ov], ids[ov])
-            self.modalities[mod] = ModalityIndex(
+            m = ModalityIndex(
                 ivf=index, delta=dstore, vectors=vecs, ids=ids,
                 workload=WorkloadStats(k),
                 stats=PartitionStats.from_build(vecs, ids, index,
                                                 max_ids=max(n_nodes, 1)))
-            lap("layout", t)
+            t = lap("layout", t)
+            if build_nsw or cfg.use_nsw_refine:
+                m.nsw = self._build_nsw(vecs)
+                lap("nsw", t)
+            self.modalities[mod] = m
         if edges is not None:
             t = time.perf_counter()
             src, dst = np.asarray(edges[0]), np.asarray(edges[1])
@@ -263,8 +285,16 @@ class HMGIIndex:
                 self.n_nodes, node_attrs, device=self.device)
             self._bump_version()
 
-    def set_sparse_docs(self, docs):
-        raise _todo("the sparse-dense rerank lane (set_sparse_docs)", "10")
+    def set_sparse_docs(self, docs: rerank_mod.SparseVectors):
+        """Attach/replace the hashed-term documents of the rerank lane:
+        (n_nodes, nnz) term ids (-1 padded) and weights, indexed by global
+        node id. Swapping them changes reranked results, so it bumps the
+        version stamp."""
+        with self._write_lock:
+            self.sparse_docs = rerank_mod.SparseVectors(
+                term_ids=self._tensor(docs.term_ids, torch.int32),
+                term_weights=self._tensor(docs.term_weights, torch.float32))
+            self._bump_version()
 
     def device_layout(self, modality: str):
         raise _todo("device layouts over a mesh (device_layout)", "15")
@@ -301,19 +331,24 @@ class HMGIIndex:
                 m.id_rows = rows
             return rows
 
-    @staticmethod
-    def _no_trace(trace: bool) -> None:
-        if trace:
-            raise _todo("span traces (trace=True)", "13")
-
     def query(self, plan, *, trace: bool = False):
         """Runs a declarative plan (see ``repro_torch.query.Q``): compiles
         it cost-wise against this index and executes it stage by stage.
-        Returns (scores (Q, k), ids (Q, k))."""
+        Returns (scores (Q, k), ids (Q, k)); with ``trace=True``, (scores,
+        ids, trace) where ``trace.render()`` is the per-stage span tree."""
         from repro_torch.query.executor import execute
         from repro_torch.query.planner import compile_plan
-        self._no_trace(trace)
-        return execute(self, compile_plan(self, plan))
+        obs.set_sync_spans(self.cfg.obs_sync_spans)
+        with self._maybe_trace(trace) as t:
+            out = execute(self, compile_plan(self, plan))
+        return out + (t,) if trace else out
+
+    @staticmethod
+    def _maybe_trace(trace: bool):
+        """``obs.trace()`` collector when tracing, else a null context —
+        untraced queries skip span-tree assembly (spans still feed the
+        registry histograms)."""
+        return obs.trace() if trace else contextlib.nullcontext()
 
     def explain(self, plan) -> str:
         """The compiled physical plan for ``plan``, as a one-line string."""
@@ -327,16 +362,21 @@ class HMGIIndex:
         the one-stage plan ``Q.vector(modality, queries).where(where)
         .topk(k)``. where: optional relational predicate — a (column, op,
         value) tuple or a list of them (AND); the planner picks pushdown or
-        oversample-then-post-filter from its selectivity."""
+        oversample-then-post-filter from its selectivity.
+
+        trace: when True, returns (scores, ids, trace) — ``trace.render()``
+        prints the per-stage span tree (plan, seed scan, ...)."""
         from repro_torch.query.ast import Q
         from repro_torch.query.executor import execute
         from repro_torch.query.planner import compile_plan
-        self._no_trace(trace)
+        obs.set_sync_spans(self.cfg.obs_sync_spans)
         plan = Q.vector(modality, queries, n_probe=n_probe,
                         impl=impl).where(where)
-        phys = compile_plan(self, plan, k=k or self.cfg.top_k,
-                            node_pass=_node_pass)
-        return execute(self, phys)
+        with self._maybe_trace(trace) as t:
+            phys = compile_plan(self, plan, k=k or self.cfg.top_k,
+                                node_pass=_node_pass)
+            out = execute(self, phys)
+        return out + (t,) if trace else out
 
     def hybrid_search(self, queries, modality: str, k: Optional[int] = None,
                       n_hops: Optional[int] = None,
@@ -348,14 +388,22 @@ class HMGIIndex:
                       q_terms=None, q_term_weights=None, *,
                       trace: bool = False):
         """The paper's hybrid query (Eq. 3): ANNS seeds -> h-hop traversal
-        -> adaptive fusion. Returns (scores, ids). ``where`` holds at every
-        stage: seed search, traversal routing and fusion candidates."""
+        -> adaptive fusion -> (optional sparse-dense rerank). Returns
+        (scores, ids); with ``trace=True``, (scores, ids, trace). ``where``
+        holds at every stage: seed search, traversal routing and fusion
+        candidates.
+
+        use_rerank: with ``set_sparse_docs`` done, ``n_hops > 0`` and
+        ``q_terms`` ((T,) hashed term ids for the batch, ``q_term_weights``
+        (T,)), the untruncated fused set is re-ranked by reciprocal-rank
+        fusion of its dense order and its sparse term overlap; the scores
+        are then the RRF values."""
         from repro_torch.query.ast import Q
         from repro_torch.query.executor import execute
         from repro_torch.query.planner import compile_plan
         if self.graph is None:
             raise ValueError("hybrid_search needs a graph: ingest(edges=...)")
-        self._no_trace(trace)
+        obs.set_sync_spans(self.cfg.obs_sync_spans)
         cfg = self.cfg
         k = k or cfg.top_k
         if min_recall is not None:
@@ -366,16 +414,29 @@ class HMGIIndex:
             n_probe = plan.n_probe
             n_hops = plan.n_hops
             use_rerank = use_rerank or plan.use_rerank
-        if use_rerank:
-            raise _todo("the sparse-dense rerank lane", "10")
         n_hops = cfg.max_hops if n_hops is None else n_hops
         q = self._norm_queries(queries)
-        plan = (Q.vector(modality, q, n_probe=n_probe)
-                .where(where)
-                .traverse(n_hops, edge_types=edge_type_mask))
-        phys = compile_plan(self, plan, k=k, fusion_repr="sparse")
-        fvals, fids = execute(self, phys, truncate=False)
-        return fvals[:, :k], fids[:, :k]
+
+        with self._maybe_trace(trace) as t:
+            plan = (Q.vector(modality, q, n_probe=n_probe)
+                    .where(where)
+                    .traverse(n_hops, edge_types=edge_type_mask))
+            phys = compile_plan(self, plan, k=k, fusion_repr="sparse")
+            fvals, fids = execute(self, phys, truncate=False)
+
+            if (n_hops > 0 and use_rerank and self.sparse_docs is not None
+                    and q_terms is not None):
+                # optional sparse-dense rerank over the full fused set
+                with obs.span("query.rescore") as span:
+                    ss = rerank_mod.sparse_overlap_scores(
+                        self.sparse_docs, self._tensor(q_terms, torch.int32),
+                        self._tensor(q_term_weights, torch.float32), fids)
+                    fvals, fids = span.fence(
+                        rerank_mod.rrf_rerank(fvals, ss, fids, k=k))
+                out = (fvals, fids)
+            else:
+                out = (fvals[:, :k], fids[:, :k])
+        return out + (t,) if trace else out
 
     # ----------------------------------------------------------------- update
     def _record_dead(self, m: ModalityIndex, ids32: torch.Tensor):
@@ -399,7 +460,7 @@ class HMGIIndex:
         through ``maintain`` — bounded incremental drains instead of a
         stop-the-world ``compact`` — growing the delta only if maintenance
         could not free enough slots. Writes are never dropped."""
-        with self._write_lock:
+        with obs.span("index.insert"), self._write_lock:
             self._insert_locked(modality, ids, vectors)
 
     def _insert_locked(self, modality: str, ids, vectors):
@@ -459,7 +520,7 @@ class HMGIIndex:
         scan path at once and are purged by maintenance or compaction.
         With ``cfg.maint_auto`` a maintenance pass follows, so hollowed-out
         partitions eventually merge away."""
-        with self._write_lock:
+        with obs.span("index.delete"), self._write_lock:
             m = self.modalities[modality]
             ids32 = self._tensor(ids, torch.int32)
             self._record_dead(m, ids32)
@@ -484,6 +545,11 @@ class HMGIIndex:
             # the rebuild dropped every dead stable row and re-packed slots
             m.stats.dead[:] = 0
             m.stats.invalidate_slab()
+        if m.nsw is not None:
+            # compaction clears the superseded mask, which is what hid
+            # updated rows from the NSW lane — refresh it over the latest
+            # vectors or it would serve pre-update similarities again
+            m.nsw = self._build_nsw(m.vectors)
         self._bump_version()
 
     def maybe_repartition(self, modality: str) -> bool:
@@ -567,6 +633,7 @@ class HMGIIndex:
                 merge_max_fill=cfg.maint_merge_max_fill,
                 drift_threshold=cfg.maint_drift_threshold)
             report = MaintenanceReport(mod)
+            cleared = 0
             skip_chunks = False
             for act in actions:
                 if act.kind == "compact_chunk" and skip_chunks:
@@ -577,6 +644,7 @@ class HMGIIndex:
                 obs.counter("maintenance.rows_moved").inc(
                     res.get("drained", 0) + res.get("moved", 0)
                     + res.get("reclaimed", 0))
+                cleared += res.get("cleared_superseded", 0)
                 if act.kind == "compact_chunk" and not (
                         res.get("drained", 0) or res.get("reclaimed", 0)):
                     # every target partition is full (or the delta emptied):
@@ -585,6 +653,11 @@ class HMGIIndex:
                 if (act.kind == "split_hot" and res.get("ivf_changed", False)
                         and m.workload is not None):
                     m.workload.reset()
+            if cleared and m.nsw is not None:
+                # drained updates cleared superseded bits — exactly like a
+                # full compaction, the NSW layer must refresh over the
+                # latest master rows or it would serve pre-update scores
+                m.nsw = self._build_nsw(m.vectors)
             reports[mod] = report
         trail = "; ".join(r.describe() for r in reports.values()
                           if not r.is_noop)
@@ -615,7 +688,7 @@ class HMGIIndex:
                 "communities": self.communities is not None,
                 "boosted_weights": self.boosted_weights is not None,
                 "attr_columns": None,
-                "sparse_docs": False,
+                "sparse_docs": self.sparse_docs is not None,
             }
             for mod, m in self.modalities.items():
                 p = f"m/{mod}"
@@ -625,6 +698,9 @@ class HMGIIndex:
                     tree[f"{p}/delta/{f}"] = getattr(m.delta, f)
                 tree[f"{p}/vectors"] = m.vectors
                 tree[f"{p}/ids"] = m.ids
+                if m.nsw is not None:
+                    for f in nsw_mod.NSWGraph._fields:
+                        tree[f"{p}/nsw/{f}"] = getattr(m.nsw, f)
                 if m.workload is not None:
                     tree[f"{p}/workload_hits"] = m.workload.hits_snapshot()
                 if m.stats is not None:
@@ -633,7 +709,7 @@ class HMGIIndex:
                 meta["modalities"][mod] = {
                     "bits": int(m.ivf.bits),
                     "has_dead": bool(m.has_dead),
-                    "nsw": False,
+                    "nsw": m.nsw is not None,
                     "workload": m.workload is not None,
                     "stats": m.stats is not None,
                     "stats_max_ids": (int(m.stats.max_ids)
@@ -650,6 +726,9 @@ class HMGIIndex:
                 tree["attributes/values"] = self.attributes.values
                 meta["attr_columns"] = sorted(self.attributes.columns,
                                               key=self.attributes.columns.get)
+            if self.sparse_docs is not None:
+                tree["sparse/term_ids"] = self.sparse_docs.term_ids
+                tree["sparse/term_weights"] = self.sparse_docs.term_weights
             return tree, meta
 
     def restore_state(self, tree: Dict[str, object],
@@ -659,12 +738,7 @@ class HMGIIndex:
         device. A "key" that is not a torch.Generator state (a reference
         JAX PRNG key) reseeds the generator from ``seed`` instead. The
         partition statistics (``stats/*``, host numpy) keep their stored
-        dtypes; NSW and sparse-document state raise."""
-        for mod, mm in meta["modalities"].items():
-            if mm.get("nsw"):
-                raise _todo(f"NSW state (modality {mod!r})", "10")
-        if meta.get("sparse_docs"):
-            raise _todo("sparse-document rerank state", "10")
+        dtypes."""
         with self._write_lock:
             self._restore_state_locked(tree, meta)
 
@@ -695,6 +769,10 @@ class HMGIIndex:
                               vectors=t(tree[f"{p}/vectors"]),
                               ids=t(tree[f"{p}/ids"]),
                               has_dead=bool(mm["has_dead"]))
+            if mm["nsw"]:
+                m.nsw = nsw_mod.NSWGraph(
+                    **{f: t(tree[f"{p}/nsw/{f}"])
+                       for f in nsw_mod.NSWGraph._fields})
             if mm["workload"]:
                 m.workload = WorkloadStats(ivf.n_partitions)
                 m.workload.load_hits(np.asarray(tree[f"{p}/workload_hits"]))
@@ -717,15 +795,23 @@ class HMGIIndex:
                 t(tree["attributes/values"]))
         else:
             self.attributes = None
+        self.sparse_docs = (rerank_mod.SparseVectors(
+            term_ids=t(tree["sparse/term_ids"]),
+            term_weights=t(tree["sparse/term_weights"]))
+            if meta["sparse_docs"] else None)
         self._bump_version()
 
     # ------------------------------------------------------------------ stats
     def metrics(self) -> Dict[str, object]:
         """Execution-side observability: the filter selectivity/mode of the
-        last filtered seed scan, the stage times of the last ingest, and the
+        last filtered seed scan, the stage times of the last ingest, the
         latest applied maintenance decision trail under ``"maintenance"``
-        (one line per modality acted on)."""
-        return dict(self._metrics)
+        (one line per modality acted on), and the process-global obs
+        registry snapshot under ``"obs"`` (counters, gauges, histogram
+        summaries with exact p50/p90/p99 — see ``repro_torch.obs``)."""
+        out = dict(self._metrics)
+        out["obs"] = obs.snapshot()
+        return out
 
     def memory_usage(self) -> Dict[str, int]:
         """Bytes per component: one entry per modality's stable slab, one

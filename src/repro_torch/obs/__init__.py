@@ -4,9 +4,8 @@ The port's own copy of the reference's framework-free ``repro.obs``.
 Host-side only. See ``metrics`` (counters/gauges/histograms with exact
 quantiles), ``spans`` (nestable timed spans with optional CUDA
 synchronisation at exit and a ``trace()`` tree collector), and ``export``
-(Prometheus text exposition, JSON snapshot). The serving modules record
-into it; the ``HMGIIndex`` facade does not yet (``trace=True`` is ROADMAP
-Queue 1 item 13).
+(Prometheus text exposition, JSON snapshot). The serving modules and the
+``HMGIIndex`` facade record into it (``trace=True``, ``metrics()["obs"]``).
 
 Typical use::
 

@@ -9,8 +9,13 @@ candidate-set state ``(scores, ids)`` between stages: scores descending,
 
 This module is also the one execution path behind the facade:
 ``HMGIIndex.search`` and ``hybrid_search`` compile the equivalent plan and
-run it here. ``search_bucketed`` is the serving micro-batch entry. The
-reference's NSW refine lane is not ported yet (ROADMAP Queue 1 item 10).
+run it here. ``search_bucketed`` is the serving micro-batch entry.
+
+Spans (``repro_torch.obs``) carry the reference's names and nesting:
+``query.execute`` around a plan, with ``query.seed_scan`` /
+``query.setop``, ``query.traversal``, ``query.fusion`` and
+``query.cross_modal`` inside it; each fences its outputs, so with
+``cfg.obs_sync_spans`` a span waits for the device work it launched.
 """
 from __future__ import annotations
 
@@ -23,7 +28,9 @@ from repro_torch.common.reduce import row_dot
 from repro_torch.common.topk import top_k
 from repro_torch.core import delta as delta_mod
 from repro_torch.core import graph_store as graph_mod
+from repro_torch import obs
 from repro_torch.core import ivf as ivf_mod
+from repro_torch.core import nsw as nsw_mod
 from repro_torch.core import traversal as trav_mod
 from repro_torch.core.fusion import (FusionWeights, adaptive_weights,
                                      fuse_topk_sparse, scatter_sim)
@@ -50,11 +57,30 @@ def _topk_state(sv: torch.Tensor, si: torch.Tensor, k: int) -> State:
 # ------------------------------------------------------------------ seed scan
 def search_raw(index, m, q: torch.Tensor, probes, n_probe: int, k: int,
                node_pass=None, impl: str = "auto") -> State:
-    """One stable+delta scan round (centroids pre-scored in ``probes``)."""
-    return delta_mod.search_with_delta(
+    """One stable+delta scan round (centroids pre-scored in ``probes``),
+    with the optional NSW refine lane (MVCC-visibility- and
+    predicate-masked)."""
+    scores, ids = delta_mod.search_with_delta(
         m.ivf, m.delta, q, n_probe=n_probe, k=k,
         rescore_margin=index.cfg.delta_rescore_margin, probes=probes,
         node_pass=node_pass, impl=impl, mvcc_filter=m.has_dead)
+    if index.cfg.use_nsw_refine and m.nsw is not None:
+        ns, ni = nsw_mod.search(m.nsw, q, ef=index.cfg.nsw_ef, k=k)
+        n_rows = m.ids.shape[0]
+        ni = torch.where(ni >= 0, m.ids[ni.clamp(0, n_rows - 1).long()], -1)
+        # the NSW layer indexes ingest-time rows: apply the same MVCC
+        # visibility rules as the stable scan (deletes and superseded
+        # versions must not resurface through the refine lane) plus the
+        # predicate mask
+        dead = m.delta.tombstones | m.delta.superseded
+        ok = (ni >= 0) & ~dead[ni.clamp(0, dead.shape[0] - 1).long()]
+        if node_pass is not None:
+            ok = ok & graph_mod.mask_pass(node_pass, ni)
+        ns = torch.where(ok, ns, _NEG_INF)
+        ni = torch.where(ok, ni, -1)
+        scores, ids = ivf_mod.dedup_merge_topk(scores, ids, ns, ni, k)
+        ids = torch.where(torch.isfinite(scores), ids, -1)
+    return scores, ids
 
 
 def run_seed(index, s: PSeed, node_pass) -> State:
@@ -107,20 +133,24 @@ def run_traverse(index, t: PTraverse, sv: torch.Tensor, si: torch.Tensor,
     g = index.graph
     if index.boosted_weights is not None:
         g = g._replace(edge_weight=index.boosted_weights)
-    graph_scores = trav_mod.multi_hop_batch(
-        g, si, sv, n_hops=t.n_hops, edge_type_mask=t.edge_type_mask,
-        node_mask=node_pass, damping=t.damping)                     # (Q, N)
-    qn = sv.shape[0]
-    w = (adaptive_weights(sv, base_wv=cfg.w_vector, base_wg=cfg.w_graph)
-         if cfg.adaptive_weights else
-         FusionWeights(torch.full((qn,), cfg.w_vector, device=sv.device),
-                       torch.full((qn,), cfg.w_graph, device=sv.device)))
-    if t.repr == "sparse":
-        return _fuse_candidates(sv, si, graph_scores, w.w_vector, w.w_graph,
-                                k_fuse=t.k_fuse, frontier=t.frontier,
-                                node_pass=node_pass)
-    return _fuse_dense(sv, si, graph_scores, w.w_vector, w.w_graph,
-                       k_fuse=t.k_fuse, node_pass=node_pass)
+    with obs.span("query.traversal") as sp:
+        graph_scores = sp.fence(trav_mod.multi_hop_batch(
+            g, si, sv, n_hops=t.n_hops, edge_type_mask=t.edge_type_mask,
+            node_mask=node_pass, damping=t.damping))                # (Q, N)
+    with obs.span("query.fusion") as sp:
+        qn = sv.shape[0]
+        w = (adaptive_weights(sv, base_wv=cfg.w_vector, base_wg=cfg.w_graph)
+             if cfg.adaptive_weights else
+             FusionWeights(torch.full((qn,), cfg.w_vector, device=sv.device),
+                           torch.full((qn,), cfg.w_graph, device=sv.device)))
+        if t.repr == "sparse":
+            out = _fuse_candidates(sv, si, graph_scores, w.w_vector,
+                                   w.w_graph, k_fuse=t.k_fuse,
+                                   frontier=t.frontier, node_pass=node_pass)
+        else:
+            out = _fuse_dense(sv, si, graph_scores, w.w_vector, w.w_graph,
+                              k_fuse=t.k_fuse, node_pass=node_pass)
+        return sp.fence(out)
 
 
 def _fuse_dense(sv, si, graph_scores, wv, wg, *, k_fuse: int, node_pass=None):
@@ -237,18 +267,23 @@ def run_topk(sv: torch.Tensor, si: torch.Tensor, k: int) -> State:
 
 def execute(index, phys: PhysicalPlan, *, truncate: bool = True) -> State:
     """Runs a compiled plan. truncate=False returns the last stage's full
-    candidate set."""
-    if isinstance(phys.source, PSetOp):
-        sv, si = run_setop(index, phys.source)
-        if phys.node_pass is not None:
-            sv, si = _post_filter(sv, si, phys.node_pass)
-    else:
-        sv, si = run_seed(index, phys.source, phys.node_pass)
-    for st in phys.stages:
-        if isinstance(st, PTraverse):
-            sv, si = run_traverse(index, st, sv, si, phys.node_pass)
+    candidate set (the facade's rerank lane re-scores it before cutting)."""
+    with obs.span("query.execute") as root:
+        if isinstance(phys.source, PSetOp):
+            with obs.span("query.setop") as sp:
+                sv, si = sp.fence(run_setop(index, phys.source))
+                if phys.node_pass is not None:
+                    sv, si = sp.fence(_post_filter(sv, si, phys.node_pass))
         else:
-            sv, si = run_rescore(index, st, sv, si)
-    if truncate:
-        sv, si = run_topk(sv, si, phys.k)
-    return sv, si
+            with obs.span("query.seed_scan") as sp:
+                sv, si = sp.fence(
+                    run_seed(index, phys.source, phys.node_pass))
+        for st in phys.stages:
+            if isinstance(st, PTraverse):
+                sv, si = run_traverse(index, st, sv, si, phys.node_pass)
+            else:
+                with obs.span("query.cross_modal") as sp:
+                    sv, si = sp.fence(run_rescore(index, st, sv, si))
+        if truncate:
+            sv, si = run_topk(sv, si, phys.k)
+        return root.fence((sv, si))

@@ -27,6 +27,7 @@ from typing import Any, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import partitioner
 from repro_torch.core import traversal as trav_mod
 from repro_torch.core.cost_model import (DeviceLayoutPlan, FilteredScanPlan,
@@ -108,7 +109,18 @@ def compile_plan(index, plan, *, k: Optional[int] = None,
                  fusion_repr: Optional[str] = None) -> PhysicalPlan:
     """index: the HMGIIndex the plan will run against. k: fallback terminal
     width when the plan has no ``topk``. node_pass: precompiled predicate
-    mask. fusion_repr: force "sparse"/"dense" fusion (None = cost-based)."""
+    mask. fusion_repr: force "sparse"/"dense" fusion (None = cost-based).
+
+    One ``query.plan`` span per top-level compile; set-op branches recurse
+    through ``_compile_plan``, so the histogram counts whole compiles."""
+    with obs.span("query.plan"):
+        return _compile_plan(index, plan, k=k, node_pass=node_pass,
+                             fusion_repr=fusion_repr)
+
+
+def _compile_plan(index, plan, *, k: Optional[int] = None,
+                  node_pass: Optional[torch.Tensor] = None,
+                  fusion_repr: Optional[str] = None) -> PhysicalPlan:
     if isinstance(plan, Q):
         plan = plan.plan
     cfg = index.cfg
@@ -125,10 +137,10 @@ def compile_plan(index, plan, *, k: Optional[int] = None,
         branch_k = plan_seed_width(k, True)
         source: Union[PSeed, PSetOp] = PSetOp(
             plan.source.kind,
-            compile_plan(index, plan.source.left, k=branch_k,
-                         fusion_repr=fusion_repr),
-            compile_plan(index, plan.source.right, k=branch_k,
-                         fusion_repr=fusion_repr))
+            _compile_plan(index, plan.source.left, k=branch_k,
+                          fusion_repr=fusion_repr),
+            _compile_plan(index, plan.source.right, k=branch_k,
+                          fusion_repr=fusion_repr))
         c = (source.left.k + source.right.k if source.kind == "union"
              else source.left.k)
     else:

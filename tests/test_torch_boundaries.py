@@ -27,6 +27,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.kernels.segment_reduce.ops\n"
         "import repro_torch.models.gnn.driver, repro_torch.sparse.segment\n"
         "import repro_torch.maintenance.executor\n"
+        "import repro_torch.core.nsw, repro_torch.core.rerank\n"
+        "import repro_torch.core.progressive, repro_torch.core.learned\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib')) or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n")
@@ -60,30 +62,48 @@ def _small_index(maint_auto=False):
 
 
 def test_unported_parts_raise():
+    """Only sharding is refused (item 15); the NSW lane, the rerank lane
+    and traces run."""
     idx, v = _small_index(maint_auto=True)
-    for call in (lambda: idx.set_sparse_docs(None),
-                 lambda: idx.device_layout("text"),
-                 lambda: idx.search(v[:2], "text", trace=True),
-                 lambda: idx.hybrid_search(v[:2], "text", use_rerank=True),
-                 lambda: HMGIIndex(idx.cfg, mesh=object(), device="cpu"),
-                 lambda: HMGIIndex(idx.cfg.replace(use_nsw_refine=True),
-                                   device="cpu").ingest(
-                     {"text": (np.arange(64), v)}, 64)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for call in (lambda: idx.device_layout("text"),
+                 lambda: HMGIIndex(idx.cfg, mesh=object(), device="cpu")):
+        with pytest.raises(NotImplementedError, match="item 15"):
             call()
+    assert len(idx.search(v[:2], "text", trace=True)) == 3
+    assert idx.hybrid_search(v[:2], "text", use_rerank=True)[1].shape == (2, 10)
+    nsw = HMGIIndex(idx.cfg.replace(use_nsw_refine=True, nsw_degree=4),
+                    device="cpu")
+    nsw.ingest({"text": (np.arange(64), v)}, 64)
+    assert nsw.modalities["text"].nsw.neighbors.shape == (64, 4)
     with pytest.raises(KeyError):
         get_config("qwen2-72b")
 
 
 def test_converter_refuses_nsw_and_sparse_state():
+    """Named for what it checked before the NSW lane and the rerank lane
+    were ported: the converter now carries both across, with the
+    partition statistics."""
     from repro_torch.convert import index_from_jax_state
-    idx, _ = _small_index()
+    from repro_torch.core.rerank import SparseVectors
+    cfg = get_config("hmgi").replace(n_partitions=4, n_probe=2,
+                                     delta_capacity=32, maint_auto=False,
+                                     use_nsw_refine=True, nsw_degree=4)
+    v = np.random.default_rng(0).normal(size=(64, 16)).astype(np.float32)
+    idx = HMGIIndex(cfg, device="cpu")
+    idx.ingest({"text": (np.arange(64), v)}, 64,
+               edges=(np.arange(63), np.arange(1, 64)))
+    rng = np.random.default_rng(3)
+    idx.set_sparse_docs(SparseVectors(rng.integers(-1, 50, (64, 6)),
+                                      rng.random((64, 6))))
     tree, meta = idx.state_tree()
     tree = {k: v.numpy() if isinstance(v, torch.Tensor) else v
             for k, v in tree.items()}
-    for extra in ("m/text/nsw/vectors", "sparse/term_ids"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            index_from_jax_state({**tree, extra: np.zeros(1)}, meta, "cpu")
+    assert meta["modalities"]["text"]["nsw"] and meta["sparse_docs"]
+    back = index_from_jax_state(tree, meta, "cpu", cfg=idx.cfg)
+    for a, b in zip(back.modalities["text"].nsw, idx.modalities["text"].nsw):
+        assert torch.equal(a, b)
+    for a, b in zip(back.sparse_docs, idx.sparse_docs):
+        assert torch.equal(a, b)
     # partition statistics carry over
     dead = np.arange(4, dtype=np.int64)
     back = index_from_jax_state({**tree, "m/text/stats/dead": dead},

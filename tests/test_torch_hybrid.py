@@ -127,6 +127,23 @@ def test_louvain_and_boost_identical(corpus, graphs):
                                   np.asarray(jcomm.community_edge_boost(jg, jl)))
 
 
+@pytest.mark.parametrize("n_iters", [1, 3, 10])
+@pytest.mark.parametrize("which", ["corpus", "sparse"])
+def test_label_propagation_identical(graphs, which, n_iters):
+    """Integer labels, exactly the reference's: the corpus graph, and a
+    sparse random graph of many components with isolated nodes."""
+    jg, pg = graphs
+    if which == "sparse":
+        rng = np.random.default_rng(n_iters)
+        src, dst = rng.integers(0, N, (2, N // 3))
+        jg = jgraph.from_edges(N, src, dst)
+        pg = pgraph.from_edges(N, src, dst)
+    want = np.asarray(jcomm.label_propagation(jg, n_iters))
+    got = pcomm.label_propagation(pg, n_iters).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
 def _fusion_inputs(rng, qn=4, ks=20):
     gs = (rng.random((qn, N)) ** 4).astype(np.float32)
     vi = rng.integers(0, N, (qn, ks)).astype(np.int32)

@@ -1,8 +1,9 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
 (the IVF scans, the flash-decode kernel and the segment sum), the facade
-(search, hybrid search, a maintenance drain) and the EGNN forward on the
-card against the same on the CPU, and ``search_bucketed``'s bytes batched
-against alone.
+(search, hybrid search, a maintenance drain, the NSW refine lane) and the
+EGNN forward on the card against the same on the CPU, ``search_bucketed``'s
+bytes batched against alone (with and without the NSW lane), and the
+progressive rounds' probe-kernel launches.
 
 Every test carries the ``gpu`` marker and skips itself when
 ``torch.cuda.is_available()`` is false (decided inside the test, so every
@@ -332,6 +333,97 @@ def test_drain_then_search_on_the_card_matches_the_cpu():
     got = gpu.search(vecs[5:], "text", k=1, n_probe=16)[1].cpu().numpy()
     np.testing.assert_array_equal(got[:, 0], ids[5:])
 
+
+
+def _nsw_card_index():
+    """The small card index with the NSW refine lane (n_probe 2 of 16, so
+    the lane adds rows the probed partitions miss)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.index import HMGIIndex
+    from repro_torch.data.synthetic import make_corpus
+    n = 2000
+    c = make_corpus(n_nodes=n, modality_dims={"text": 64}, intra_p=96 / n,
+                    inter_p=2 / n, seed=0)
+    cfg = get_config("hmgi").replace(n_partitions=16, n_probe=2,
+                                     delta_capacity=256, use_nsw_refine=True,
+                                     nsw_degree=8, nsw_ef=32)
+    gpu = HMGIIndex(cfg)
+    gpu.ingest({"text": (c.node_ids["text"], c.vectors["text"])}, n,
+               edges=(c.src, c.dst, c.edge_type))
+    q = (c.vectors["text"][:32] + 0.1 * np.random.default_rng(3).normal(
+        size=(32, 64))).astype(np.float32)
+    return gpu, q
+
+
+@pytest.mark.gpu
+def test_nsw_lane_bytes_do_not_depend_on_the_batch():
+    """8 queries through the NSW refine lane give the bytes each gives
+    alone, as a search and as a hybrid search."""
+    _need_card()
+    from repro_torch.query.executor import search_bucketed
+    gpu, q = _nsw_card_index()
+    for hops in (0, 1):
+        bv, bi = search_bucketed(gpu, q[:8], "text", k=6, n_hops=hops)
+        for i in range(8):
+            sv, si = search_bucketed(gpu, q[i:i + 1], "text", k=6,
+                                     n_hops=hops)
+            assert sv[0].tobytes() == bv[i].tobytes(), (hops, i)
+            assert si[0].tobytes() == bi[i].tobytes(), (hops, i)
+
+
+@pytest.mark.gpu
+def test_nsw_lane_with_the_kernels_matches_the_plain_versions():
+    """The NSW lane on the card (the scan kernels, the graph's beam search
+    on the device) against the same index restored on the CPU (plain
+    versions), the graph carried across: scores within 1e-4, ids equal
+    except where scores tie to rounding. A CPU rebuild of the graph over
+    the card's rows gives the same neighbours up to ties."""
+    _need_card()
+    from repro_torch.core import nsw as nsw_mod
+    from repro_torch.core.index import HMGIIndex
+    gpu, q = _nsw_card_index()
+    tree, meta = gpu.state_tree()
+    cpu = HMGIIndex(gpu.cfg, device="cpu")
+    cpu.restore_state(tree, meta)
+    launches = ops.probe_scan.launches
+    for call in (lambda i: i.search(q, "text"),
+                 lambda i: i.hybrid_search(q, "text", n_hops=1)):
+        gv, gi = call(gpu)
+        cv, ci = call(cpu)
+        np.testing.assert_allclose(gv.cpu().numpy(), cv.numpy(), rtol=0,
+                                   atol=1e-4)
+        assert (gi.cpu().numpy() == ci.numpy()).mean() >= 0.98
+    assert ops.probe_scan.launches > launches
+    g = gpu.modalities["text"].nsw
+    gs, gi = nsw_mod.search(g, torch.as_tensor(q, device="cuda"), ef=32, k=10)
+    cs, ci = nsw_mod.search(cpu.modalities["text"].nsw, torch.as_tensor(q),
+                            ef=32, k=10)
+    np.testing.assert_allclose(gs.cpu().numpy(), cs.numpy(), rtol=0,
+                               atol=1e-5)
+    assert (gi.cpu().numpy() == ci.numpy()).mean() >= 0.98
+
+
+@pytest.mark.gpu
+def test_progressive_rounds_launch_the_probe_kernel():
+    """Each round of progressive_search over an int8 index runs the probe
+    kernel once, and the last round at full probe equals a one-shot
+    search at that probe up to ties."""
+    _need_card()
+    from repro_torch.core import ivf as ivf_mod
+    from repro_torch.core.progressive import progressive_search
+    gpu, q = _nsw_card_index()
+    ix = gpu.modalities["text"].ivf
+    before = ops.probe_scan.launches
+    rounds = list(progressive_search(ix, q, k=10,
+                                     probe_schedule=(1, 2, 4, 8, 16)))
+    assert len(rounds) == 5
+    assert ops.probe_scan.launches - before == 5
+    one = ivf_mod.search(ix, torch.as_tensor(q, device="cuda"), n_probe=16,
+                         k=10)
+    np.testing.assert_allclose(rounds[-1].scores.cpu().numpy(),
+                               one[0].cpu().numpy(), rtol=0, atol=1e-6)
+    assert (rounds[-1].ids.cpu().numpy() == one[1].cpu().numpy()).mean() \
+        >= 0.98
 
 # ---------------------------------------------------------------- decode
 def _decode_case(g, b, s, hkv, grp, hd, dtype, lengths):

@@ -1,6 +1,5 @@
-"""Twin of ``tests/test_mvcc_updates.py`` on the port (indexes on the CPU).
-Every reference case but ``test_nsw_refine_respects_mvcc``, which waits for
-the NSW refine lane (ROADMAP Queue 1 item 10).
+"""Twin of ``tests/test_mvcc_updates.py`` on the port (indexes on the CPU),
+all of its cases.
 
 MVCC update-path correctness: latest-version-wins in the delta,
 no data loss on repartition or compaction overflow.
@@ -100,6 +99,29 @@ class TestRecency:
         # and id 3 appears exactly once per query
         for row in di:
             assert (row == 3).sum() == 1
+
+    def test_nsw_refine_respects_mvcc(self):
+        """The NSW refine lane must apply the same visibility rules as the
+        stable scan: deleted ids don't resurface and updated ids aren't
+        ranked by their stale pre-update score."""
+        idx, v = _build(use_nsw_refine=True, nsw_degree=8, nsw_ef=32)
+        # delete
+        idx.delete("text", np.array([5], np.int32))
+        _, si = idx.search(v[5:6], "text", k=10)
+        assert not np.any(np.asarray(si) == 5)
+        # update: query the OLD vector — id 7 may only appear with the new
+        # vector's (low) score, never the stale ~1.0 one. Post-compaction the
+        # superseded mask is cleared, so the NSW layer must be refreshed too.
+        new = _axis_vec(32, 3)
+        idx.insert("text", np.array([7], np.int32), new)
+        for stage in ("pre-compaction", "post-compaction"):
+            sv, si = idx.search(v[7:8], "text", k=10)
+            for x, s in zip(np.asarray(si)[0], np.asarray(sv)[0]):
+                if x == 7:
+                    assert s < 0.9, (stage, s)
+            sv, si = idx.search(new, "text", k=1)
+            assert int(si[0, 0]) == 7 and float(sv[0, 0]) > 0.99, stage
+            idx.compact("text")
 
     def test_row_versions_stamped(self):
         store = delta_mod.init(8, 4, max_ids=16)
