@@ -36,7 +36,23 @@ Phases (each prints one line; any failure exits non-zero):
                 back, no write dropped; maintain() and insert-batch
                 latency, one full compact() as the stop-the-world
                 baseline.
-  5. hybrid   — ingest with a graph, hybrid_search (plain, typed, filtered)
+     durable  — the durable lifecycle at the same size over the same
+                corpus (get_config("hmgi"): wal_sync_every 1,
+                snapshot_keep 2): a script of writes (ingest, 18 update
+                batches of 256, 4 delete batches of 16, snapshot() after
+                batch 12, a tail with maybe_repartition() and maintain())
+                on a plain HMGIIndex, a DurableHMGIIndex and one at group
+                commit 16 (the WAL's append and fsync, insert-batch
+                latency and the WAL's overhead), snapshot() and recover()
+                by stage; the recovered index equal to the live one byte
+                for byte (every state leaf; search, filtered and
+                full-probe bytes for 256 queries); two kill -9 children of
+                this script (HMGI_FAULTPOINT at the 15th WAL append and in
+                the snapshot's write) recovered and held to a golden
+                replay of their durable prefix; the port's crash harness
+                swept over its nine points on the card; partitioner.fit
+                three times bitwise, its cluster sums against their plain
+                version. It needs 10 GB free under the temp dir. ingest with a graph, hybrid_search (plain, typed, filtered)
                 at 131,072 nodes, checked against a CPU copy of the index.
      facade   — the rest of the facade on the same index: the NSW graph
                 built (seconds, peak memory; a 16,384-row twin on the CPU
@@ -50,7 +66,10 @@ Phases (each prints one line; any failure exits non-zero):
                 times from the facade's own spans (trace=True, sync
                 spans), and the reference's MVCC sequence on the NSW lane
                 (a delete, an update, compact() with its NSW rebuild). The
-                probe and delta kernels' launches must grow.
+                probe and delta kernels' launches must grow. Then the
+                index through a snapshot (write_snapshot, read_snapshot,
+                restore_state): plain, typed and filtered hybrid_search
+                byte-equal; the hop operator three times bitwise.
   6. rag      — RAGEngine over the phase-5 index with full-width
                 phi4-mini (32 layers, bf16, seeded random weights) and its
                 default maintenance pacing (a bounded maintain() every 4th
@@ -77,17 +96,24 @@ Phases (each prints one line; any failure exits non-zero):
                 65,536-node copy matches the CPU, and that the molecule
                 shape (128 graphs of 30 nodes / 64 edges as one
                 disjoint-union graph) matches a per-graph loop on the CPU.
-  8. the kernels line, then the contract line.
+  8. the kernels line, then the contract line. The segment sum's launches
+     there count the index path's too (k-means cluster sums, hop
+     out-weights), read phase by phase.
 
 It imports only torch, numpy and the port (``src/repro_torch``), and needs a
-CUDA device: without one it exits 1 and prints no result.
+CUDA device: without one it exits 1 and prints no result. ``--durable-child
+DIR VECS.npy`` is the durable phase's own child process.
 """
 from __future__ import annotations
 
 import json
+import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -112,6 +138,15 @@ SCORE_ATOL = 1e-4     # fp32 sums over d=384 in another order (scores O(1))
 # the maint phase reads every partition: its answer does not depend on the
 # routing, so byte-identical row moves leave its bytes unchanged
 MAINT_FULL_PROBE = 64
+# the durable phase: its script of writes (18 update batches of 256, 4
+# delete batches of 16, a snapshot after batch 12), the two kill -9
+# children's fault points (the 15th WAL append: an update before the
+# snapshot; the snapshot's first leaf), and the free disk it needs (a
+# ~2.5 GB snapshot, a ~1.6 GB ingest record, the corpus file for the
+# children, two children's own logs)
+DURABLE_BATCHES, DURABLE_DEL, DURABLE_SNAPSHOT_AFTER = 18, 16, 12
+DURABLE_POINTS = ("wal.post_append:15", "snapshot.mid_write")
+DURABLE_MIN_FREE = 10e9
 # the facade phase: the NSW graph over the phase-5 index (degree 16, ef 64,
 # as configured), its CPU twin at 16,384 rows, and the rerank lane's hashed
 # documents (32 terms each, 16 for the batch, 4,096 buckets)
@@ -937,6 +972,456 @@ def phase_maint(index, corpus):
          cpu_copy_agrees=True, writes_found=True, deletes_gone=True,
          no_write_dropped=True, trail=[t[:300] for t in trail[-6:]])
 
+
+# ---------------------------------------------------------------------------
+# durable: the write-ahead log, snapshots and recovery at serve_1m
+# ---------------------------------------------------------------------------
+
+def tensor_bytes_equal(a, b) -> bool:
+    """Same shape, dtype and bytes (NaN, -0.0 and padding included)."""
+    if isinstance(a, torch.Tensor) != isinstance(b, torch.Tensor):
+        return False
+    if not isinstance(a, torch.Tensor):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and a.shape == b.shape \
+            and a.tobytes() == b.tobytes()
+    if a.dtype != b.dtype or a.shape != b.shape or a.device != b.device:
+        return False
+    return bool(torch.equal(a.contiguous().reshape(-1).view(torch.uint8),
+                            b.contiguous().reshape(-1).view(torch.uint8)))
+
+
+def durable_script(vecs: np.ndarray):
+    """The durable phase's writes, as ``chip_smoke.py`` and its kill -9
+    children replay them: ingest, 18 update batches of 256 (ids from the
+    upper half of the corpus) with a delete batch of 16 (from the lower
+    half) after batches 3, 6, 9 and 15, a snapshot after batch 12, and a
+    tail that holds a skewed probe load (256 queries around one row at
+    n_probe 1, so one partition takes every hit), maybe_repartition() and
+    a final explicit maintain(). ``("search", ...)`` and ``("snapshot",)``
+    are not logged; every other entry is one WAL record (25 in all, 16
+    before the snapshot)."""
+    rng = np.random.default_rng(31)
+    n = vecs.shape[0]
+    dels = np.split(rng.choice(n // 2, 4 * DURABLE_DEL, replace=False)
+                    .astype(np.int32), 4)
+    ops = [("ingest",)]
+    for b in range(1, DURABLE_BATCHES + 1):
+        ids = (n // 2 + rng.choice(n - n // 2, BATCH, replace=False)
+               ).astype(np.int32)
+        src = rng.choice(n, BATCH, replace=False)
+        ops.append(("insert", ids, (vecs[src] + 0.05 * rng.normal(
+            size=(BATCH, DIM))).astype(np.float32)))
+        if b in (3, 6, 9, 15):
+            ops.append(("delete", dels.pop(0)))
+        if b == DURABLE_SNAPSHOT_AFTER:
+            ops.append(("snapshot",))
+        if b == 15:
+            skew = (vecs[7] + 0.01 * rng.normal(size=(BATCH, DIM))
+                    ).astype(np.float32)
+            ops += [("search", skew), ("repartition",)]
+    ops.append(("maintain",))
+    return ops
+
+
+def apply_durable(index, script, vecs, attr, until=None, clock=None):
+    """Applies ``script`` to ``index`` (a DurableHMGIIndex or a plain
+    HMGIIndex, which skips the snapshots), stopping once ``until`` logged
+    ops have run. ``clock``: a dict that receives each insert's ms and the
+    snapshot's seconds (device synchronised). Returns the logged ops run."""
+    done = 0
+    for entry in script:
+        kind = entry[0]
+        if kind == "search":
+            index.search(entry[1], "text", n_probe=1)
+            continue
+        if kind == "snapshot":
+            if hasattr(index, "snapshot"):
+                t0 = time.perf_counter()
+                index.snapshot()
+                if clock is not None:
+                    clock["snapshot_s"] = time.perf_counter() - t0
+            continue
+        if until is not None and done >= until:
+            break
+        t0 = time.perf_counter()
+        if kind == "ingest":
+            index.ingest({"text": (np.arange(vecs.shape[0], dtype=np.int32),
+                                   vecs)}, vecs.shape[0],
+                         node_attrs={"a": attr})
+        elif kind == "insert":
+            index.insert("text", entry[1], entry[2])
+        elif kind == "delete":
+            index.delete("text", entry[1])
+        elif kind == "repartition":
+            split = index.maybe_repartition("text")
+            if clock is not None:
+                clock["repartition_split"] = split
+        elif kind == "maintain":
+            index.maintain()
+        if clock is not None and kind == "insert":
+            torch.cuda.synchronize()
+            clock.setdefault("insert_ms", []).append(
+                (time.perf_counter() - t0) * 1e3)
+        done += 1
+    return done
+
+
+def durable_attr() -> np.ndarray:
+    return np.random.default_rng(1).integers(0, 10, VEC_N)
+
+
+def durable_results(index, q) -> list:
+    """Search (k 10), filtered search (sel ≈ 0.1) and full-probe results
+    for the 256 queries, on the host."""
+    return [t.cpu() for t in (
+        *index.search(q, "text"),
+        *index.search(q, "text", where=("a", "==", 3)),
+        *index.search(q, "text", n_probe=MAINT_FULL_PROBE))]
+
+
+def durable_child(data_dir: str, vec_file: str) -> None:
+    """A kill -9 child: the durable script on a fresh DurableHMGIIndex, with
+    ``HMGI_FAULTPOINT`` armed by the parent (it dies with exit code 137)."""
+    from repro_torch.configs import get_config
+    from repro_torch.persistence import DurableHMGIIndex
+    vecs = np.load(vec_file)
+    idx = DurableHMGIIndex(get_config("hmgi"), data_dir, seed=0)
+    apply_durable(idx, durable_script(vecs), vecs, durable_attr())
+    idx.close()
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def _span_s(name: str) -> float:
+    from repro_torch import obs
+    h = obs.registry().histograms().get(name)
+    return float(h.total / 1e3) if h is not None else float("nan")
+
+
+def phase_durable(corpus) -> dict:
+    """The durable lifecycle at serve_1m on the card (get_config("hmgi"):
+    wal_sync_every 1, snapshot_keep 2): the durable script on a
+    DurableHMGIIndex (WAL append of the 1.6 GB ingest record, insert-batch
+    latency against the same stream on a plain HMGIIndex and at group
+    commit 16, one snapshot), recover() by stage, the recovered index held
+    to the live one byte for byte (every state leaf; search, filtered and
+    full-probe bytes for 256 queries), two kill -9 children recovered and
+    held to a golden replay of their durable prefix, the port's crash
+    harness swept over all nine points on the card, and partitioner.fit
+    repeated bitwise at serve_1m. Returns the segment-sum launches of that
+    repeat check, which are not the main path's."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core import partitioner
+    from repro_torch.core.index import HMGIIndex
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.persistence import DurableHMGIIndex, recover
+    phase_t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="hmgi_durable_")
+    procs = []
+    try:
+        free = shutil.disk_usage(root).free
+        check(free >= DURABLE_MIN_FREE,
+              f"durable: {free / 2 ** 30:.1f} GiB free under {root}, the "
+              f"phase needs {DURABLE_MIN_FREE / 2 ** 30:.0f} GiB (a "
+              "snapshot is ~2.5 GB, the ingest record ~1.6 GB, and two "
+              "kill -9 children write their own); it is not shrunk to fit")
+        cfg = get_config("hmgi")
+        check(cfg.wal_sync_every == 1 and cfg.snapshot_keep == 2
+              and cfg.maint_auto, "durable: get_config('hmgi') changed")
+        vecs = np.ascontiguousarray(corpus.vectors["text"], np.float32)
+        attr = durable_attr()
+        script = durable_script(vecs)
+        n_logged = sum(e[0] not in ("search", "snapshot") for e in script)
+        rng = np.random.default_rng(41)
+        q = (vecs[rng.choice(VEC_N, BATCH, replace=False)]
+             + 0.05 * rng.normal(size=(BATCH, DIM))).astype(np.float32)
+        torch.cuda.reset_peak_memory_stats()
+
+        # (1) the same stream on a plain index, then durable at sync 1
+        plain_clock = {}
+        plain = HMGIIndex(cfg, seed=0)
+        apply_durable(plain, script, vecs, attr, clock=plain_clock)
+        del plain
+        torch.cuda.empty_cache()
+        obs.reset()
+        live_dir = os.path.join(root, "live")
+        clock = {}
+        live = DurableHMGIIndex(cfg, live_dir, seed=0)
+        t0 = time.perf_counter()
+        apply_durable(live, script[:1], vecs, attr)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        ingest_append = obs.registry().histograms()["wal.append"]
+        check(ingest_append.count == 1, "durable: the ingest was not one "
+                                        "WAL record")
+        wal_ingest_ms = ingest_append.vmax
+        wal_ingest_bytes = dir_bytes(os.path.join(live_dir, "wal"))
+        obs.reset()
+        apply_durable(live, script[1:], vecs, attr, clock=clock)
+        check(live.last_seq == n_logged,
+              f"durable: {live.last_seq} WAL records for {n_logged} ops")
+        check(clock.get("repartition_split") is True,
+              "durable: maybe_repartition did not split under the skewed "
+              "probe load")
+        hists = obs.registry().histograms()
+        wal_append = dict(p50=hists["wal.append"].percentile(50),
+                          p99=hists["wal.append"].percentile(99),
+                          n=hists["wal.append"].count)
+        wal_fsync = dict(p50=hists["wal.fsync"].percentile(50),
+                         p99=hists["wal.fsync"].percentile(99),
+                         n=hists["wal.fsync"].count)
+        snap_steps = sorted(os.listdir(os.path.join(live_dir, "snapshots")))
+        check(len(snap_steps) == 1, f"durable: snapshots {snap_steps}")
+        snap_bytes = dir_bytes(os.path.join(live_dir, "snapshots"))
+        snap = dict(s=clock["snapshot_s"], bytes=snap_bytes,
+                    gb_per_s=snap_bytes / clock["snapshot_s"] / 1e9,
+                    to_host_s=_span_s("snapshot.to_host"),
+                    write_s=_span_s("snapshot.write")
+                    - _span_s("snapshot.to_host"))
+        wal_tail_bytes = dir_bytes(os.path.join(live_dir, "wal"))
+
+        # (2) group commit: the same stream at wal_sync_every 16
+        g_clock = {}
+        g_dir = os.path.join(root, "sync16")
+        grouped = DurableHMGIIndex(cfg.replace(wal_sync_every=16), g_dir,
+                                   seed=0)
+        apply_durable(grouped, [e for e in script if e[0] != "snapshot"],
+                      vecs, attr, clock=g_clock)
+        grouped.close()
+        del grouped
+        shutil.rmtree(g_dir)
+        torch.cuda.empty_cache()
+
+        # (3) recover() by stage, and the recovered index against the live
+        live_state, live_meta = live.state_tree()
+        live_res = durable_results(live, q)
+        obs.reset()
+        with_spans = obs.sync_spans()
+        obs.set_sync_spans(True)        # each stage's span waits for its copies
+        t0 = time.perf_counter()
+        rec = recover(cfg, live_dir, seed=0)
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        obs.set_sync_spans(with_spans)
+        trail = rec.metrics()["recovery"]
+        replayed = int(obs.registry().gauge("recovery.replayed_ops").value)
+        check(rec.device.type == "cuda" and rec.last_seq == n_logged
+              and replayed == n_logged - (DURABLE_SNAPSHOT_AFTER + 4),
+              f"durable: recovery trail {trail!r}")
+        rec_state, rec_meta = rec.state_tree()
+        diff = sorted(set(live_state) ^ set(rec_state)) + [
+            k for k in live_state if k in rec_state
+            and not tensor_bytes_equal(live_state[k], rec_state[k])]
+        check(not diff and live_meta == rec_meta,
+              f"durable: recovered state differs from the live one: {diff}")
+        leaves = len(live_state)
+        rec_res = durable_results(rec, q)
+        check(all(tensor_bytes_equal(a, b) for a, b in zip(live_res, rec_res)),
+              "durable: recovered search bytes differ from the live index")
+        recover_split = dict(s=recover_s,
+                             read_crc_s=_span_s("snapshot.read"),
+                             restore_s=_span_s("recovery.restore"),
+                             replay_s=_span_s("recovery.replay"),
+                             replayed_ops=replayed, trail=trail)
+        live.close()
+        rec.close()
+        del live, rec, live_state, rec_state
+        shutil.rmtree(live_dir)
+        torch.cuda.empty_cache()
+        peak = torch.cuda.max_memory_allocated()
+
+        # (4) the checks that need other processes: the harness sweep in the
+        # background, and two kill -9 children of this script
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        env.pop("HMGI_FAULTPOINT", None)
+        sweep_t0 = time.perf_counter()
+        # each child leads its own process group, so that on a failure the
+        # harness's own children are stopped with it
+        sweep = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.persistence.crash_harness",
+             "--sweep"], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        procs.append(sweep)
+        vec_file = os.path.join(root, "vecs.npy")
+        np.save(vec_file, vecs)
+        kills = {}
+        for point in DURABLE_POINTS:
+            d = os.path.join(root, point.replace(":", "_"))
+            p = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--durable-child", d, vec_file],
+                env=dict(env, HMGI_FAULTPOINT=point),
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+                start_new_session=True)
+            procs.append(p)
+            kills[point] = (d, p)
+        kill_res = {}
+        for point, (d, p) in kills.items():
+            _, err = p.communicate(timeout=600)
+            check(p.returncode == 137,
+                  f"durable: the child armed at {point} exited "
+                  f"{p.returncode}, not 137:\n{err[-2000:]}")
+            t0 = time.perf_counter()
+            rec = recover(cfg, d, seed=0)
+            torch.cuda.synchronize()
+            r_s = time.perf_counter() - t0
+            depth = rec.last_seq
+            golden = HMGIIndex(cfg, seed=0)
+            apply_durable(golden, script, vecs, attr, until=depth)
+            same = all(tensor_bytes_equal(a, b) for a, b in zip(
+                durable_results(rec, q), durable_results(golden, q)))
+            check(same, f"durable: kill -9 at {point}: the recovered index "
+                        f"differs from the golden prefix of {depth} ops")
+            kill_res[point] = dict(exit=137, recovered_ops=depth,
+                                   recover_s=r_s, bytes_equal=True,
+                                   trail=rec.metrics()["recovery"])
+            rec.close()
+            del rec, golden
+            shutil.rmtree(d)
+            torch.cuda.empty_cache()
+
+        # (5) fit repeated bitwise at serve_1m (the segment-sum route)
+        x = torch.as_tensor(vecs, device="cuda")
+        x = x / torch.clamp_min(torch.linalg.vector_norm(
+            x, dim=-1, keepdim=True), 1e-12)
+        before = sops.segment_sum_csr.launches
+        fits, fit_s = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fits.append(partitioner.fit(
+                x, cfg.n_partitions, cfg.kmeans_iters,
+                generator=torch.Generator().manual_seed(0)))
+            torch.cuda.synchronize()
+            fit_s.append(time.perf_counter() - t0)
+        repeat_launches = sops.segment_sum_csr.launches - before
+        # two launches an iteration (partitioner.run_sums)
+        check(repeat_launches == 3 * 2 * cfg.kmeans_iters,
+              f"durable: fit launched the segment sum {repeat_launches} "
+              f"times for 3 x {cfg.kmeans_iters} iterations")
+        check(all(tensor_bytes_equal(f.centroids, fits[0].centroids)
+                  and tensor_bytes_equal(f.counts, fits[0].counts)
+                  for f in fits[1:]),
+              "durable: partitioner.fit gave other bytes in a repeat")
+        # the card's cluster sums against their plain version on the CPU
+        a = partitioner.assign(x, fits[0].centroids)
+        before = sops.segment_sum_csr.launches
+        sums_card = partitioner.run_sums(x, a, cfg.n_partitions).cpu()
+        sops.segment_sum_csr.launches = before
+        check(tensor_bytes_equal(sums_card, partitioner.run_sums(
+            x.cpu(), a.cpu(), cfg.n_partitions)),
+              "durable: run_sums on the card differs from its plain version")
+        del x, fits, a
+
+        out, _ = sweep.communicate(timeout=900)
+        sweep_s = time.perf_counter() - sweep_t0
+        ok_lines = [ln for ln in out.splitlines() if ln.endswith("]")
+                    and " — OK [" in ln]
+        check(sweep.returncode == 0 and len(ok_lines) == 9
+              and "all 9 crash point(s)" in out,
+              f"durable: the crash harness sweep on the card failed "
+              f"(exit {sweep.returncode}):\n{out[-3000:]}")
+        free_min = shutil.disk_usage(root).free
+        line("durable", n=VEC_N, d=DIM, batch=BATCH, ops_logged=n_logged,
+             wal_sync_every=cfg.wal_sync_every,
+             snapshot_keep=cfg.snapshot_keep, ingest_s=ingest_s,
+             wal_ingest_append_ms=wal_ingest_ms,
+             wal_ingest_bytes=wal_ingest_bytes,
+             wal_tail_bytes=wal_tail_bytes,
+             insert_batch_ms={name: dict(
+                 p50=float(np.percentile(c["insert_ms"], 50)),
+                 p99=float(np.percentile(c["insert_ms"], 99)),
+                 n=len(c["insert_ms"]))
+                 for name, c in (("plain", plain_clock),
+                                 ("durable_sync1", clock),
+                                 ("durable_sync16", g_clock))},
+             wal_overhead_pct_p50={name: (
+                 np.percentile(c["insert_ms"], 50)
+                 / np.percentile(plain_clock["insert_ms"], 50) - 1) * 100
+                 for name, c in (("sync1", clock), ("sync16", g_clock))},
+             wal_append_ms=wal_append, wal_fsync_ms=wal_fsync,
+             snapshot=snap, recover=recover_split,
+             recovered_equals_live=dict(state_leaves=leaves,
+                                        search_filtered_full_probe=True),
+             kill9=kill_res,
+             harness_sweep=dict(points=len(ok_lines), s=sweep_s,
+                                lines=[ln[:110] for ln in ok_lines]),
+             fit_repeat=dict(runs=3, bitwise=True, s=fit_s,
+                             segment_sum_launches=repeat_launches,
+                             run_sums_card_eq_plain=True),
+             peak_mem_gib=peak / 2 ** 30, free_disk_gib=free / 2 ** 30,
+             free_disk_min_gib=free_min / 2 ** 30,
+             phase_s=time.perf_counter() - phase_t0)
+        return repeat_launches
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_durable_hybrid(index, corpus) -> int:
+    """The hybrid/131k index through a snapshot (no second ingest):
+    write_snapshot -> read_snapshot -> restore_state into a fresh index;
+    plain, typed and filtered hybrid_search byte-equal. Then the hop
+    operator built three times, byte-equal (its out-weights run the
+    segment-sum kernel). Returns the segment-sum launches of that repeat."""
+    from repro_torch.core import traversal
+    from repro_torch.core.index import HMGIIndex
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.persistence import snapshot as snap_mod
+    root = tempfile.mkdtemp(prefix="hmgi_hybsnap_")
+    try:
+        rng = np.random.default_rng(43)
+        vecs = corpus.vectors["text"]
+        q = (vecs[rng.choice(HYB_N, BATCH, replace=False)]
+             + 0.05 * rng.normal(size=(BATCH, DIM))).astype(np.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap_mod.write_snapshot(root, index, 0)
+        write_s = time.perf_counter() - t0
+        nbytes = dir_bytes(root)
+        t0 = time.perf_counter()
+        tree, meta, _ = snap_mod.read_snapshot(root, index.cfg, 0)
+        read_s = time.perf_counter() - t0
+        back = HMGIIndex(index.cfg, seed=index.seed)
+        t0 = time.perf_counter()
+        back.restore_state(tree, meta)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del tree
+        runs = {"plain": dict(), "typed": dict(edge_type_mask=(0, 1)),
+                "filtered": dict(where=("a", "<", 5))}
+        for name, kw in runs.items():
+            a = index.hybrid_search(q, "text", k=10, n_hops=2, **kw)
+            b = back.hybrid_search(q, "text", k=10, n_hops=2, **kw)
+            check(all(tensor_bytes_equal(x, y) for x, y in zip(a, b)),
+                  f"durable.hybrid: {name} hybrid_search bytes differ after "
+                  "the snapshot round trip")
+        del back
+        g = index.graph
+        before = sops.segment_sum_csr.launches
+        ops_ = [traversal._push_operator(g, traversal._edge_weights(g, None))
+                for _ in range(3)]
+        launches = sops.segment_sum_csr.launches - before
+        check(launches == 3 and all(
+            tensor_bytes_equal(a.indices(), ops_[0].indices())
+            and tensor_bytes_equal(a.values(), ops_[0].values())
+            for a in ops_[1:]),
+              f"durable.hybrid: the hop operator differs in a repeat "
+              f"({launches} segment-sum launches)")
+        line("durable.hybrid", n=HYB_N, edges=int(g.n_edges), bytes=nbytes,
+             write_s=write_s, read_crc_s=read_s, restore_s=restore_s,
+             gb_per_s_write=nbytes / write_s / 1e9,
+             hybrid_bytes_equal=list(runs), push_operator_repeat_bitwise=3)
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 def stage_bytes(index, raw_queries) -> dict:
     """Time-free, per stage: the rows of a batch of queries against each
@@ -1874,6 +2359,7 @@ def main():
     # the port must import before anything is printed: a copy of this
     # script without the repository fails here, with nothing on stdout
     from repro_torch.kernels.ivf_topk import ops
+    from repro_torch.kernels.segment_reduce import ops as sops
     phase_device()
     phase_build()
     kern = {"probe": measure_probe(),
@@ -1884,20 +2370,42 @@ def main():
     small_seg_err = measure_segment_small()
     ops.probe_scan.launches = 0
     ops.shared_scan.launches = 0
+    # the index path runs the segment sum too (k-means sums, hop weights):
+    # its count is read and set to 0 again after each phase, without the
+    # launches of the phases' repeat checks
+    sops.segment_sum_csr.launches = 0
+    seg = {}
+
+    def seg_read(phase: str, excluded: int = 0) -> None:
+        seg[phase] = sops.segment_sum_csr.launches - excluded
+        sops.segment_sum_csr.launches = 0
+
     index, corpus, delta_cap, delta_live = phase_vector()
     after_vector = (ops.probe_scan.launches, ops.shared_scan.launches)
+    seg_read("vector")
     phase_maint(index, corpus)
     after_maint = (ops.probe_scan.launches, ops.shared_scan.launches)
-    del index, corpus
+    seg_read("maint")
+    del index
+    torch.cuda.empty_cache()
+    seg_read("durable", phase_durable(corpus))
+    after_durable = (ops.probe_scan.launches, ops.shared_scan.launches)
+    del corpus
     torch.cuda.empty_cache()
     index, corpus = phase_hybrid()
     after_hybrid = (ops.probe_scan.launches, ops.shared_scan.launches)
+    seg_read("hybrid")
     facade = phase_facade(index, corpus)
+    seg_read("facade", phase_durable_hybrid(index, corpus))
     launches = {"probe": ops.probe_scan.launches,
                 "shared": ops.shared_scan.launches}
     check(launches["probe"] > 0 and launches["shared"] > 0,
           f"a kernel was not launched on the main path: {launches}")
     rag = phase_rag(index, corpus)
+    seg_read("rag")
+    index_seg = sum(seg.values())
+    check(seg["vector"] > 0 and seg["durable"] > 0 and seg["hybrid"] > 0,
+          f"the segment sum was not launched on the index path: {seg}")
     del index, corpus
     torch.cuda.empty_cache()
     if delta_cap != 4096:
@@ -1908,9 +2416,12 @@ def main():
     line("launches", vector=dict(zip(("probe", "shared"), after_vector)),
          maint={"probe": after_maint[0] - after_vector[0],
                 "shared": after_maint[1] - after_vector[1]},
-         hybrid={"probe": after_hybrid[0] - after_maint[0],
-                 "shared": after_hybrid[1] - after_maint[1]},
-         facade=facade, rag=rag, gnn={"segment_sum": gnn_launches})
+         durable={"probe": after_durable[0] - after_maint[0],
+                  "shared": after_durable[1] - after_maint[1]},
+         hybrid={"probe": after_hybrid[0] - after_durable[0],
+                 "shared": after_hybrid[1] - after_durable[1]},
+         facade=facade, rag=rag, gnn={"segment_sum": gnn_launches},
+         index_path_segment_sum=dict(seg, total=index_seg))
     src = "src/repro_torch/kernels/ivf_topk/csrc/ivf_topk.cu"
     kernels = [
         dict(name="ivf_probe_scan", route="cuda", source=src,
@@ -1930,7 +2441,7 @@ def main():
                     "segment_reduce.cu",
              replaces="src/repro/kernels/segment_reduce/"
                       "segment_reduce.py:50",
-             launches=gnn_launches, **kern["segment"]),
+             launches=gnn_launches + index_seg, **kern["segment"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1939,4 +2450,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--durable-child"]:
+        durable_child(*sys.argv[2:4])
+    else:
+        main()

@@ -5,10 +5,11 @@ Same field names and defaults as the JAX package (its ``ArchConfig`` base
 fields are folded into each class), so a reference config converts with
 ``HMGIConfig(**dataclasses.asdict(ref_cfg))``,
 ``LMConfig(**dataclasses.asdict(ref_cfg))`` or
-``GNNConfig(**dataclasses.asdict(ref_cfg))``. Fields the port does not act
-on yet (sharding, durability; the LM's MLA, MoE and training knobs) are
-kept for that round trip; the code raises ``NotImplementedError`` where
-one of them would change behaviour (see
+``GNNConfig(**dataclasses.asdict(ref_cfg))``, and a snapshot's config
+fingerprint (``persistence.snapshot.config_fingerprint``) is the same in
+both packages. Fields the port does not act on yet (sharding; the LM's
+MLA, MoE and training knobs) are kept for that round trip; the code raises
+``NotImplementedError`` where one of them would change behaviour (see
 ``core/index.py`` and ``models/lm.py``).
 """
 from __future__ import annotations
@@ -83,7 +84,7 @@ class HMGIConfig:
     # sharded execution path (not ported yet)
     shard_layout: str = "auto"
     shard_device_budget_bytes: int = 256 << 20
-    # durability (not ported yet)
+    # durability (persistence/): fsync batch of the op log, snapshots kept
     wal_sync_every: int = 1
     snapshot_keep: int = 2
     # observability: sync the device at span exit (honest stage times)

@@ -18,10 +18,12 @@ seed scan (``cfg.use_nsw_refine``, ``core/nsw.py``) and a sparse-dense
 rerank of the fused set (``set_sparse_docs``, ``core/rerank.py``). Spans
 (``repro_torch.obs``) time each stage; ``trace=True`` returns their tree.
 
+Durability lives outside the facade: ``repro_torch.persistence``'s
+``DurableHMGIIndex`` logs every mutation to a write-ahead log before
+applying it, snapshots ``state_tree`` and recovers with ``recover``.
+
 Not ported yet: a device mesh and ``device_layout`` (ROADMAP Queue 1 item
-15), refused with ``NotImplementedError`` naming the item, and durable
-persistence, snapshots and the write-ahead log (item 12), which live
-outside the facade.
+15), refused with ``NotImplementedError`` naming the item.
 """
 from __future__ import annotations
 
@@ -676,7 +678,8 @@ class HMGIIndex:
     # .state_tree``), so ``convert.index_from_jax_state`` reads a reference
     # snapshot through the same ``restore_state``. "key" holds this index's
     # torch.Generator state. The tensors are the index's own (an update
-    # rewrites master rows in place): copy them to keep a snapshot.
+    # rewrites master rows in place): copy them, under the write lock, to
+    # keep a snapshot (``persistence.snapshot.write_snapshot`` does).
 
     def state_tree(self) -> Tuple[Dict[str, object], Dict[str, object]]:
         with self._write_lock:
@@ -735,25 +738,40 @@ class HMGIIndex:
                       meta: Dict[str, object]) -> None:
         """Rebuilds this (freshly constructed) index from ``state_tree``
         output — tensors or numpy arrays, on any device — onto this index's
-        device. A "key" that is not a torch.Generator state (a reference
-        JAX PRNG key) reseeds the generator from ``seed`` instead. The
-        partition statistics (``stats/*``, host numpy) keep their stored
-        dtypes."""
+        device. "key" is the generator state: a uint8 tensor or numpy array
+        (a port snapshot, in memory or read from disk) is loaded as is, so
+        later random draws continue the snapshotted stream; a uint32 array
+        (a reference JAX PRNG key, ``convert.index_from_jax_state``)
+        reseeds the generator from ``seed``; anything else raises
+        ``ValueError``. The partition statistics (``stats/*``, host numpy)
+        keep their stored dtypes."""
         with self._write_lock:
             self._restore_state_locked(tree, meta)
+
+    def _restore_generator(self, key) -> None:
+        if isinstance(key, np.ndarray):
+            key = torch.from_numpy(key.copy())
+        if not isinstance(key, torch.Tensor) or key.dim() != 1:
+            raise ValueError(f"restore_state: 'key' must be a generator state "
+                             f"(uint8) or a JAX PRNG key (uint32), got "
+                             f"{type(key).__name__}")
+        if key.dtype == torch.uint8:
+            self.generator.set_state(key.cpu().contiguous())
+        elif key.dtype == torch.uint32:
+            self.generator.manual_seed(self.seed)
+        else:
+            raise ValueError(f"restore_state: 'key' must be uint8 (a generator "
+                             f"state) or uint32 (a JAX PRNG key), got "
+                             f"{key.dtype}")
 
     def _restore_state_locked(self, tree, meta) -> None:
         def t(x):
             if isinstance(x, torch.Tensor):
                 return x.to(self.device, copy=True)
-            return torch.from_numpy(np.array(x, copy=True)).to(self.device)
+            return torch.tensor(x, device=self.device)      # one copy
 
         self.n_nodes = int(meta["n_nodes"])
-        key = tree.get("key")
-        if isinstance(key, torch.Tensor) and key.dtype == torch.uint8:
-            self.generator.set_state(key.cpu())
-        else:
-            self.generator.manual_seed(self.seed)
+        self._restore_generator(tree.get("key"))
         self.modalities = {}
         for mod, mm in meta["modalities"].items():
             p = f"m/{mod}"

@@ -25,6 +25,9 @@ import torch
 
 from repro_torch.common.reduce import row_dot
 from repro_torch.common.topk import top_k
+from repro_torch.kernels.segment_reduce.ops import (segment_sum,
+                                                    segment_sum_csr)
+from repro_torch.kernels.segment_reduce.ref import csr_from_ids
 
 
 class KMeansState(NamedTuple):
@@ -89,6 +92,43 @@ def live_partitions(centroids) -> int:
     return int(np.sum(~parked_mask(centroids)))
 
 
+# rows per run of the card's two-level cluster sums (``run_sums``)
+RUN_ROWS = 256
+
+
+def run_sums(x: torch.Tensor, a: torch.Tensor, k: int) -> torch.Tensor:
+    """(k, d) sums of ``x``'s rows by cluster ``a``, in two fixed-order
+    CSR segment sums: each cluster's rows, in stable order, are cut into
+    runs of ``RUN_ROWS``; the runs are summed, then each cluster's runs in
+    order. The same bits in every process, and ~N/RUN_ROWS segments at
+    work where a segment per cluster leaves k warps to read N/k rows each
+    (43 ms an iteration at 1,048,576 × 384, k 64, on an H100)."""
+    rowptr, perm = csr_from_ids(a, k)
+    rowptr = rowptr.long()
+    n_runs = (rowptr[1:] - rowptr[:-1] + RUN_ROWS - 1) // RUN_ROWS
+    run_ptr = torch.zeros((k + 1,), dtype=torch.int64, device=x.device)
+    run_ptr[1:] = torch.cumsum(n_runs, 0)
+    total = int(run_ptr[-1])
+    cluster = torch.repeat_interleave(
+        torch.arange(k, device=x.device), n_runs, output_size=total)
+    step = torch.arange(total, device=x.device) - run_ptr[cluster]
+    starts = torch.cat([rowptr[cluster] + step * RUN_ROWS, rowptr[-1:]])
+    partials = segment_sum_csr(x, starts.to(torch.int32), perm)
+    return segment_sum_csr(partials, run_ptr.to(torch.int32))
+
+
+def _cluster_sums(x: torch.Tensor, a: torch.Tensor, k: int) -> torch.Tensor:
+    """Each cluster's row sum in a fixed order, where ``index_add_``'s
+    atomics on the card leave it open (and with it the centroids' last
+    bits, from one process to the next). On the CPU the rows are summed in
+    row order from 0 — the bits of ``index_add_`` there, and of the
+    reference's ``segment_sum``, which the parity tests hold; on the card
+    in ``run_sums``' order, for parallelism."""
+    if x.device.type == "cuda":
+        return run_sums(x, a, k)
+    return segment_sum(x, a, k)
+
+
 def fit(x: torch.Tensor, n_clusters: int, n_iters: int = 16, *,
         generator: Optional[torch.Generator] = None,
         init_idx: Optional[torch.Tensor] = None) -> KMeansState:
@@ -105,12 +145,12 @@ def fit(x: torch.Tensor, n_clusters: int, n_iters: int = 16, *,
             init_idx = torch.randint(n, (n_clusters,), generator=generator)
     cents = x[torch.as_tensor(init_idx, device=x.device).long()]
     counts = torch.zeros((n_clusters,), dtype=x.dtype, device=x.device)
+    x = x.contiguous()
     for _ in range(n_iters):
-        a = assign(x, cents).long()
-        sums = torch.zeros_like(cents).index_add_(0, a, x)
-        counts = torch.zeros((n_clusters,), dtype=x.dtype,
-                             device=x.device).index_add_(
-            0, a, torch.ones((n,), dtype=x.dtype, device=x.device))
+        a = assign(x, cents)
+        sums = _cluster_sums(x, a, n_clusters)
+        # integers: exact in any order
+        counts = torch.bincount(a, minlength=n_clusters).to(x.dtype)
         new = sums / torch.clamp_min(counts[:, None], 1.0)
         # empty clusters keep their previous centroid
         cents = torch.where(counts[:, None] > 0, new, cents)

@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core.graph_store import GraphStore, edge_type_lut
+from repro_torch.kernels.segment_reduce.ops import segment_sum_csr
 
 
 class TraversalResult(NamedTuple):
@@ -50,9 +51,12 @@ def _push_operator(g: GraphStore, ew: torch.Tensor) -> torch.Tensor:
     ew / out_degree_w(src): one hop is ``A @ frontier`` (random-walk style
     push)."""
     n = g.n_nodes
+    # out-weights summed per source in edge order: the edges are stored by
+    # source (``indptr`` is their CSR), so one fixed-order segment sum (the
+    # kernel on the card) gives the bits of index_add_ on the CPU, where
+    # index_add_'s atomics on the card would not fix them
+    deg_w = segment_sum_csr(ew[:, None].contiguous(), g.indptr)[:, 0]
     src = g.src.long()
-    deg_w = torch.zeros((n,), dtype=torch.float32,
-                        device=ew.device).index_add_(0, src, ew)
     inv_deg = torch.where(deg_w > 0, 1.0 / torch.clamp_min(deg_w, 1e-12), 0.0)
     vals = inv_deg[src] * ew
     return torch.sparse_coo_tensor(torch.stack([g.indices.long(), src]), vals,

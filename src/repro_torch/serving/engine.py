@@ -51,9 +51,12 @@ class EngineConfig:
     # adaptive index maintenance between decode steps (0 = off): every
     # maintenance_interval-th tick runs index.maintain(budget=...) so
     # ingest-while-search pays bounded work per tick, never a full rebuild
-    # (snapshot pacing waits for persistence, ROADMAP Queue 1 item 12)
     maintenance_interval: int = 4
     maintenance_budget_rows: int = 256
+    # durability pacing (0 = off): every snapshot_interval-th tick writes a
+    # versioned snapshot when the index is a DurableHMGIIndex, bounding
+    # crash-recovery replay at ~one interval's worth of ops
+    snapshot_interval: int = 0
     # retrieval path (RetrievalService): micro-batch retrievals through the
     # pow2-bucketed (Q, k) entry, with an optional version-invalidated
     # hot-result cache (0 = no cache)
@@ -95,7 +98,8 @@ class RAGEngine:
         self._tokens = np.zeros((cfg.n_slots,), np.int32)
         self.maintenance = (
             MaintenanceDriver(index, cfg.maintenance_budget_rows,
-                              cfg.maintenance_interval)
+                              cfg.maintenance_interval,
+                              snapshot_interval=cfg.snapshot_interval)
             if index is not None and cfg.maintenance_interval > 0 else None)
         self.stats = {"ticks": 0, "tokens": 0, "retrievals": 0,
                       "maintenance_runs": 0}

@@ -218,8 +218,8 @@ class MaintenanceDriver:
     When the index is durable (has a ``snapshot()`` method) and
     ``snapshot_interval > 0``, every ``snapshot_interval``-th tick also
     writes a versioned snapshot — bounding crash-recovery replay at roughly
-    one snapshot interval's worth of ops (the port's index has no
-    ``snapshot`` until persistence lands, ROADMAP Queue 1 item 12)."""
+    one snapshot interval's worth of ops. A no-change snapshot is a no-op
+    inside ``DurableHMGIIndex.snapshot`` itself."""
 
     def __init__(self, index, budget_rows: int = 256, interval: int = 4,
                  snapshot_interval: int = 0):

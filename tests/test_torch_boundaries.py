@@ -29,6 +29,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.maintenance.executor\n"
         "import repro_torch.core.nsw, repro_torch.core.rerank\n"
         "import repro_torch.core.progressive, repro_torch.core.learned\n"
+        "import repro_torch.persistence.durable, repro_torch.checkpoint\n"
+        "import repro_torch.persistence.crash_harness\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib')) or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n")

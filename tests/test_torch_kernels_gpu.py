@@ -2,8 +2,11 @@
 (the IVF scans, the flash-decode kernel and the segment sum), the facade
 (search, hybrid search, a maintenance drain, the NSW refine lane) and the
 EGNN forward on the card against the same on the CPU, ``search_bucketed``'s
-bytes batched against alone (with and without the NSW lane), and the
-progressive rounds' probe-kernel launches.
+bytes batched against alone (with and without the NSW lane), the
+progressive rounds' probe-kernel launches, and durability on the card:
+``recover`` byte-equal to the live index and to the harness's golden
+prefix, ``partitioner.fit`` and the hop operator repeated bitwise (their
+sums run the segment-sum kernel), a bf16 checkpoint leaf round trip.
 
 Every test carries the ``gpu`` marker and skips itself when
 ``torch.cuda.is_available()`` is false (decided inside the test, so every
@@ -719,3 +722,78 @@ def test_egnn_forward_on_the_card_matches_the_cpu():
     want = gd.node_logits_local(cfg, cpu_p, cpu_g)
     assert (got.cpu() - want).abs().max().item() <= 1e-3 * max(
         1.0, want.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_recover_on_the_card_gives_the_live_bytes(tmp_path):
+    """The crash harness's op script (two snapshots, NSW lane, a tail) on a
+    ``DurableHMGIIndex`` on the card (no device given), then ``recover``
+    (no device given): search and hybrid_search bytes equal the live index
+    and the golden prefix replayed into a fresh index on the card."""
+    _need_card()
+    from repro_torch.persistence import DurableHMGIIndex, recover
+    from repro_torch.persistence import crash_harness as ch
+    cfg = ch.make_cfg()
+    live = DurableHMGIIndex(cfg, str(tmp_path), seed=0)
+    assert live.device.type == "cuda"
+    d = ch.apply_ops(live, ch.scripted_ops())
+    rec = recover(cfg, str(tmp_path), seed=0)
+    assert rec.device.type == "cuda" and rec.last_seq == d
+    assert "snapshot step" in rec.metrics()["recovery"]
+    ch.assert_bit_identical(rec, live, "recovered vs live")
+    ch.assert_bit_identical(rec, ch.golden_index(cfg, d), "recovered vs golden")
+    live.close()
+    rec.close()
+
+
+@pytest.mark.gpu
+def test_fit_and_hop_operator_repeat_bitwise_on_the_card():
+    """The k-means cluster sums and the hop operator's out-weights run the
+    fixed-order segment-sum kernel: three runs give the same bytes, and
+    each launches the kernel. The card's cluster sums equal
+    ``partitioner.run_sums``' plain version on the CPU bitwise."""
+    _need_card()
+    from repro_torch.core import partitioner, traversal
+    from repro_torch.core.graph_store import from_edges
+    from repro_torch.kernels.segment_reduce import ops as sops
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((200_000, 64), device="cuda", generator=g)
+    x = x / x.norm(dim=1, keepdim=True)
+    init = torch.arange(0, 200_000, 3125)
+    before = sops.segment_sum_csr.launches
+    fits = [partitioner.fit(x, 64, 8, init_idx=init) for _ in range(3)]
+    # two launches an iteration: the runs, then each cluster's runs
+    assert sops.segment_sum_csr.launches == before + 3 * 8 * 2
+    for f in fits[1:]:
+        assert torch.equal(f.centroids, fits[0].centroids)
+        assert torch.equal(f.counts, fits[0].counts)
+    a = partitioner.assign(x, fits[0].centroids)
+    assert torch.equal(partitioner.run_sums(x, a, 64).cpu(),
+                       partitioner.run_sums(x.cpu(), a.cpu(), 64))
+    rng = np.random.default_rng(1)
+    n, e = 50_000, 400_000
+    gs = from_edges(n, rng.integers(0, n, e), rng.integers(0, n, e),
+                    rng.integers(0, 4, e), rng.random(e).astype(np.float32),
+                    device="cuda")
+    ops_ = [traversal._push_operator(gs, traversal._edge_weights(gs, None))
+            for _ in range(3)]
+    for a in ops_[1:]:
+        assert torch.equal(a.indices(), ops_[0].indices())
+        assert torch.equal(a.values(), ops_[0].values())
+
+
+@pytest.mark.gpu
+def test_bf16_checkpoint_leaf_round_trips_bitwise_on_the_card(tmp_path):
+    _need_card()
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    g = torch.Generator(device="cuda").manual_seed(2)
+    w = torch.randn((33, 7), device="cuda", generator=g).to(torch.bfloat16)
+    w[0, 0] = float("nan")
+    save_checkpoint(str(tmp_path), 1, {"w": w, "i": torch.arange(4)})
+    got, _, _ = restore_checkpoint(str(tmp_path), {"w": w,
+                                                   "i": torch.arange(4)})
+    assert got["w"].device == w.device and got["w"].dtype == torch.bfloat16
+    assert torch.equal(got["w"].view(torch.int16), w.view(torch.int16))
+    flat, _, _ = restore_checkpoint(str(tmp_path), like=None)
+    assert flat["w"].dtype == torch.bfloat16
+    assert torch.equal(flat["w"].view(torch.int16), w.cpu().view(torch.int16))

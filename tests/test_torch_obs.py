@@ -1,7 +1,6 @@
 """Twin of ``tests/test_obs.py`` on the port (``repro_torch.obs``, indexes
-on the CPU). Left out: ``test_wal_histograms_populate`` (the write-ahead
-log is ROADMAP Queue 1 item 12, not ported) and
-``test_staticcheck_all_stays_clean`` (the JAX package's own lint gate).
+on the CPU). Left out: ``test_staticcheck_all_stays_clean`` (the JAX
+package's own lint gate).
 
 Observability layer: registry math, span semantics, exporters, wiring.
 
@@ -303,3 +302,15 @@ def test_write_spans_record(small_index):
     assert reg.histogram("index.insert").count == 1
     assert reg.histogram("index.delete").count == 1
     assert t.find("index.delete").find("index.maintain") is not None
+
+
+def test_wal_histograms_populate(tmp_path):
+    from repro_torch.persistence.oplog import OpLog
+    log = OpLog(str(tmp_path), sync_every=2)
+    for i in range(4):
+        log.append("op", {"i": i}, {"a": np.arange(3, dtype=np.int32)})
+    log.close()
+    reg = obs.registry()
+    assert reg.histogram("wal.append").count == 4
+    assert reg.histogram("wal.fsync").count == 2      # group commit of 2
+    assert reg.histogram("wal.sync_batch").percentile(50) == 2.0
