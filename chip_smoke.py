@@ -23,6 +23,8 @@ Phases (each prints one line; any failure exits non-zero):
                 after a flush that leaves L2 clean. The delta kernel is
                 measured again after phase 4 at the delta size those
                 searches scanned, when ingest overflow grew the delta.
+                The probe kernel is also held against its plain version
+                on each shard of the sharded phase's S = 4 layout.
   4. vector   — ingest → search → filtered search → update → delete at the
                 serve_1m shape (1,048,576 × 384, batch 256) under the
                 default config (get_config("hmgi"): maint_auto on),
@@ -36,6 +38,25 @@ Phases (each prints one line; any failure exits non-zero):
                 back, no write dropped; maintain() and insert-batch
                 latency, one full compact() as the stop-the-world
                 baseline.
+     sharded  — the row-sharded stable scan on the same index, its state
+                in a facade over a mesh of S shards on this card (no
+                second ingest): device_layout sharded(x4) under
+                shard_layout "auto" (the 805 MB slab is over the 256 MiB
+                budget) and explain's layout; shard_index at S = 2, 4, 8
+                (ms, GB/s, peak memory; the live rows and per-shard
+                counts against the single layout); search_sharded equal
+                to search (scores bitwise, ids up to exact ties) at S =
+                2, 4, 8, n_probe 8 and 64, with a predicate and with
+                precomputed probes; each shard's probe kernel at cap_l
+                against its plain version and timed; the facade's
+                search, filtered search and query equal to the single
+                facade's, search_bucketed 8 batched equal to alone;
+                insert batches on both facades until maintain changes the
+                slab (the replica dropped, rebuilt and timed, searches
+                equal again); search p50/p99 at S = 1, 2, 4, 8, the
+                sharded.scan / sharded.merge span p50s, one profiled S =
+                4 search with one probe launch per shard; with two cards
+                or more, one check and one p50 across them.
      durable  — the durable lifecycle at the same size over the same
                 corpus (get_config("hmgi"): wal_sync_every 1,
                 snapshot_keep 2): a script of writes (ingest, 18 update
@@ -52,8 +73,15 @@ Phases (each prints one line; any failure exits non-zero):
                 replay of their durable prefix; the port's crash harness
                 swept over its nine points on the card; partitioner.fit
                 three times bitwise, its cluster sums against their plain
-                version. It needs 10 GB free under the temp dir. ingest with a graph, hybrid_search (plain, typed, filtered)
-                at 131,072 nodes, checked against a CPU copy of the index.
+                version; the directory recovered again over a 4-shard
+                mesh, its search bytes equal to the live index's. It
+                needs 10 GB free under the temp dir.
+  5. hybrid   — ingest with a graph, hybrid_search (plain, typed, filtered)
+                at 131,072 nodes, checked against a CPU copy of the index;
+                then [sharded.hybrid]: the same index over 4 shards
+                (layout forced: its 100 MB slab is under the budget),
+                hybrid_search and one RAGEngine.retrieve batch equal to
+                the single facade's, hybrid p50 beside it.
      facade   — the rest of the facade on the same index: the NSW graph
                 built (seconds, peak memory; a 16,384-row twin on the CPU
                 gives the same neighbours up to ties), nsw.search alone
@@ -138,6 +166,8 @@ SCORE_ATOL = 1e-4     # fp32 sums over d=384 in another order (scores O(1))
 # the maint phase reads every partition: its answer does not depend on the
 # routing, so byte-identical row moves leave its bytes unchanged
 MAINT_FULL_PROBE = 64
+# the sharded phase's shard counts (serve_1m's cap 32,769 is odd: each pads)
+SHARDS = (2, 4, 8)
 # the durable phase: its script of writes (18 update batches of 256, 4
 # delete batches of 16, a snapshot after batch 12), the two kill -9
 # children's fault points (the 15th WAL append: an update before the
@@ -974,6 +1004,397 @@ def phase_maint(index, corpus):
 
 
 # ---------------------------------------------------------------------------
+# sharded: the row-sharded stable scan at serve_1m, S shards on one card
+# ---------------------------------------------------------------------------
+
+def mesh_of(n: int, devices=None):
+    """A 1-d ("data",) mesh of n shards, all on cuda:0 unless given."""
+    from repro_torch.sharding import Mesh
+    return Mesh(devices or ["cuda:0"] * n, ("data",))
+
+
+def remesh(index, mesh) -> None:
+    """Points a facade at another mesh and drops its replica (it is placed
+    for the old mesh's devices)."""
+    index.mesh = mesh
+    index._drop_sharded(index.modalities["text"])
+
+
+def tie_moves(got, want) -> int:
+    """(scores, ids) pairs on one device: -1 unless the scores have the
+    same bytes and every id that differs sits on a score that repeats in
+    its row (an exact tie, whose order the merge may permute); else the
+    number of such positions."""
+    (gs, gi), (ws, wi) = got, want
+    if not tensor_bytes_equal(gs, ws):
+        return -1
+    moved = torch.nonzero(gi != wi).tolist()
+    for r, j in moved:
+        if int((ws[r] == ws[r, j]).sum()) < 2:
+            return -1
+    return len(moved)
+
+
+def live_layout(ivf, sharded: bool):
+    """(id, partition, row bytes, vmin, scale) of every live slot of a
+    single (K, cap) or sharded (S, K, cap_l) layout, sorted by id."""
+    ids = ivf.ids
+    k = ids.shape[-2]
+    part = torch.arange(k, device=ids.device).view(
+        (1, k, 1) if sharded else (k, 1)).expand(ids.shape)
+    ok = ids >= 0
+    order = torch.argsort(ids[ok])
+    return [t[ok][order] for t in (ids, part, ivf.data, ivf.vmin, ivf.scale)]
+
+
+def phase_sharded(index, corpus) -> None:
+    """The row-sharded stable scan on the phase-4 index (serve_1m, after
+    the maint phase), with no second ingest: its state in a facade over a
+    mesh of S shards on this card. Layout (device_layout, explain,
+    shard_index at S = 2, 4, 8 timed, the live rows and counts held to the
+    single layout), equivalence (search_sharded against search at S = 2,
+    4, 8 with n_probe 8 and 64, a predicate and precomputed probes; the
+    facade's search, filtered search and query; search_bucketed 8 batched
+    against alone; a maintain pass that changes the slab drops the
+    replica, the next searches equal again), the probe kernel on each
+    shard at cap_l against its plain version (launches not counted), and
+    time (p50/p99 at S = 1, 2, 4, 8, span p50s, one profiled S = 4
+    search)."""
+    from repro_torch import obs
+    from repro_torch.common.reduce import row_sum
+    from repro_torch.core import ivf as ivf_mod
+    from repro_torch.core import partitioner
+    from repro_torch.core.cost_model import DeviceLayoutPlan
+    from repro_torch.core.index import HMGIIndex
+    from repro_torch.kernels.ivf_topk import ops, ref
+    from repro_torch.query import Q
+    from repro_torch.query.executor import search_bucketed
+    phase_t0 = time.perf_counter()
+    cfg = index.cfg
+    m = index.modalities["text"]
+    k_parts, cap = m.ivf.n_partitions, m.ivf.capacity
+    vecs = corpus.vectors["text"]
+    rng = np.random.default_rng(51)
+    q256 = (vecs[rng.choice(VEC_N, BATCH, replace=False)]
+            + 0.05 * rng.normal(size=(BATCH, DIM))).astype(np.float32)
+    qn = index._norm_queries(q256)
+    where = ("a", "==", 3)
+    npass = index._node_pass(where)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sh = HMGIIndex(cfg, mesh=mesh_of(4), seed=index.seed)
+    sh.restore_state(*index.state_tree())
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    sm = sh.modalities["text"]
+
+    # (1) layout: the planner's choice under shard_layout="auto"
+    slab_bytes = int(m.ivf.data.numel())
+    check(cfg.shard_layout == "auto"
+          and slab_bytes > cfg.shard_device_budget_bytes
+          and sh.device_layout("text") == DeviceLayoutPlan("sharded", 4)
+          and index.device_layout("text") == DeviceLayoutPlan("single", 1),
+          f"sharded: layouts {sh.device_layout('text')} / "
+          f"{index.device_layout('text')} for a {slab_bytes}-byte slab")
+    explain = sh.explain(Q.vector("text", q256).topk(10))
+    check("layout=sharded(x4)" in explain, f"sharded: explain {explain!r}")
+    single_live = live_layout(m.ivf, False)
+    relayout = {}
+    in_bytes = sum(t.numel() * t.element_size()
+                   for t in (m.ivf.data, m.ivf.vmin, m.ivf.scale, m.ivf.ids))
+    for n_sh in SHARDS:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lay = ivf_mod.shard_index(m.ivf, n_sh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        out_bytes = sum(t.numel() * t.element_size() for t in (
+            lay.data, lay.vmin, lay.scale, lay.ids, lay.counts))
+        got = live_layout(lay, True)
+        check(all(tensor_bytes_equal(a, b) for a, b in zip(got, single_live)),
+              f"sharded: the S={n_sh} layout's live (id, partition, bytes, "
+              "vmin, scale) set differs from the single layout's")
+        # builds and compactions pack a partition's rows from slot 0 (a
+        # compaction keeps a deleted row's slot as an empty one): where the
+        # occupied slots are a prefix, the deal is even to within 1
+        occ = m.ivf.ids >= 0
+        prefix = occ.sum(1) == (torch.cumprod(occ.int(), 1).sum(1))
+        spread = (lay.counts.max(0).values - lay.counts.min(0).values)
+        check(bool((spread[prefix] <= 1).all())
+              and torch.equal(lay.counts.sum(0), occ.sum(1, dtype=torch.int32)),
+              f"sharded: S={n_sh} per-shard live counts (spread "
+              f"{spread.tolist()}) against the single layout's")
+        relayout[n_sh] = dict(
+            ms=ms, gb_per_s=(in_bytes + out_bytes) / ms / 1e6,
+            peak_delta_mib=peak / 2 ** 20,
+            cap_l=int(lay.ids.shape[2]), pad=int(lay.ids.shape[2]) * n_sh - cap,
+            packed_partitions=int(prefix.sum()),
+            max_spread=int(spread.max()),
+            max_spread_packed=int(spread[prefix].max()))
+        del lay, got
+    del single_live
+
+    # (2) search_sharded against search, at the ivf level
+    eq = {}
+    for n_sh in SHARDS:
+        mesh = mesh_of(n_sh)
+        placed = ivf_mod.shard_placement(mesh)(ivf_mod.shard_index(m.ivf, n_sh))
+        for n_probe in (8, 64):
+            pr, _ = partitioner.assign_topk(qn, m.ivf.centroids, n_probe)
+            for pname, passed in (("all", None), ("sel0.1", npass)):
+                for prname, probes in (("probes", pr), ("centroids", None)):
+                    want = ivf_mod.search(m.ivf, qn, n_probe=n_probe, k=10,
+                                          probes=probes, node_pass=passed)
+                    got = ivf_mod.search_sharded(
+                        placed, qn, mesh, n_probe=n_probe, k=10,
+                        probes=probes, node_pass=passed)
+                    moved = tie_moves(got, want)
+                    check(moved >= 0, f"sharded: search_sharded S={n_sh} "
+                          f"n_probe={n_probe} {pname} {prname} differs from "
+                          "search")
+                    eq[f"S{n_sh}/p{n_probe}/{pname}/{prname}"] = moved
+
+        if n_sh == 4:
+            # each shard's probe kernel at cap_l against its plain version;
+            # these launches are the comparison's, not the main path's
+            saved = ops.probe_scan.launches
+            pr = partitioner.assign_topk(qn, m.ivf.centroids, cfg.n_probe)[0]
+            pr = pr.to(torch.int32).contiguous()
+            qsum = row_sum(qn)
+            per_shard, shard_args = [], None
+            for loc in placed:
+                data, vmin, scale, ids = loc.slab_view()
+                bias = torch.where(ids >= 0, 0.0, ref.NEG).to(torch.float32)
+                args = (qn, qsum, data, (128.0 * scale + vmin).contiguous(),
+                        scale, bias, pr, loc.capacity, 16)
+                km, ka = ops.probe_scan(*args)
+                pm, pa = ref.probe_scan(*args)
+                torch.cuda.synchronize()
+                err = float((km - pm).abs().max())
+                agree = float((ka == pa).float().mean())
+                check(err <= SCORE_ATOL and agree >= 0.999,
+                      f"sharded: a shard's probe kernel at cap_l "
+                      f"{loc.capacity} differs from its plain version "
+                      f"({err}, {agree})")
+                per_shard.append(dict(max_abs_err=err, argmax_agreement=agree))
+                shard_args = shard_args or args
+                del km, ka, pm, pa
+            gen, flush, _ = _flush_and_queries(7)
+            cap_l = placed[0].capacity
+            nchp = -(-cap_l // 16)
+            distinct = int(torch.unique(pr).numel())
+            nbytes = (distinct * cap_l * (DIM + 12) + BATCH * DIM * 4
+                      + BATCH * 4 + BATCH * cfg.n_probe * 4
+                      + 2 * BATCH * cfg.n_probe * nchp * 4)
+            bms, bby, fp32_ms, _ = scan_bounds(BATCH * cfg.n_probe * cap_l,
+                                               DIM, nbytes)
+            shard_kernel = dict(
+                shape=dict(Q=BATCH, d=DIM, K=k_parts, cap_l=cap_l,
+                           n_probe=cfg.n_probe, chunk=16),
+                shards=per_shard,
+                ms=cuda_ms(lambda: ops.probe_scan(*shard_args), 20, flush),
+                plain_ms=cuda_ms(lambda: ref.probe_scan(*shard_args), 2,
+                                 flush),
+                bound_ms=bms, bound_by=bby, bound_fp32_ms=fp32_ms,
+                gbytes=nbytes / 1e9, distinct_probed=distinct)
+            ops.probe_scan.launches = saved
+            del flush, gen, shard_args
+        del placed
+
+    # (3) the facades: S = 4 on the card against the single layout
+    fac = {}
+    for name, fn in (
+            ("search", lambda i: i.search(q256, "text")),
+            ("where", lambda i: i.search(q256, "text", where=where)),
+            ("query", lambda i: i.query(Q.vector("text", q256)
+                                        .where(where).topk(10)))):
+        moved = tie_moves(fn(sh), fn(index))
+        check(moved >= 0, f"sharded: the mesh facade's {name} differs from "
+                          "the single facade's")
+        fac[name] = moved
+    # (the single facade takes the same calls: the probe heat that plans
+    # maintenance stays the same on both)
+    bv, bi = search_bucketed(sh, q256[:8], "text", k=10)
+    solo = [search_bucketed(sh, q256[i:i + 1], "text", k=10) for i in range(8)]
+    search_bucketed(index, q256[:8], "text", k=10)
+    for i in range(8):
+        search_bucketed(index, q256[i:i + 1], "text", k=10)
+    bucket_bytes = all(bv[i].tobytes() == solo[i][0].tobytes()
+                       and bi[i].tobytes() == solo[i][1].tobytes()
+                       for i in range(8))
+    check(bucket_bytes, "sharded: search_bucketed gave 8 queries other bytes "
+                        "batched than alone")
+
+    # (4) writes: the same insert batches (256 updates, maint_auto on) on
+    # both facades until a maintain pass changes the slab: at the latest
+    # once the delta's append watermark reaches the compaction threshold
+    dead = m.delta.tombstones[:VEC_N].cpu().numpy()
+    alive = np.nonzero(~dead)[0]
+    to_watermark = (int(cfg.compact_threshold * m.delta.ids.shape[0])
+                    - int(m.delta.count))
+    insert_ms, changed_after = [], None
+    for b in range(max(to_watermark, 0) // BATCH + 8):
+        for idx in (index, sh):         # the same probe heat on both
+            idx.search(q256, "text")
+        check(sm.ivf_sharded is not None, "sharded: no replica after a search")
+        ids = rng.choice(alive, BATCH, replace=False).astype(np.int32)
+        rows = (vecs[rng.choice(VEC_N, BATCH, replace=False)]
+                + 0.05 * rng.normal(size=(BATCH, DIM))).astype(np.float32)
+        index.insert("text", ids, rows)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sh.insert("text", ids, rows)
+        torch.cuda.synchronize()
+        insert_ms.append((time.perf_counter() - t0) * 1e3)
+        if sm.ivf_sharded is None:
+            changed_after = b + 1
+            break
+    check(changed_after is not None,
+          f"sharded: no maintain pass changed the slab in {b + 1} insert "
+          "batches")
+    check(all(tensor_bytes_equal(getattr(m.ivf, f), getattr(sm.ivf, f))
+              for f in ("data", "vmin", "scale", "ids", "centroids")),
+          "sharded: the two facades' slabs differ after the same writes")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sh._ensure_sharded("text", 4)
+    torch.cuda.synchronize()
+    rebuild_ms = (time.perf_counter() - t0) * 1e3
+    for name, kw in (("search", {}), ("where", dict(where=where))):
+        check(tie_moves(sh.search(q256, "text", **kw),
+                        index.search(q256, "text", **kw)) >= 0,
+              f"sharded: {name} differs after the maintain pass")
+
+    # (5) time: S = 1 (the single facade), 2, 4, 8 in turns (the order
+    # reversed every round), each mesh with its replica built beforehand
+    setups = {}
+    for n_sh in SHARDS:
+        remesh(sh, mesh_of(n_sh))
+        sh.search(q256, "text")
+        setups[n_sh] = (sh.mesh, sm.ivf_sharded)
+
+    def at(n_sh):
+        sh.mesh, sm.ivf_sharded = setups[n_sh]
+        return sh
+    runs = {"1": lambda: index.search(q256, "text")}
+    runs.update({str(n_sh): (lambda n_sh=n_sh: at(n_sh).search(q256, "text"))
+                 for n_sh in SHARDS})
+    samples = {name: [] for name in runs}
+    for r in range(21):                 # round 0 warms up
+        for name in (list(runs) if r % 2 else list(runs)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            if r:
+                samples[name].append((time.perf_counter() - t0) * 1e3)
+    lat = {name: (float(np.percentile(v, 50)), float(np.percentile(v, 99)))
+           for name, v in samples.items()}
+    at(4)
+    del setups
+    base_cfg = sh.cfg
+    sh.cfg = base_cfg.replace(obs_sync_spans=True)
+    obs.reset()
+    for _ in range(20):
+        sh.search(q256, "text")
+    hist = obs.registry().histograms()
+    spans = {n: dict(p50=hist[n].percentile(50), p99=hist[n].percentile(99),
+                     n=hist[n].count)
+             for n in ("sharded.scan", "sharded.merge", "query.seed_scan")}
+    sh.cfg = base_cfg
+    before = ops.probe_scan.launches
+    prof = profile_window(lambda: sh.search(q256, "text"), top=8,
+                          share_of="scan_mma_kernel<16>")
+    per_search = (ops.probe_scan.launches - before) / 2   # warm-up + profiled
+    check(per_search == 4, f"sharded: {per_search} probe launches a search "
+                           "at S = 4")
+
+    # (6) more than one card
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        remesh(sh, mesh_of(n_cards, [f"cuda:{i}" for i in range(n_cards)]))
+        check(tie_moves(sh.search(q256, "text"),
+                        index.search(q256, "text")) >= 0,
+              f"sharded: search over {n_cards} cards differs from single")
+        multi = dict(cards=n_cards, equal=True,
+                     p50_ms=host_ms(lambda: sh.search(q256, "text"), 20)[0])
+    else:
+        multi = f"not run: {n_cards} card on this host"
+    del sh
+    torch.cuda.empty_cache()
+    line("sharded", n=VEC_N, d=DIM, batch=BATCH, K=k_parts, cap=cap,
+         slab_bytes=slab_bytes, budget_bytes=cfg.shard_device_budget_bytes,
+         layout="sharded(x4)", explain=explain, restore_s=restore_s,
+         shard_index=relayout, equivalence_tie_moves=eq,
+         facade_tie_moves=fac, search_bucketed_8_vs_1_bytes=bucket_bytes,
+         maintain_changed_slab_after_batches=changed_after,
+         insert_batch_ms=dict(p50=float(np.percentile(insert_ms, 50)),
+                              p99=float(np.percentile(insert_ms, 99)),
+                              n=len(insert_ms)),
+         replica_rebuild=dict(ms=rebuild_ms,
+                              gb_per_s=2 * in_bytes / rebuild_ms / 1e6),
+         search_ms={s_: dict(p50=v[0], p99=v[1]) for s_, v in lat.items()},
+         spans_ms=spans, probe_launches_per_search=per_search,
+         search_profile_s4=prof, shard_kernel_s4=shard_kernel,
+         multi_card=multi, phase_s=time.perf_counter() - phase_t0)
+
+
+def phase_sharded_hybrid(index, corpus) -> None:
+    """[sharded.hybrid]: the 131,072-node index (a 100 MB slab, under the
+    budget, so the layout is forced) in a facade over 4 shards on this
+    card: plain, typed and filtered hybrid_search and one RAGEngine
+    retrieve batch (a small LM; retrieval only) equal to the single
+    facade's, and hybrid p50 beside it."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.cost_model import DeviceLayoutPlan
+    from repro_torch.core.index import HMGIIndex
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import EngineConfig, RAGEngine
+    rng = np.random.default_rng(53)
+    vecs = corpus.vectors["text"]
+    q = (vecs[rng.choice(HYB_N, BATCH, replace=False)]
+         + 0.05 * rng.normal(size=(BATCH, DIM))).astype(np.float32)
+    sh = HMGIIndex(index.cfg.replace(shard_layout="sharded"),
+                   mesh=mesh_of(4), seed=index.seed)
+    sh.restore_state(*index.state_tree())
+    check(index.device_layout("text") == DeviceLayoutPlan("single", 1)
+          and sh.device_layout("text") == DeviceLayoutPlan("sharded", 4),
+          "sharded.hybrid: layouts")
+    moves = {}
+    for name, kw in (("plain", {}), ("typed", dict(edge_type_mask=(0, 1))),
+                     ("filtered", dict(where=("a", "<", 5)))):
+        moved = tie_moves(sh.hybrid_search(q, "text", k=10, n_hops=2, **kw),
+                          index.hybrid_search(q, "text", k=10, n_hops=2,
+                                              **kw))
+        check(moved >= 0, f"sharded.hybrid: {name} hybrid_search differs "
+                          "from the single facade's")
+        moves[name] = moved
+    lat = {name: host_ms(lambda: i.hybrid_search(q, "text", k=10, n_hops=2),
+                         10)
+           for name, i in (("single", index), ("sharded_x4", sh))}
+    lcfg = smoke_config("phi4-mini-3.8b")
+    params = lm.init_lm(lcfg, seed=0)
+    ecfg = EngineConfig(n_slots=1, max_seq=64, retrieve_k=4, hops=1,
+                        maintenance_interval=0, retrieval_cache_capacity=0)
+    got = [RAGEngine(lcfg, params, i, ecfg).retrieve(q[:32])
+           for i in (sh, index)]
+    ws = index.hybrid_search(q[:32], "text", k=4, n_hops=1)[0].cpu().numpy()
+    for r, j in zip(*np.nonzero(got[0] != got[1])):
+        check(int((ws[r] == ws[r, j]).sum()) > 1,
+              "sharded.hybrid: RAGEngine.retrieve through the sharded path "
+              "differs from the single facade's")
+    del sh, params
+    torch.cuda.empty_cache()
+    line("sharded.hybrid", n=HYB_N, layout="sharded(x4) (forced)",
+         hybrid_tie_moves=moves, retrieve_equal=True,
+         retrieve_tie_moves=int((got[0] != got[1]).sum()),
+         hybrid_ms={k: dict(p50=v[0], p99=v[1]) for k, v in lat.items()})
+
+
+# ---------------------------------------------------------------------------
 # durable: the write-ahead log, snapshots and recovery at serve_1m
 # ---------------------------------------------------------------------------
 
@@ -1231,6 +1652,24 @@ def phase_durable(corpus) -> dict:
         live.close()
         rec.close()
         del live, rec, live_state, rec_state
+        torch.cuda.empty_cache()
+        # the same directory recovered onto a mesh of 4 shards on this card:
+        # the sharded replica is derived state, rebuilt by the first search
+        t0 = time.perf_counter()
+        rec = recover(cfg, live_dir, mesh=mesh_of(4), seed=0)
+        torch.cuda.synchronize()
+        mesh_recover_s = time.perf_counter() - t0
+        check(rec.device_layout("text").n_shards == 4
+              and rec.modalities["text"].ivf_sharded is None,
+              "durable: the recovered index over a mesh is not sharded(x4)")
+        check(all(tensor_bytes_equal(a, b) for a, b in zip(
+            live_res, durable_results(rec, q))),
+              "durable: recover(mesh=) gives other search bytes than the "
+              "live index")
+        recover_split["mesh_x4"] = dict(s=mesh_recover_s,
+                                        search_bytes_equal=True)
+        rec.close()
+        del rec
         shutil.rmtree(live_dir)
         torch.cuda.empty_cache()
         peak = torch.cuda.max_memory_allocated()
@@ -2386,6 +2825,9 @@ def main():
     phase_maint(index, corpus)
     after_maint = (ops.probe_scan.launches, ops.shared_scan.launches)
     seg_read("maint")
+    phase_sharded(index, corpus)
+    after_sharded = (ops.probe_scan.launches, ops.shared_scan.launches)
+    seg_read("sharded")
     del index
     torch.cuda.empty_cache()
     seg_read("durable", phase_durable(corpus))
@@ -2395,6 +2837,9 @@ def main():
     index, corpus = phase_hybrid()
     after_hybrid = (ops.probe_scan.launches, ops.shared_scan.launches)
     seg_read("hybrid")
+    phase_sharded_hybrid(index, corpus)
+    after_sharded_hybrid = (ops.probe_scan.launches, ops.shared_scan.launches)
+    seg_read("sharded.hybrid")
     facade = phase_facade(index, corpus)
     seg_read("facade", phase_durable_hybrid(index, corpus))
     launches = {"probe": ops.probe_scan.launches,
@@ -2416,10 +2861,15 @@ def main():
     line("launches", vector=dict(zip(("probe", "shared"), after_vector)),
          maint={"probe": after_maint[0] - after_vector[0],
                 "shared": after_maint[1] - after_vector[1]},
-         durable={"probe": after_durable[0] - after_maint[0],
-                  "shared": after_durable[1] - after_maint[1]},
+         sharded={"probe": after_sharded[0] - after_maint[0],
+                  "shared": after_sharded[1] - after_maint[1]},
+         durable={"probe": after_durable[0] - after_sharded[0],
+                  "shared": after_durable[1] - after_sharded[1]},
          hybrid={"probe": after_hybrid[0] - after_durable[0],
                  "shared": after_hybrid[1] - after_durable[1]},
+         sharded_hybrid={
+             "probe": after_sharded_hybrid[0] - after_hybrid[0],
+             "shared": after_sharded_hybrid[1] - after_hybrid[1]},
          facade=facade, rag=rag, gnn={"segment_sum": gnn_launches},
          index_path_segment_sum=dict(seg, total=index_seg))
     src = "src/repro_torch/kernels/ivf_topk/csrc/ivf_topk.cu"

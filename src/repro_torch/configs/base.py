@@ -7,10 +7,10 @@ fields are folded into each class), so a reference config converts with
 ``LMConfig(**dataclasses.asdict(ref_cfg))`` or
 ``GNNConfig(**dataclasses.asdict(ref_cfg))``, and a snapshot's config
 fingerprint (``persistence.snapshot.config_fingerprint``) is the same in
-both packages. Fields the port does not act on yet (sharding; the LM's
-MLA, MoE and training knobs) are kept for that round trip; the code raises
+both packages. Fields the port does not act on yet (the LM's MLA, MoE
+and training knobs) are kept for that round trip; the code raises
 ``NotImplementedError`` where one of them would change behaviour (see
-``core/index.py`` and ``models/lm.py``).
+``models/lm.py``).
 """
 from __future__ import annotations
 
@@ -81,7 +81,7 @@ class HMGIConfig:
     # attribute-filtered search (predicate pushdown vs oversampling)
     filter_prefilter_max_sel: float = 0.5  # pushdown when sel <= this
     filter_oversample: float = 3.0         # initial k inflation when not
-    # sharded execution path (not ported yet)
+    # sharded execution path (core/index.py:device_layout)
     shard_layout: str = "auto"
     shard_device_budget_bytes: int = 256 << 20
     # durability (persistence/): fsync batch of the op log, snapshots kept

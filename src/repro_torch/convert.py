@@ -41,16 +41,17 @@ from repro_torch.core.index import HMGIIndex
 
 def index_from_jax_state(tree: Dict[str, np.ndarray], meta: Dict[str, object],
                          device=None, *, cfg: Optional[HMGIConfig] = None,
-                         seed: int = 0) -> HMGIIndex:
+                         seed: int = 0, mesh=None) -> HMGIIndex:
     """tree/meta: a reference ``state_tree()`` with numpy leaves. cfg: the
     port config to run with (default ``get_config("hmgi")``); a reference
     config converts with ``HMGIConfig(**dataclasses.asdict(ref_cfg))``.
-    device: as for ``HMGIIndex`` (None = the CUDA device)."""
+    device, mesh: as for ``HMGIIndex`` (device None = the CUDA device)."""
     cpu = torch.device("cpu")
     # bfloat16 leaves (a 16-bit slab) have no numpy dtype torch reads
     tree = {k: (_leaf(v, cpu) if np.asarray(v).dtype.name == "bfloat16"
                 else np.asarray(v)) for k, v in tree.items()}
-    index = HMGIIndex(cfg or get_config("hmgi"), seed=seed, device=device)
+    index = HMGIIndex(cfg or get_config("hmgi"), mesh=mesh, seed=seed,
+                      device=device)
     index.restore_state(tree, meta)
     return index
 

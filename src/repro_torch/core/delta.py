@@ -20,8 +20,9 @@ exactly against the fp32 master rows.
 Every function returns a new ``DeltaStore`` and leaves its input as it was
 (the fields it changes are copied; the others are shared).
 
-The row-sharded variant (``search_with_delta_sharded``) is not ported yet
-(ROADMAP Queue 1 item 15).
+``search_with_delta_sharded`` is the same read over a row-sharded stable
+store (``ivf.shard_index``): per-shard masked probe scans and their
+cross-shard merge, then the one replicated delta scan.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.common.reduce import row_dot
 from repro_torch.common.topk import top_k
 from repro_torch.core import ivf as ivf_mod
@@ -222,7 +224,8 @@ def _scan_delta(delta: DeltaStore, queries: torch.Tensor, *, k: int,
 def _stable_visibility(delta: DeltaStore, node_pass: Optional[torch.Tensor],
                        mvcc_filter: bool) -> Optional[torch.Tensor]:
     """The stable scan's pre-top-k validity mask: MVCC visibility
-    (tombstones | superseded out) ∧ the optional predicate.
+    (tombstones | superseded out) ∧ the optional predicate. The one
+    spelling shared by the single-device and sharded paths.
     mvcc_filter=False is the caller-asserted never-mutated fast path."""
     if not mvcc_filter:
         return node_pass
@@ -250,6 +253,39 @@ def search_with_delta(index: IVFIndex, delta: DeltaStore, queries: torch.Tensor,
     mv, mi = ivf_mod.dedup_merge_topk(sv, si, dv, di, k)
     # -inf slots are "no result": don't leak a masked (e.g. tombstoned) id
     return mv, torch.where(torch.isfinite(mv), mi, -1)
+
+
+def search_with_delta_sharded(sharded, delta: DeltaStore,
+                              queries: torch.Tensor, mesh, *, n_probe: int,
+                              k: int, rescore_margin: int = _RESCORE_MARGIN,
+                              probes: Optional[torch.Tensor] = None,
+                              node_pass: Optional[torch.Tensor] = None,
+                              impl: str = "auto", mvcc_filter: bool = True
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``search_with_delta`` over a row-sharded stable store: per-shard
+    masked probes + cross-shard merge via ``ivf.search_sharded``, one
+    replicated delta scan, dedup-merge.
+
+    ``sharded`` is an ``ivf.shard_index`` layout or its placed shards
+    (``ivf.shard_placement``). The visibility and predicate masks are
+    built by ``_stable_visibility``, the single-device path's own
+    spelling, and pushed into every shard's scan pre-top-k, so the two
+    paths' results cannot drift apart. The delta is replicated state: it
+    is scanned once, after the merge, on its own device."""
+    visible = _stable_visibility(delta, node_pass, mvcc_filter)
+    with obs.span("sharded.scan") as sp:
+        sv, si = sp.fence(ivf_mod.search_sharded(
+            sharded, queries, mesh, n_probe=n_probe, k=k, probes=probes,
+            node_pass=visible, impl=impl))
+    # everything after the per-shard scans is the sharded path's extra
+    # cost over single-device execution
+    with obs.span("sharded.merge") as sp:
+        dev = delta.ids.device
+        sv, si = sv.to(dev), si.to(dev)
+        dv, di = _scan_delta(delta, queries, k=k, margin=rescore_margin,
+                             node_pass=node_pass)
+        mv, mi = ivf_mod.dedup_merge_topk(sv, si, dv, di, k)
+        return sp.fence((mv, torch.where(torch.isfinite(mv), mi, -1)))
 
 
 def should_compact(delta: DeltaStore, threshold: float = 0.5) -> bool:

@@ -22,8 +22,10 @@ Durability lives outside the facade: ``repro_torch.persistence``'s
 ``DurableHMGIIndex`` logs every mutation to a write-ahead log before
 applying it, snapshots ``state_tree`` and recovers with ``recover``.
 
-Not ported yet: a device mesh and ``device_layout`` (ROADMAP Queue 1 item
-15), refused with ``NotImplementedError`` naming the item.
+With a ``repro_torch.sharding.Mesh`` the stable scan may run row-sharded
+(``device_layout``): a lazily built replica of the slab, dealt over the
+mesh's db shards (``ivf.shard_index``), which the planner routes seed
+scans through; the index's own tensors stay on ``device``.
 """
 from __future__ import annotations
 
@@ -47,8 +49,9 @@ from repro_torch.core import ivf as ivf_mod
 from repro_torch.core import nsw as nsw_mod
 from repro_torch.core import partitioner
 from repro_torch.core import rerank as rerank_mod
-from repro_torch.core.cost_model import (CostModel, plan_maintenance,
-                                         select_plan)
+from repro_torch.core.cost_model import (CostModel, DeviceLayoutPlan,
+                                         plan_device_layout,
+                                         plan_maintenance, select_plan)
 from repro_torch.core.fusion import FusionWeights, fuse_topk_sparse
 from repro_torch.core.graph_store import (GraphStore, NodeAttributes,
                                           from_edges as graph_from_edges,
@@ -56,6 +59,7 @@ from repro_torch.core.graph_store import (GraphStore, NodeAttributes,
 from repro_torch.core.partitioner import WorkloadStats
 from repro_torch.core.quantization import AdaptiveQuantPolicy
 from repro_torch.maintenance import MaintenanceReport, PartitionStats
+from repro_torch.sharding import Mesh, db_shards
 
 # repro_torch.query (planner/executor) imports core submodules at module
 # scope, so the facade imports it inside methods; the maintenance executor
@@ -64,11 +68,6 @@ from repro_torch.maintenance import MaintenanceReport, PartitionStats
 
 # the host-side PartitionStats arrays a snapshot carries
 _STATS_FIELDS = ("baseline", "drift_sum", "drift_cnt", "dead", "parked")
-
-
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"(ROADMAP.md Queue 1 item {item})")
 
 
 def _fuse_candidates(vs, vi, graph_scores, wv, wg, *, k_fuse: int,
@@ -135,6 +134,10 @@ class ModalityIndex:
     # (n_nodes,) global-id -> row cache for cross-modal re-scoring; rebuilt
     # lazily, invalidated when ``ids`` gains new entries
     id_rows: Optional[torch.Tensor] = None
+    # row-sharded replica of ``ivf``: the ivf.shard_index layout placed over
+    # the mesh's db shards (ivf.shard_placement); built lazily when the
+    # device-layout plan says "sharded", dropped whenever ``ivf`` changes
+    ivf_sharded: Optional[Tuple[ivf_mod.IVFIndex, ...]] = None
 
 
 class HMGIIndex:
@@ -143,7 +146,11 @@ class HMGIIndex:
     Thread-safety: searches are safe from any number of threads,
     concurrently with at most one mutating caller. ``_write_lock``
     serialises every mutation and the state_tree snapshot; ``_cache_lock``
-    guards the lazily-built ``ModalityIndex.id_rows``.
+    guards the two lazily-built read-path caches (``ModalityIndex
+    .ivf_sharded`` and ``.id_rows``) with double-checked publication.
+
+    mesh: an optional ``repro_torch.sharding.Mesh``; the stable scan runs
+    row-sharded over its db shards where ``device_layout`` says so.
 
     The random draws of ingest, compaction and maintenance (K-means
     seeding, the NSW build's) come from a ``torch.Generator`` seeded with
@@ -152,9 +159,11 @@ class HMGIIndex:
 
     def __init__(self, cfg: HMGIConfig, mesh=None, seed: int = 0, *,
                  device=None):
-        if mesh is not None:
-            raise _todo("a device mesh (row-sharded search)", "15")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a repro_torch.sharding.Mesh, got "
+                            f"{type(mesh).__name__}")
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device, "HMGIIndex")
         self.seed = int(seed)
         self.generator = torch.Generator().manual_seed(self.seed)
@@ -298,8 +307,44 @@ class HMGIIndex:
                 term_weights=self._tensor(docs.term_weights, torch.float32))
             self._bump_version()
 
-    def device_layout(self, modality: str):
-        raise _todo("device layouts over a mesh (device_layout)", "15")
+    def device_layout(self, modality: str) -> DeviceLayoutPlan:
+        """Where this modality's stable scan runs: row-sharded over the
+        mesh's db shards when the quantized slab exceeds
+        cfg.shard_device_budget_bytes (cfg.shard_layout forces either way),
+        single-device otherwise. No mesh ⇒ always single."""
+        m = self.modalities[modality]
+        force = None if self.cfg.shard_layout == "auto" else self.cfg.shard_layout
+        return plan_device_layout(
+            int(np.prod(m.ivf.data.shape[:2])), int(m.ivf.data.shape[-1]),
+            n_shards=db_shards(self.mesh),
+            budget_bytes=self.cfg.shard_device_budget_bytes,
+            bytes_per_elem=int(m.ivf.data.element_size()), force=force)
+
+    def _ensure_sharded(self, modality: str, n_shards: int
+                        ) -> Tuple[ivf_mod.IVFIndex, ...]:
+        """The row-sharded stable replica (built lazily, shards placed over
+        the mesh's db shards; dropped whenever the stable store changes).
+
+        Double-checked: concurrent searchers must neither observe a
+        half-built replica nor build it twice — the build happens once
+        under ``_cache_lock`` and is published as a single reference
+        assignment; the replica is never modified once published."""
+        m = self.modalities[modality]
+        sh = m.ivf_sharded
+        if sh is not None and len(sh) == n_shards:
+            return sh
+        with self._cache_lock:
+            sh = m.ivf_sharded
+            if sh is None or len(sh) != n_shards:
+                sh = ivf_mod.shard_placement(self.mesh)(
+                    ivf_mod.shard_index(m.ivf, n_shards))
+                m.ivf_sharded = sh
+            return sh
+
+    def _drop_sharded(self, m: ModalityIndex) -> None:
+        """The stable store changed: the sharded replica is stale."""
+        with self._cache_lock:
+            m.ivf_sharded = None
 
     # ----------------------------------------------------------------- search
     def _norm_queries(self, queries) -> torch.Tensor:
@@ -543,6 +588,7 @@ class HMGIIndex:
     def _compact_locked(self, modality: str):
         m = self.modalities[modality]
         m.ivf, m.delta = delta_mod.compact(m.ivf, m.delta, m.vectors, m.ids)
+        self._drop_sharded(m)
         if m.stats is not None:
             # the rebuild dropped every dead stable row and re-packed slots
             m.stats.dead[:] = 0
@@ -578,6 +624,7 @@ class HMGIIndex:
             hot = int(np.argmax(hits))
             res = maint_exec.split_hot(m, self.cfg, self.generator, m.stats,
                                        hot)
+            self._drop_sharded(m)
             m.workload.reset()
             self._bump_version()
             return bool(res.get("moved", 0))
@@ -652,9 +699,10 @@ class HMGIIndex:
                     # every target partition is full (or the delta emptied):
                     # further chunks this pass would spin without progress
                     skip_chunks = True
-                if (act.kind == "split_hot" and res.get("ivf_changed", False)
-                        and m.workload is not None):
-                    m.workload.reset()
+                if res.get("ivf_changed", False):
+                    self._drop_sharded(m)       # slots or centroids moved
+                    if act.kind == "split_hot" and m.workload is not None:
+                        m.workload.reset()
             if cleared and m.nsw is not None:
                 # drained updates cleared superseded bits — exactly like a
                 # full compaction, the NSW layer must refresh over the
@@ -677,9 +725,11 @@ class HMGIIndex:
     # in the reference's key layout (``repro.core.index.HMGIIndex
     # .state_tree``), so ``convert.index_from_jax_state`` reads a reference
     # snapshot through the same ``restore_state``. "key" holds this index's
-    # torch.Generator state. The tensors are the index's own (an update
-    # rewrites master rows in place): copy them, under the write lock, to
-    # keep a snapshot (``persistence.snapshot.write_snapshot`` does).
+    # torch.Generator state. Derived caches (id_rows, ivf_sharded) are left
+    # out: they rebuild lazily and deterministically from this state. The
+    # tensors are the index's own (an update rewrites master rows in
+    # place): copy them, under the write lock, to keep a snapshot
+    # (``persistence.snapshot.write_snapshot`` does).
 
     def state_tree(self) -> Tuple[Dict[str, object], Dict[str, object]]:
         with self._write_lock:

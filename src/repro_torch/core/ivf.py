@@ -19,14 +19,28 @@ end) that an exact rescore turns into the exact top-k. "einsum" is the fp32
 dequant-then-einsum path kept for 4/16-bit storage and as a baseline;
 "auto" takes the kernel whenever bits == 8.
 
-Row-sharded execution (``shard_index``/``search_sharded``) is not ported
-yet (ROADMAP Queue 1 item 15).
+Sharded execution path. ``shard_index`` re-lays the stable slab out as S
+per-shard replicas with a leading shard dim: partition ``p``'s capacity
+slots are dealt round-robin across shards (slot j -> shard j % S, local
+slot j // S), the quantized rows move untouched (same int8 bytes, same
+per-row vmin/scale), and the centroids are replicated. Every shard
+therefore holds the same K partitions over a 1/S row slice, so a query's
+probe list — scored against identical centroids — selects exactly the
+single-device candidate set, split S ways. ``shard_placement`` puts shard
+s on the mesh's device at db coordinate s (``repro_torch.sharding``), and
+``search_sharded`` runs ``search`` itself on every shard (kernel or
+einsum, with the same validity ∧ predicate mask pushdown), from one
+Python loop, then gathers the S local top-k lists onto the mesh's first
+device and merges them — bit-identical scores to the single-device scan
+at any ``n_probe`` (each row's score is summed in a fixed order, whatever
+its shard or chunk; ids may permute only where scores tie exactly).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.common.topk import top_k
@@ -35,6 +49,7 @@ from repro_torch.core.graph_store import mask_pass
 from repro_torch.core.quantization import _unpack4, quantize
 from repro_torch.kernels.ivf_topk.ops import scan_topk_probe
 from repro_torch.kernels.ivf_topk.ref import NEG, pad_topk
+from repro_torch.sharding import db_axes
 
 # probe-path survivors: the max of every 16 consecutive rows of a partition
 _CHUNK = 16
@@ -295,3 +310,132 @@ def dedup_merge_topk(scores_a, ids_a, scores_b, ids_b, k: int):
     s = torch.where(is_dup | (i < 0), float("-inf"), s)
     vals, pos = top_k(s, k)
     return vals, torch.gather(i, -1, pos)
+
+
+# ---------------------------------------------------------------------------
+# row-sharded layout and search
+# ---------------------------------------------------------------------------
+
+_FIELDS = ("centroids", "data", "vmin", "scale", "ids", "counts")
+
+
+def shard_index(index: IVFIndex, n_shards: int) -> IVFIndex:
+    """Re-lays the stable store out for ``n_shards``-way row-parallel search.
+
+    Returns an ``IVFIndex`` on the input's device whose every leaf carries
+    a leading shard dim (S, ...): partition ``p``'s capacity slots are
+    dealt round-robin (slot j -> shard j % S, local slot j // S — builds
+    pack live rows into the low slots, so live rows spread evenly) over
+    ``cap_l = ceil(cap / S)`` local slots, the tail padded with id -1,
+    data 0, vmin 0 and scale 1; the quantized rows are moved without
+    re-quantization, the centroids replicated, and ``counts`` is (S, K).
+    ``search_sharded`` over this layout is score-bit-identical to
+    ``search`` at any ``n_probe``. The input is not modified."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    k, cap = index.ids.shape
+    cap_l = -(-cap // n_shards)
+
+    def deal(a, fill):
+        # local slot l of shard s is global slot l·S + s
+        out = torch.full((n_shards, k, cap_l) + tuple(a.shape[2:]), fill,
+                         dtype=a.dtype, device=a.device)
+        for s in range(n_shards):
+            part = a[:, s::n_shards]
+            out[s, :, :part.shape[1]] = part
+        return out
+
+    ids = deal(index.ids, -1)
+    return IVFIndex(
+        centroids=index.centroids.repeat(n_shards, 1, 1),
+        data=deal(index.data, 0),
+        vmin=deal(index.vmin, 0.0),
+        scale=deal(index.scale, 1.0),
+        ids=ids,
+        counts=torch.sum(ids >= 0, dim=2, dtype=torch.int32),
+        bits=index.bits,
+    )
+
+
+def shard_devices(mesh) -> Tuple[torch.device, ...]:
+    """The device of each row shard: shard s at db coordinate s (the db
+    axes in row-major order, ``sharding.db_axes``), coordinate 0 on every
+    other axis."""
+    axes = db_axes(mesh)
+    sizes = [mesh.shape[a] for a in axes]
+    out = []
+    for s in range(int(np.prod(sizes, dtype=np.int64))):
+        coords = np.unravel_index(s, sizes) if sizes else ()
+        out.append(mesh.device_at(dict(zip(axes, map(int, coords)))))
+    return tuple(out)
+
+
+def shard_placement(mesh):
+    """Placement of ``shard_index`` layouts over ``mesh``: returns
+    ``place(sharded) -> (IVFIndex, ...)``, shard s's local index on the
+    mesh's device at db coordinate s. Where every shard's device is the
+    layout's own (one device, repeated), the locals are views of the
+    stacked leaves; otherwise each is its own copy, so the stacked layout
+    can be freed."""
+    devs = shard_devices(mesh)
+
+    def place(sharded: IVFIndex) -> Tuple[IVFIndex, ...]:
+        n = sharded.ids.shape[0]
+        if n != len(devs):
+            raise ValueError(f"a {n}-shard layout over a mesh of "
+                             f"{len(devs)} db shards")
+        copy = any(d != sharded.ids.device for d in devs)
+        return tuple(
+            IVFIndex(**{f: getattr(sharded, f)[s].to(devs[s], copy=copy)
+                        for f in _FIELDS}, bits=sharded.bits)
+            for s in range(n))
+    return place
+
+
+def _on(t: Optional[torch.Tensor], dev: torch.device):
+    return None if t is None else t.to(dev)
+
+
+def search_sharded(index: Union[IVFIndex, Sequence[IVFIndex]],
+                   queries: torch.Tensor, mesh, *, n_probe: int, k: int,
+                   query_block: int = 64, impl: str = "auto",
+                   probes: Optional[torch.Tensor] = None,
+                   node_pass: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-sharded search: ``index`` is a ``shard_index`` layout (leading
+    shard dim per leaf) or the tuple ``shard_placement(mesh)`` made of
+    it; queries, ``probes`` and the optional ``node_pass``
+    predicate-or-visibility mask are replicated to every shard. Each shard
+    runs ``search`` itself (same kernel/einsum selection, same pre-top-k
+    mask pushdown, same -inf/-1 padding) on its own device, launched from
+    one loop (asynchronous: distinct cards overlap); the S local (Q, k)
+    lists are gathered onto the mesh's first device, concatenated in shard
+    order, and one top-k merges them. Local ids are global node ids, so
+    they are unique across shards. Without ``probes`` the centroids are
+    scored once, on the first shard (every shard holds the same ones).
+    Returns (scores (Q, k), ids (Q, k)) on the mesh's first device."""
+    shards = (shard_placement(mesh)(index) if isinstance(index, IVFIndex)
+              else tuple(index))
+    if len(shards) != len(shard_devices(mesh)):
+        raise ValueError(f"{len(shards)} shards over a mesh of "
+                         f"{len(shard_devices(mesh))} db shards")
+    dev0 = shards[0].ids.device
+    q = queries.to(torch.float32)
+    if probes is None:
+        n_probe = min(n_probe, shards[0].n_partitions)
+        probes, _ = partitioner.assign_topk(q.to(dev0), shards[0].centroids,
+                                            n_probe)
+    parts = []
+    for loc in shards:
+        dev = loc.ids.device
+        parts.append(search(loc, _on(q, dev), n_probe=n_probe, k=k,
+                            query_block=query_block, impl=impl,
+                            probes=_on(probes, dev),
+                            node_pass=_on(node_pass, dev)))
+    allv = torch.cat([v.to(dev0) for v, _ in parts], dim=1)    # (Q, S·k)
+    alli = torch.cat([i.to(dev0) for _, i in parts], dim=1)
+    mv, pos = top_k(allv, k)
+    mi = torch.gather(alli, 1, pos)
+    # shards pad ragged tails with (-inf, -1): never let a pad slot of one
+    # shard surface another's id through the merge
+    return mv, torch.where(torch.isfinite(mv), mi, -1)

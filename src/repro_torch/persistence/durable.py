@@ -301,7 +301,8 @@ def recover(cfg, data_dir: str, mesh=None, seed: int = 0, *,
     The recovery trail (snapshot used, ops replayed, warnings) is surfaced
     in ``metrics()["recovery"]``; the stages are the ``snapshot.read``
     (files + crc32), ``recovery.restore`` (onto the device) and
-    ``recovery.replay`` spans."""
+    ``recovery.replay`` spans. mesh: as for ``HMGIIndex``; the sharded
+    replica is derived state, built again by the first sharded search."""
     idx = DurableHMGIIndex(cfg, data_dir, mesh=mesh, seed=seed,
                            device=device, _recovering=True)
     warnings = []

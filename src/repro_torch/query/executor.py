@@ -1,7 +1,9 @@
 """Staged executor for compiled query plans.
 
 Each physical stage maps onto the core primitives — the IVF probe
-(``ivf.search`` via ``delta.search_with_delta``), typed masked traversal
+(``ivf.search`` via ``delta.search_with_delta``, or ``ivf.search_sharded``
+via ``delta.search_with_delta_sharded`` where the planner chose the
+row-sharded layout), typed masked traversal
 (``traversal.multi_hop_batch``), candidate-sparse fusion
 (``index._fuse_candidates``) — and threads one fixed-shape (Q, C)
 candidate-set state ``(scores, ids)`` between stages: scores descending,
@@ -56,14 +58,23 @@ def _topk_state(sv: torch.Tensor, si: torch.Tensor, k: int) -> State:
 
 # ------------------------------------------------------------------ seed scan
 def search_raw(index, m, q: torch.Tensor, probes, n_probe: int, k: int,
-               node_pass=None, impl: str = "auto") -> State:
+               node_pass=None, impl: str = "auto", sharded=None) -> State:
     """One stable+delta scan round (centroids pre-scored in ``probes``),
     with the optional NSW refine lane (MVCC-visibility- and
-    predicate-masked)."""
-    scores, ids = delta_mod.search_with_delta(
-        m.ivf, m.delta, q, n_probe=n_probe, k=k,
-        rescore_margin=index.cfg.delta_rescore_margin, probes=probes,
-        node_pass=node_pass, impl=impl, mvcc_filter=m.has_dead)
+    predicate-masked). ``sharded`` (the placed ivf.shard_index replica)
+    routes the stable scan through the row-sharded path — same masks, same
+    probes, same merged results, the work spread over the mesh's db
+    shards."""
+    if sharded is not None:
+        scores, ids = delta_mod.search_with_delta_sharded(
+            sharded, m.delta, q, index.mesh, n_probe=n_probe, k=k,
+            rescore_margin=index.cfg.delta_rescore_margin, probes=probes,
+            node_pass=node_pass, impl=impl, mvcc_filter=m.has_dead)
+    else:
+        scores, ids = delta_mod.search_with_delta(
+            m.ivf, m.delta, q, n_probe=n_probe, k=k,
+            rescore_margin=index.cfg.delta_rescore_margin, probes=probes,
+            node_pass=node_pass, impl=impl, mvcc_filter=m.has_dead)
     if index.cfg.use_nsw_refine and m.nsw is not None:
         ns, ni = nsw_mod.search(m.nsw, q, ef=index.cfg.nsw_ef, k=k)
         n_rows = m.ids.shape[0]
@@ -93,23 +104,29 @@ def run_seed(index, s: PSeed, node_pass) -> State:
     q = s.query
     n_probe = min(s.n_probe, m.ivf.n_partitions)
     k = s.k
+    # the planner's device-layout choice: resolve the row-sharded replica
+    # once per seed stage (built lazily, cached until the stable changes)
+    sharded = (index._ensure_sharded(s.modality, s.layout.n_shards)
+               if s.layout.layout == "sharded" else None)
     # centroids are scored once per batch: the same assignment feeds the
-    # workload tracker and the IVF scan
+    # workload tracker and (as precomputed probes) every shard's IVF scan
     probes, _ = assign_topk(q, m.ivf.centroids, n_probe)
     if m.workload is not None:
         m.workload.record(probes.cpu().numpy())
     if node_pass is None:
-        return search_raw(index, m, q, probes, n_probe, k, impl=s.impl)
+        return search_raw(index, m, q, probes, n_probe, k, impl=s.impl,
+                          sharded=sharded)
     index._metrics["filter_selectivity"] = s.filter_plan.selectivity
     index._metrics["filter_mode"] = s.filter_plan.mode
     if s.filter_plan.mode == "prefilter":
         return search_raw(index, m, q, probes, n_probe, k,
-                          node_pass=node_pass, impl=s.impl)
+                          node_pass=node_pass, impl=s.impl, sharded=sharded)
     k_max = min(int(m.ids.shape[0]),
                 n_probe * m.ivf.capacity + m.delta.ids.shape[0])
     k_scan = min(max(k, pow2_round(s.filter_plan.k_scan)), k_max)
     while True:
-        sv, si = search_raw(index, m, q, probes, n_probe, k_scan, impl=s.impl)
+        sv, si = search_raw(index, m, q, probes, n_probe, k_scan, impl=s.impl,
+                            sharded=sharded)
         ok = graph_mod.mask_pass(node_pass, si)
         sv = torch.where(ok, sv, _NEG_INF)
         if k_scan >= k_max:

@@ -12,10 +12,16 @@ the cost model (core/cost_model.py), as the reference planner does:
   constraint resolves through ``select_plan``, else the config default;
   clamped to the *live* (unparked) partition count, read from the
   modality's ``PartitionStats``. Seed scan width is ``plan_seed_width``.
+- **Device layout** — per seed stage, ``index.device_layout``
+  (``plan_device_layout``) decides whether the stable scan runs
+  single-device or row-sharded over the index's mesh: sharded when the
+  quantized slab exceeds the per-device budget, forced by
+  ``cfg.shard_layout`` either way. The two layouts scan the same
+  candidate set in the same stored representation, so the choice never
+  changes results — only where the work lands.
 - **Fusion representation** — per traverse stage, ``plan_fusion`` chooses
   candidate-sparse vs dense fusion; ``fusion_repr`` forces a choice.
 
-The port runs on one device, so every seed stage's layout is "single".
 ``PhysicalPlan.describe()`` renders the chosen plan (``HMGIIndex.explain``)
 in the reference's exact words.
 """
@@ -165,7 +171,8 @@ def _compile_plan(index, plan, *, k: Optional[int] = None,
                 oversample=cfg.filter_oversample,
                 prefilter_max_sel=cfg.filter_prefilter_max_sel)
         source = PSeed(vs.modality, index._norm_queries(vs.query), k_seed,
-                       int(n_probe or cfg.n_probe), vs.impl, fplan)
+                       int(n_probe or cfg.n_probe), vs.impl, fplan,
+                       index.device_layout(vs.modality))
         c = k_seed
 
     stages = []

@@ -31,6 +31,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.core.progressive, repro_torch.core.learned\n"
         "import repro_torch.persistence.durable, repro_torch.checkpoint\n"
         "import repro_torch.persistence.crash_harness\n"
+        "import repro_torch.sharding\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib')) or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n")
@@ -64,11 +65,24 @@ def _small_index(maint_auto=False):
 
 
 def test_unported_parts_raise():
-    """Only sharding is refused (item 15); the NSW lane, the rerank lane
-    and traces run."""
+    """The index takes a mesh (its row-sharded scan is ported); only the
+    GNN ring over a mesh is still refused (item 15). The NSW lane, the
+    rerank lane and traces run."""
+    from repro_torch.configs import get_config as pget
+    from repro_torch.models.gnn.common import run_flat
+    from repro_torch.models.gnn.driver import full_graph_loss
+    from repro_torch.sharding import Mesh
     idx, v = _small_index(maint_auto=True)
-    for call in (lambda: idx.device_layout("text"),
-                 lambda: HMGIIndex(idx.cfg, mesh=object(), device="cpu")):
+    mesh = Mesh(["cpu"] * 2, ("data",))
+    sharded = HMGIIndex(idx.cfg.replace(shard_layout="sharded"), mesh=mesh,
+                        device="cpu")
+    assert sharded.mesh is mesh and sharded.device.type == "cpu"
+    assert idx.device_layout("text").layout == "single"
+    with pytest.raises(TypeError, match="Mesh"):
+        HMGIIndex(idx.cfg, mesh=object(), device="cpu")
+    for call in (lambda: run_flat(None, None, None, mesh=mesh),
+                 lambda: full_graph_loss(pget("egnn"), None, None,
+                                         mesh=mesh)):
         with pytest.raises(NotImplementedError, match="item 15"):
             call()
     assert len(idx.search(v[:2], "text", trace=True)) == 3

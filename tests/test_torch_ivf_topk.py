@@ -358,3 +358,25 @@ def test_probe_topk_exact_at_every_chunk(chunk):
     pv, pr = ops.scan_topk_probe(_t(q), _t(data), _t(vmin), _t(scale),
                                  _t(bias), _t(probes), cap, k=k, chunk=chunk)
     assert_topk_match((jv, jr), (pv, pr))
+
+
+def test_search_sharded_single_device(rng):
+    """1-shard mesh: sharded search (the kernel path on its one shard) must
+    reproduce the local result bit for bit."""
+    from repro_torch.core import ivf as ivf_mod
+    from repro_torch.sharding import Mesh
+    n, d = 512, 32
+    v = rng.normal(size=(n, d)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    idx, _ = ivf_mod.build(_t(v), torch.arange(n), n_partitions=8, bits=8,
+                           generator=torch.Generator().manual_seed(2))
+    leaves = ivf_mod.IVFIndex(
+        *(getattr(idx, f)[None] for f in ("centroids", "data", "vmin",
+                                          "scale", "ids", "counts")),
+        bits=idx.bits)
+    mesh = Mesh(["cpu"], ("data",))
+    q = _t(v[:8])
+    sv, si = ivf_mod.search_sharded(leaves, q, mesh, n_probe=8, k=5)
+    se, ie = ivf_mod.search(idx, q, n_probe=8, k=5)
+    assert torch.equal(sv, se)
+    assert torch.equal(si, ie)

@@ -6,7 +6,10 @@ bytes batched against alone (with and without the NSW lane), the
 progressive rounds' probe-kernel launches, and durability on the card:
 ``recover`` byte-equal to the live index and to the harness's golden
 prefix, ``partitioner.fit`` and the hop operator repeated bitwise (their
-sums run the segment-sum kernel), a bf16 checkpoint leaf round trip.
+sums run the segment-sum kernel), a bf16 checkpoint leaf round trip, and
+the row-sharded search: scores equal to the single layout's, one probe
+launch per shard, each shard's probe kernel at its ``cap_l`` against the
+plain version, the replica rebuilt after a maintain pass.
 
 Every test carries the ``gpu`` marker and skips itself when
 ``torch.cuda.is_available()`` is false (decided inside the test, so every
@@ -797,3 +800,129 @@ def test_bf16_checkpoint_leaf_round_trips_bitwise_on_the_card(tmp_path):
     flat, _, _ = restore_checkpoint(str(tmp_path), like=None)
     assert flat["w"].dtype == torch.bfloat16
     assert torch.equal(flat["w"].view(torch.int16), w.cpu().view(torch.int16))
+
+
+def _sharded_pair(n_shards, **over):
+    """The small card index and its state in a facade over a mesh of
+    ``n_shards`` shards on the same card (layout forced to sharded)."""
+    from repro_torch.core.index import HMGIIndex
+    from repro_torch.sharding import Mesh
+    gpu, c = _small_card_index(**over)
+    dev = str(gpu.device)
+    mesh = Mesh([dev] * n_shards, ("data",))
+    sh = HMGIIndex(gpu.cfg.replace(shard_layout="sharded"), mesh=mesh)
+    sh.restore_state(*gpu.state_tree())
+    return gpu, sh, c
+
+
+def _queries(c, n=32, seed=3):
+    rng = np.random.default_rng(seed)
+    v = c.vectors["text"]
+    return (v[:n] + 0.05 * rng.normal(size=(n, v.shape[1]))).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_sharded_search_equals_single_on_the_card(n_shards):
+    """On the kernel path the sharded search's scores equal the single
+    layout's with torch.equal (ids up to exact ties), plain, filtered and
+    at full probe; the probe kernel runs once per shard per search."""
+    _need_card()
+    gpu, sh, c = _sharded_pair(n_shards)
+    q = _queries(c)
+    assert sh.device_layout("text").n_shards == n_shards
+    for kw in (dict(), dict(n_probe=16), dict(n_probe=8, impl="kernel")):
+        want = gpu.search(q, "text", k=10, **kw)
+        before = ops.probe_scan.launches
+        got = sh.search(q, "text", k=10, **kw)
+        assert ops.probe_scan.launches - before == n_shards
+        assert torch.equal(got[0], want[0])
+        # an id may differ only where its score repeats in the row
+        for r, j in torch.nonzero(got[1] != want[1]).tolist():
+            assert int((want[0][r] == want[0][r, j]).sum()) > 1
+
+
+@pytest.mark.gpu
+def test_each_shards_probe_kernel_equals_its_plain_version():
+    """Each shard's probe kernel at its cap_l = ceil(cap / S), which is not
+    a multiple of the 16-row chunk, against the plain version."""
+    _need_card()
+    from repro_torch.common.reduce import row_sum
+    from repro_torch.core import ivf as ivf_mod
+    from repro_torch.core.partitioner import assign_topk
+    gpu, c = _small_card_index()
+    m = gpu.modalities["text"]
+    q = gpu._norm_queries(_queries(c))
+    probes, _ = assign_topk(q, m.ivf.centroids, 4)
+    probes = probes.to(torch.int32).contiguous()
+    sh = ivf_mod.shard_index(m.ivf, 4)
+    for s in range(4):
+        loc = ivf_mod.IVFIndex(*(getattr(sh, f)[s] for f in (
+            "centroids", "data", "vmin", "scale", "ids", "counts")), bits=8)
+        data, vmin, scale, ids = loc.slab_view()
+        bias = torch.where(ids >= 0, 0.0, ref.NEG).float()
+        args = (q, row_sum(q), data, (128.0 * scale + vmin).contiguous(),
+                scale, bias, probes, loc.capacity, 16)
+        km, ka = ops.probe_scan(*args)
+        pm, pa = ref.probe_scan(*args)
+        torch.cuda.synchronize()
+        _assert_match((km, ka), (pm, pa))
+
+
+@pytest.mark.gpu
+def test_replica_after_maintain_equals_a_fresh_shard_index():
+    """A maintain pass that changes the slab drops the replica; the next
+    sharded search builds one equal to a fresh shard_index, and answers as
+    the single layout does."""
+    _need_card()
+    from repro_torch.core import ivf as ivf_mod
+    gpu, sh, c = _sharded_pair(4, maint_auto=False)
+    q = _queries(c, 16)
+    for idx in (gpu, sh):           # the same probe heat on both
+        idx.search(q, "text")
+    m = sh.modalities["text"]
+    assert m.ivf_sharded is not None
+    rng = np.random.default_rng(5)
+    ids = np.arange(40, dtype=np.int32)
+    rows = rng.normal(size=(40, 64)).astype(np.float32)
+    for idx in (gpu, sh):
+        idx.insert("text", ids, rows)
+        assert not idx.maintain("text", budget=4096, need_rows=40).is_noop
+    assert m.ivf_sharded is None
+    want = gpu.search(q, "text")
+    got = sh.search(q, "text")
+    assert torch.equal(got[0], want[0])
+    fresh = ivf_mod.shard_index(m.ivf, 4)
+    for s, loc in enumerate(m.ivf_sharded):
+        for f in ("centroids", "data", "vmin", "scale", "ids", "counts"):
+            assert torch.equal(getattr(loc, f), getattr(fresh, f)[s]), f
+
+
+@pytest.mark.gpu
+def test_sharded_search_across_cards():
+    """With two cards or more, one shard per card: each shard's replica
+    lies on its own card, every card runs the probe kernel once a search,
+    and the merged scores equal the single layout's on the first card."""
+    _need_card()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices or more")
+    from repro_torch.core.index import HMGIIndex
+    from repro_torch.sharding import Mesh
+    gpu, c = _small_card_index()
+    mesh = Mesh([f"cuda:{i}" for i in range(n)], ("data",))
+    sh = HMGIIndex(gpu.cfg.replace(shard_layout="sharded"), mesh=mesh,
+                   device="cuda:0")
+    sh.restore_state(*gpu.state_tree())
+    q = _queries(c)
+    for kw in (dict(), dict(n_probe=16)):
+        want = gpu.search(q, "text", k=10, **kw)
+        before = ops.probe_scan.launches
+        got = sh.search(q, "text", k=10, **kw)
+        assert ops.probe_scan.launches - before == n
+        assert got[0].device == want[0].device
+        assert torch.equal(got[0], want[0])
+        for r, j in torch.nonzero(got[1] != want[1]).tolist():
+            assert int((want[0][r] == want[0][r, j]).sum()) > 1
+    devs = [loc.data.device for loc in sh.modalities["text"].ivf_sharded]
+    assert devs == [torch.device("cuda", i) for i in range(n)]

@@ -3,9 +3,7 @@ JAX package.
 
 The twin cases are the reference's, on a port index built on the CPU (its
 own K-means seeding, so its own layout), against the port's oracle
-``torch_query_ref``. They cover every reference case except
-``TestWiring::test_maintain_invalidates_sharded_replica``, which waits for
-the sharded replica (ROADMAP Queue 1 item 15).
+``torch_query_ref``. They cover every reference case.
 
 The parity cases build the reference index, apply the same writes there,
 carry its state into the port with ``convert.index_from_jax_state`` (the
@@ -406,6 +404,19 @@ class TestInterleavedOracle:
 
 
 class TestWiring:
+    def test_maintain_invalidates_sharded_replica(self):
+        idx, v = _build(maint_auto=False)
+        m = idx.modalities["text"]
+        rng = np.random.default_rng(2)
+        # sub-threshold batch: stays in the delta until maintain drains it
+        idx.insert("text", np.arange(450, 470, dtype=np.int32),
+                   rng.normal(size=(20, 32)).astype(np.float32))
+        assert int(m.delta.count) == 20
+        m.ivf_sharded = "stale-sentinel"
+        report = idx.maintain("text", budget=4096, need_rows=1)
+        assert not report.is_noop
+        assert m.ivf_sharded is None
+
     def test_auto_trigger_drains_on_insert(self):
         idx, v = _build(delta_capacity=64)       # maint_auto default True
         rng = np.random.default_rng(8)

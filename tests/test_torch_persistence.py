@@ -16,6 +16,7 @@ import tempfile
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.checkpoint import CheckpointError
 from repro_torch.core.index import HMGIIndex
@@ -189,6 +190,30 @@ class TestDurableLifecycle:
         assert rec2.last_seq == d + 1
         _assert_same(rec2, rec)
         rec2.close()
+
+    def test_recover_with_mesh_answers_as_live(self, tmpdir_):
+        """``recover(mesh=)``: the recovered index searches through the
+        row-sharded path (the replica is derived state, rebuilt on the
+        first search) and answers as the live single-layout index, scores
+        bit-equal; its durable state is the live one's."""
+        from repro_torch.sharding import Mesh
+        cfg = _small_cfg().replace(shard_layout="sharded")
+        idx = DurableHMGIIndex(cfg, tmpdir_, seed=0, device=DEV)
+        d = ch.apply_ops(idx, ch.scripted_ops())
+        mesh = Mesh([DEV] * 4, ("data",))
+        rec = recover(cfg, tmpdir_, mesh=mesh, seed=0, device=DEV)
+        assert rec.last_seq == d and rec.mesh is mesh
+        assert rec.device_layout("text").n_shards == 4
+        _assert_same(rec, idx)
+        q = ch.queries()
+        for kw in (dict(), dict(where=("cat", "==", 1)), dict(n_probe=1)):
+            got, want = rec.search(q, "text", k=5, **kw), idx.search(
+                q, "text", k=5, **kw)
+            assert torch.equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+        assert len(rec.modalities["text"].ivf_sharded) == 4
+        idx.close()
+        rec.close()
 
     def test_corrupt_newest_snapshot_degrades_with_warning(self, tmpdir_):
         cfg = _small_cfg()
