@@ -1,7 +1,7 @@
 """Chip smoke: builds the port's CUDA kernels and drives HMGI's main paths
 on one NVIDIA GPU (written for an H100): hybrid retrieval, RAG serving
-with phi4-mini at its full width over the retrieval index, and EGNN
-full-graph inference at the ogbn-products shape.
+over the retrieval index with phi4-mini and with DeepSeek-V2-Lite at full
+width and depth, and EGNN full-graph inference at the ogbn-products shape.
 
     python3 chip_smoke.py
 
@@ -111,6 +111,26 @@ Phases (each prints one line; any failure exits non-zero):
                 4-layer fp32 copy matches sequential decode token for
                 token, and a 2-layer copy matches the same weights on the
                 CPU.
+     rag_dsv2 — the same engine, index and traffic with DeepSeek-V2-Lite
+                (get_config("deepseek-v2-lite-16b"): 27 layers, MLA,
+                64 routed experts top-6 + 2 shared, bf16, 31.4 GB of
+                seeded random weights): prefill and decode-tick latency,
+                tokens/s, parameter bytes and peak memory, one profiled
+                tick (its top kernels and operators), each part of a layer
+                timed at the tick's shapes (router, MoE FFN, expert bmm,
+                shared expert, MLA decode), the tick's weight bytes against
+                the HBM bound (and what only the routed experts would
+                move), the MoE drop share at prefill and at decode (each
+                request's prefill again, 16 ticks of 8 slots, outside the
+                timed run); checks that retrieval ran both scans and the
+                decode kernel never ran (MLA decodes in the absorbed form),
+                that a 4-layer fp32 copy at capacity factor 16 decodes two
+                ragged rows in one batch as each alone (1e-5), and that a
+                2-layer fp32 copy routes and scores as the CPU does.
+     lm.mixtral — mixtral-8x7b at full width cut to 2 layers (bf16): a
+                4,608-token prompt against the 4,096 window, 8 decode
+                steps that wrap; the decode kernel (G 4, S 4,096) against
+                its plain version on the run's cache, 2 launches a step.
   7. gnn      — EGNN (get_config("egnn"): 4 layers, d_hidden 64, fp32,
                 seeded random weights) over make_flat_graph at the
                 ogb_products shape (2,449,029 nodes, 61,859,140 edges,
@@ -126,7 +146,9 @@ Phases (each prints one line; any failure exits non-zero):
                 disjoint-union graph) matches a per-graph loop on the CPU.
   8. the kernels line, then the contract line. The segment sum's launches
      there count the index path's too (k-means cluster sums, hop
-     out-weights), read phase by phase.
+     out-weights), read phase by phase; the scans' count the index phases'
+     and both RAG cells' retrievals, the decode kernel's the phi4-mini cell
+     and the mixtral check.
 
 It imports only torch, numpy and the port (``src/repro_torch``), and needs a
 CUDA device: without one it exits 1 and prints no result. ``--durable-child
@@ -197,6 +219,18 @@ DECODE_BF16_ATOL = 2.0 ** -7
 # 2-layer full-width copy, card vs CPU: fp32 with TF32 off, the same
 # function summed in another order on two devices; logits are O(1)
 CPU_LOGIT_ATOL = 1e-3
+# the MoE/MLA RAG cell (rag_dsv2): DeepSeek-V2-Lite at full width and
+# depth on the RAG cell's slots and traffic; its capacity drops measured
+# over DSV2_TICKS decode ticks outside the timed run; the 4-layer fp32
+# copy's batched rows against solo rows (rtol = atol, the reference's
+# tests/test_serving.py tolerance; fp32 logits O(1)); a router gap under
+# NEAR_TIE may flip between two summation orders
+DSV2 = "deepseek-v2-lite-16b"
+DSV2_TICKS = 16
+DSV2_SOLO_TOL = 1e-5
+NEAR_TIE = 1e-6
+# the [lm.mixtral] check: one prompt past the 4,096 window, steps that wrap
+MIXTRAL_PROMPT, MIXTRAL_STEPS = 4608, 8
 # the GNN cells: EGNN over the ogb_products shape in chunks of 4 Mi edges
 # (~11 GB of per-edge temporaries), and the molecule shape
 GNN_CHUNK_EDGES = 1 << 22
@@ -244,6 +278,30 @@ def cuda_ms(fn, reps: int, flush=None) -> float:
     return float(np.median(times))
 
 
+def queued_ms(fn, calls: int) -> dict:
+    """Device ms per call of ``fn`` over ``calls`` calls queued behind a
+    ~100 ms device sleep: the host enqueues them all before the device
+    reaches the first, so the host's gaps between small launches, which
+    ``cuda_ms`` would count, do not enter the window. "not measured" when
+    the enqueue outlasted the sleep (the window would hold host gaps)."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(200_000_000)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    ev[2].synchronize()
+    sleep_ms = ev[0].elapsed_time(ev[1])
+    dev = ev[1].elapsed_time(ev[2]) / calls
+    return dict(device_ms=dev if host < sleep_ms else "not measured",
+                host_enqueue_ms=host / calls, sleep_ms=sleep_ms)
+
+
 def host_ms(fn, reps: int):
     """(p50, p99) host-clock latency of ``fn`` (synchronised) in ms."""
     fn()
@@ -257,21 +315,24 @@ def host_ms(fn, reps: int):
     return float(np.percentile(out, 50)), float(np.percentile(out, 99))
 
 
-def profile_window(fn, top: int = 6, share_of: str = "") -> dict:
+def profile_window(fn, top: int = 6, share_of: str = "",
+                   ops_top: int = 0) -> dict:
     """Device time by kernel over one synchronised call of ``fn`` after a
     warm-up call (see ``profile_once``)."""
     fn()
     torch.cuda.synchronize()
-    return profile_once(fn, top, share_of)[1]
+    return profile_once(fn, top, share_of, ops_top)[1]
 
 
-def profile_once(fn, top: int = 6, share_of: str = ""):
+def profile_once(fn, top: int = 6, share_of: str = "", ops_top: int = 0):
     """(fn's result, its profile): device time by kernel over one
     synchronised call of ``fn`` (torch.profiler / CUPTI): the ``top``
     kernels by self device time, the device-busy sum, the host wall time,
-    the device's idle share, and with ``share_of`` the device time,
-    launches and share of busy time of the kernels whose names contain
-    it."""
+    the device's idle share, with ``share_of`` the device time, launches
+    and share of busy time of the kernels whose names contain it, and with
+    ``ops_top`` the ``ops_top`` PyTorch operators (aten::bmm, aten::mm,
+    ...) by the device time of the kernels each launched itself, with
+    their call counts."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -292,6 +353,13 @@ def profile_once(fn, top: int = 6, share_of: str = ""):
                       for e in kern[:top]],
            "busy_ms": busy, "wall_ms": wall,
            "idle_share": max(0.0, 1.0 - busy / wall)}
+    if ops_top:
+        cpu_ops = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.self_device_time_total > 0]
+        cpu_ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        res["top_ops_ms"] = [[e.key, e.self_device_time_total / 1e3, e.count]
+                             for e in cpu_ops[:ops_top]]
     if share_of:
         hit = [e for e in kern if share_of in e.key]
         ms = sum(e.self_device_time_total for e in hit) / 1e3
@@ -323,19 +391,25 @@ def agree_up_to_ties(sa, ia, sb, ib, atol: float) -> bool:
     return True
 
 
+def smi_line() -> str:
+    """The first card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                          "is False); this script measures the card only")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
+    smi = smi_line()
+    print(smi, flush=True)
     line("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, nvidia_smi=smi.splitlines()[0])
+         cuda=torch.version.cuda, nvidia_smi=smi)
 
 
 def _ptxas_report(log: str, entry_re: str):
@@ -2392,6 +2466,20 @@ def sequential_decode(cfg, params, prompt, n: int, clen: int, device="cuda"):
     return gen
 
 
+def rag_traffic(corpus, vocab: int):
+    """The RAG cells' traffic, from one seed: (rng, the 32 retrieval
+    queries near corpus rows, prompts of 128-1,536 tokens in [0, vocab),
+    32-64 new tokens each); the lengths do not depend on ``vocab``."""
+    rng = np.random.default_rng(12)
+    rows = rng.choice(HYB_N, RAG_REQUESTS, replace=False)
+    queries = (corpus.vectors["text"][rows] + 0.05 * rng.normal(
+        size=(RAG_REQUESTS, DIM))).astype(np.float32)
+    prompts = [rng.integers(0, vocab, int(n)).astype(np.int32)
+               for n in rng.integers(128, 1537, RAG_REQUESTS)]
+    news = [int(n) for n in rng.integers(32, 65, RAG_REQUESTS)]
+    return rng, queries, prompts, news
+
+
 def phase_rag(index, corpus) -> dict:
     """The RAG serving path over the phase-5 index; returns the launches of
     its run (counts set to 0 just before it, read just after)."""
@@ -2410,13 +2498,7 @@ def phase_rag(index, corpus) -> dict:
     init_s = time.perf_counter() - t0
     engine = RAGEngine(cfg, params, index, EngineConfig(
         n_slots=RAG_SLOTS, max_seq=RAG_SEQ, retrieve_k=4, hops=1))
-    rng = np.random.default_rng(12)
-    rows = rng.choice(HYB_N, RAG_REQUESTS, replace=False)
-    queries = (corpus.vectors["text"][rows] + 0.05 * rng.normal(
-        size=(RAG_REQUESTS, DIM))).astype(np.float32)
-    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
-               for n in rng.integers(128, 1537, RAG_REQUESTS)]
-    news = [int(n) for n in rng.integers(32, 65, RAG_REQUESTS)]
+    rng, queries, prompts, news = rag_traffic(corpus, cfg.vocab_size)
     obs.reset()
     obs.set_sync_spans(True)          # the prefill span waits for its work
     # the facade sets sync spans from its config at every search
@@ -2574,6 +2656,398 @@ def phase_rag(index, corpus) -> dict:
          fp32_4_layer_streams_equal_sequential=True,
          fp32_2_layer_card_vs_cpu_max_abs_logit=cpu_err,
          logit_scale=float(outs[1].abs().max()), tolerance=CPU_LOGIT_ATOL)
+    return launches
+
+
+def routing_summary(routings) -> dict:
+    """Capacity drops over a list of ``moe.Routing`` (one sync): dropped
+    and routed (token, choice) assignments, their share, the mean number
+    of experts that kept an assignment per call, the least near-tie gap."""
+    from repro_torch.layers import moe
+    if not routings:
+        return dict(calls=0)
+    dropped = int(torch.stack([(~r.keep).sum() for r in routings]).sum())
+    routed = sum(int(r.keep.numel()) for r in routings)
+    used = [int((torch.zeros(r.probs.shape[1] + 1, dtype=torch.int32,
+                             device=r.keep.device)
+                 .index_fill_(0, torch.where(r.keep, r.idx.reshape(-1),
+                                             r.probs.shape[1]), 1)
+                 [:-1].sum())) for r in routings]
+    gap = float(torch.stack([moe.near_tie_gap(r) for r in routings]).min())
+    return dict(calls=len(routings), dropped=dropped, routed=routed,
+                drop_share=dropped / routed,
+                experts_used_mean=float(np.mean(used)), min_gap=gap)
+
+
+def tick_weight_bytes(cfg, params, n_slots: int) -> int:
+    """Weight bytes one decode tick reads: every parameter once, of the
+    embedding table only the n_slots gathered rows (the head is separate:
+    the model is untied)."""
+    from repro_torch.models import lm
+    emb = params["embed"]
+    row = emb.shape[1] * emb.element_size()
+    return lm.param_bytes(params) - emb.shape[0] * row + n_slots * row
+
+
+def phase_rag_dsv2(index, corpus) -> dict:
+    """DeepSeek-V2-Lite (MLA, 64 routed experts top-6 + 2 shared) at full
+    width and depth, bf16, seeded random weights, in RAGEngine over the
+    phase-5 index with phase_rag's traffic; returns the launches of its
+    run (counts set to 0 just before it, read just after)."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.ivf_topk import ops
+    from repro_torch.layers import mla, moe
+    from repro_torch.layers.mlp import swiglu
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import EngineConfig, RAGEngine
+    phase_t0 = time.perf_counter()
+    cfg = get_config(DSV2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = RAGEngine(cfg, params, index, EngineConfig(
+        n_slots=RAG_SLOTS, max_seq=RAG_SEQ, retrieve_k=4, hops=1))
+    rng, queries, prompts, news = rag_traffic(corpus, cfg.vocab_size)
+    obs.reset()
+    obs.set_sync_spans(True)          # the prefill span waits for its work
+    hyb_cfg, index.cfg = index.cfg, index.cfg.replace(obs_sync_spans=True)
+
+    dops.decode_attention.launches = 0
+    ops.probe_scan.launches = ops.shared_scan.launches = 0
+    t0 = time.perf_counter()
+    ids = engine.retrieve(queries)
+    retrieve_ms = (time.perf_counter() - t0) * 1e3
+    for i in range(RAG_REQUESTS):
+        engine.submit(i, prompts[i], retrieved_ids=ids[i],
+                      max_new_tokens=news[i])
+    prof = None
+    t0 = time.perf_counter()
+    while engine.batcher.any_active:
+        slots = engine.batcher.slots
+        if (prof is None and engine.stats["ticks"] >= 16
+                and all(sl.active and sl.remaining >= 2 for sl in slots)):
+            prof = profile_window(engine.tick, top=10, ops_top=12)
+        else:
+            engine.tick()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"decode": dops.decode_attention.launches,
+                "probe": ops.probe_scan.launches,
+                "shared": ops.shared_scan.launches}
+    obs.set_sync_spans(False)
+    index.cfg = hyb_cfg
+
+    ticks = engine.stats["ticks"]
+    check(ticks > 0 and launches["decode"] == 0,
+          f"rag.dsv2: {ticks} ticks, {launches['decode']} decode kernel "
+          "launches (MLA decodes in the absorbed form, without the kernel)")
+    check(launches["probe"] > 0 and launches["shared"] > 0,
+          f"rag.dsv2: retrieval did not run both scans: {launches}")
+    check(prof is not None, "rag.dsv2: no steady decode tick was profiled")
+    reqs = engine.batcher.requests
+    for i in range(RAG_REQUESTS):
+        check(reqs[i].done and len(reqs[i].generated) == news[i],
+              f"rag.dsv2: request {i} gave {len(reqs[i].generated)} of "
+              f"{news[i]} tokens")
+    hist = obs.registry().histograms()
+    dec, pre = hist["serving.decode_step"], hist["serving.prefill"]
+    stall, tick_h = hist["maintenance.stall"], hist["serving.tick"]
+    check(engine.maintenance is not None
+          and engine.stats["maintenance_runs"] == stall.count > 0,
+          f"rag.dsv2: {engine.stats['maintenance_runs']} maintenance "
+          f"passes, {stall.count} stall spans")
+    peak = torch.cuda.max_memory_allocated()
+    prompt_lens = [len(reqs[i].prompt) for i in range(RAG_REQUESTS)]
+    n_tokens = sum(news)
+
+    # capacity drops, outside the timed run: each request's prefill alone
+    # (as the engine runs it), then DSV2_TICKS decode ticks of 8 slots
+    # holding the first 8 requests
+    pre_r = []
+    for i in range(RAG_REQUESTS):
+        lm.prefill(cfg, params, torch.as_tensor(reqs[i].prompt,
+                                                device="cuda")[None],
+                   moe_routings=pre_r)
+    pre_drops = routing_summary(pre_r)
+    del pre_r
+    cache = lm.init_cache(cfg, RAG_SLOTS, RAG_SEQ)
+    toks, pos = [], []
+    for i in range(RAG_SLOTS):
+        pr = reqs[i].prompt
+        lg, one = lm.prefill(cfg, params, torch.as_tensor(pr, device="cuda")
+                             [None], margin=RAG_SEQ - len(pr))
+        for shared, c in zip(cache, one):
+            shared[:, i].copy_(c[:, 0])
+        toks.append(int(torch.argmax(lg[0])))
+        pos.append(len(pr))
+    del one
+    tok = torch.tensor(toks, device="cuda")
+    pos = torch.tensor(pos, device="cuda")
+    dec_r = []
+    for _ in range(DSV2_TICKS):
+        lg, cache = lm.decode_step(cfg, params, cache, tok, pos,
+                                   moe_routings=dec_r)
+        tok, pos = torch.argmax(lg, dim=-1), pos + 1
+    dec_drops = routing_summary(dec_r)
+    del dec_r
+
+    # the tick's bytes: every weight once (all 64 experts of every MoE
+    # layer: the dense (E, cap, D) buffer runs each expert's GEMMs), the
+    # valid latent cache once; and what only the routed experts would be
+    wbytes = tick_weight_bytes(cfg, params, RAG_SLOTS)
+    expert_bytes = 3 * cfg.d_model * cfg.moe_d_ff * 2
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    cache_bytes = (cfg.n_layers * int((cache[2][0] >= 0).sum())
+                   * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * 2)
+    routed_bytes = wbytes - n_moe * expert_bytes * (
+        cfg.n_experts - dec_drops["experts_used_mean"])
+    tick_bytes = dict(
+        weights_gb=wbytes / 1e9, cache_gb=cache_bytes / 1e9,
+        experts_gb=n_moe * cfg.n_experts * expert_bytes / 1e9,
+        bound_ms=(wbytes + cache_bytes) / PEAK_HBM_BYTES * 1e3,
+        routed_only_gb=routed_bytes / 1e9,
+        routed_only_bound_ms=(routed_bytes + cache_bytes) / PEAK_HBM_BYTES
+        * 1e3,
+        busy_ms=prof.get("busy_ms"), decode_p50_ms=dec.percentile(50),
+        share_of_bound_busy=((wbytes + cache_bytes) / PEAK_HBM_BYTES * 1e3
+                             / prof["busy_ms"]) if "busy_ms" in prof
+        else "not measured")
+
+    # where the tick's device time goes, by part, at the tick's shapes
+    # (layer 1 is the first MoE layer): device ms per call with the queue
+    # kept full (``queued_ms``)
+    lp = params["layers"][1]
+    x8 = torch.randn((RAG_SLOTS, 1, cfg.d_model), device="cuda",
+                     dtype=torch.bfloat16)
+    xe = torch.randn((cfg.n_experts, 1, cfg.d_model), device="cuda",
+                     dtype=torch.bfloat16)     # cap 1: the tick's buffer
+    cl = tuple(c[1].clone() for c in cache)
+    positions = pos[:, None]
+
+    def experts():
+        h = torch.bmm(xe, lp["moe"]["w1"])
+        u = torch.bmm(xe, lp["moe"]["w3"])
+        return torch.bmm(torch.nn.functional.silu(h) * u, lp["moe"]["w2"])
+
+    parts = dict(
+        router=queued_ms(lambda: moe.route(cfg, lp["moe"],
+                                           x8.reshape(RAG_SLOTS, -1),
+                                           cfg.capacity_factor), 8),
+        moe_ffn=queued_ms(lambda: moe.moe_ffn(
+            cfg, lp["moe"], x8, capacity_factor=cfg.capacity_factor), 8),
+        expert_bmm=queued_ms(experts, 8),
+        shared_expert=queued_ms(lambda: swiglu(lp["shared"], x8), 8),
+        mla_decode=queued_ms(lambda: mla.mla_forward(
+            cfg, lp["attn"], x8, positions, mode="decode", cache=cl,
+            cache_pos=pos), 8))
+    if all(isinstance(v["device_ms"], float) for v in parts.values()):
+        parts["tick_device_from_parts_ms"] = (
+            n_moe * (parts["moe_ffn"]["device_ms"]
+                     + parts["shared_expert"]["device_ms"])
+            + cfg.n_layers * parts["mla_decode"]["device_ms"])
+    del cache, cl
+    line("rag.dsv2", model=cfg.arch_id, layers=cfg.n_layers,
+         d_model=cfg.d_model, attention=cfg.attention,
+         experts=f"{cfg.n_experts} routed top-{cfg.top_k} + "
+                 f"{cfg.n_shared_experts} shared, d_ff {cfg.moe_d_ff}",
+         dtype=cfg.dtype, params_b=cfg.param_count() / 1e9,
+         active_params_b=cfg.active_param_count() / 1e9,
+         param_bytes=lm.param_bytes(params), init_s=init_s,
+         index_nodes=HYB_N, n_slots=RAG_SLOTS, max_seq=RAG_SEQ,
+         requests=RAG_REQUESTS, prompt_tokens=dict(
+             min=min(prompt_lens), p50=float(np.median(prompt_lens)),
+             max=max(prompt_lens), total=sum(prompt_lens)),
+         new_tokens=n_tokens, retrieve_ms=retrieve_ms,
+         prefill_ms=dict(p50=pre.percentile(50), p99=pre.percentile(99),
+                         n=pre.count),
+         decode_tick_ms=dict(p50=dec.percentile(50), p99=dec.percentile(99),
+                             n=dec.count),
+         tick_ms=dict(p50=tick_h.percentile(50), p99=tick_h.percentile(99),
+                      n=tick_h.count),
+         maintenance_stall_ms=dict(p50=stall.percentile(50),
+                                   p99=stall.percentile(99), n=stall.count),
+         decode_tokens_per_s_8_slots=RAG_SLOTS / (dec.percentile(50) / 1e3),
+         run_s=run_s, tokens_per_s=n_tokens / run_s, ticks=ticks,
+         launches=launches, peak_mem_gib=peak / 2 ** 30,
+         moe_drops=dict(prefill=pre_drops, decode=dict(
+             dec_drops, ticks=DSV2_TICKS, slots=RAG_SLOTS)),
+         tick_profile=prof, tick_bytes=tick_bytes, tick_parts=parts,
+         nvidia_smi=smi_line())
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # a 4-layer fp32 copy at full width, capacity factor 16 (no drops):
+    # two ragged rows decoded in one batch equal each row decoded alone
+    # (the reference's tests/test_serving.py case)
+    cfg4 = cfg.replace(n_layers=4, dtype="float32", capacity_factor=16.0)
+    p4 = lm.init_lm(cfg4, seed=1)
+    la, lb = 37, 101
+    pa = torch.as_tensor(rng.integers(0, cfg.vocab_size, la), device="cuda")
+    pb = torch.as_tensor(rng.integers(0, cfg.vocab_size, lb), device="cuda")
+    clen = 128
+    _, ca = lm.prefill(cfg4, p4, pa[None], margin=clen - la)
+    _, cb = lm.prefill(cfg4, p4, pb[None], margin=clen - lb)
+    both = tuple(torch.cat([a, b], dim=1) for a, b in zip(ca, cb))
+    ta, tb = torch.tensor([7], device="cuda"), torch.tensor([11],
+                                                            device="cuda")
+    ra, _ = lm.decode_step(cfg4, p4, ca, ta, torch.tensor([la], device="cuda"))
+    rb, _ = lm.decode_step(cfg4, p4, cb, tb, torch.tensor([lb], device="cuda"))
+    rab, _ = lm.decode_step(cfg4, p4, both, torch.cat([ta, tb]),
+                            torch.tensor([la, lb], device="cuda"))
+    solo = torch.cat([ra, rb])
+    solo_err = float((rab - solo).abs().max())
+    solo_ok = bool(torch.allclose(rab, solo, rtol=DSV2_SOLO_TOL,
+                                  atol=DSV2_SOLO_TOL))
+    check(solo_ok, f"rag.dsv2 fp32: batched rows differ from solo rows by "
+                   f"{solo_err} (rtol = atol = {DSV2_SOLO_TOL})")
+    del p4, ca, cb, both
+    torch.cuda.empty_cache()
+
+    # a 2-layer fp32 copy at full width (the dense first layer and one MoE
+    # layer at the default capacity): prefill of 64 tokens and 4 greedy
+    # decode steps on the card and on the CPU, the same weights; routing
+    # equal (expert ids and kept pattern) unless a near-tie under 1e-6
+    cfg2 = cfg.replace(n_layers=2, dtype="float32")
+    p2 = lm.init_lm(cfg2, seed=2)
+    p2c = _params_to(p2, "cpu")
+    prompt = rng.integers(0, cfg.vocab_size, 64).astype(np.int32)
+    outs, routes = [], []
+    for dev, pp in (("cuda", p2), ("cpu", p2c)):
+        rr = []
+        lg, c2 = lm.prefill(cfg2, pp, torch.as_tensor(prompt, device=dev)
+                            [None], margin=8, moe_routings=rr)
+        logits = [lg[0].cpu()]
+        tok, p = int(torch.argmax(logits[0])), len(prompt)
+        for _ in range(4):
+            lg, c2 = lm.decode_step(cfg2, pp, c2,
+                                    torch.tensor([tok], device=dev),
+                                    torch.tensor([p], device=dev),
+                                    moe_routings=rr)
+            logits.append(lg[0].cpu())
+            tok, p = int(torch.argmax(logits[-1])), p + 1
+        outs.append(torch.stack(logits))
+        routes.append([(r.idx.cpu(), r.keep.cpu(), float(moe.near_tie_gap(r)))
+                       for r in rr])
+    near = min(g for rr in routes for _, _, g in rr)
+    same_routes = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                      for a, b in zip(*routes))
+    cpu_err = float((outs[0] - outs[1]).abs().max())
+    same_argmax = bool((outs[0].argmax(-1) == outs[1].argmax(-1)).all())
+    if near >= NEAR_TIE:
+        check(same_routes, "rag.dsv2: 2-layer routing differs card vs CPU")
+        check(cpu_err <= CPU_LOGIT_ATOL and same_argmax,
+              f"rag.dsv2: 2-layer card vs CPU logits differ by {cpu_err} "
+              f"(> {CPU_LOGIT_ATOL}) or in argmax")
+    line("rag.dsv2.checks",
+         fp32_4_layer_cf16_batched_vs_solo_max_abs=solo_err,
+         solo_tolerance=DSV2_SOLO_TOL,
+         fp32_2_layer_card_vs_cpu_max_abs_logit=cpu_err,
+         logit_scale=float(outs[1].abs().max()), tolerance=CPU_LOGIT_ATOL,
+         routing_equal=same_routes, router_min_gap=near,
+         near_tie=("none under 1e-6: routing and logits checked"
+                   if near >= NEAR_TIE else
+                   "a near-tie under 1e-6: routing and logits not checked"),
+         routed_calls=len(routes[0]), phase_s=time.perf_counter() - phase_t0)
+    return launches
+
+
+def phase_lm_mixtral() -> int:
+    """mixtral-8x7b at full width cut to 2 layers (bf16, seeded random
+    weights): one 4,608-token prompt against the 4,096 window (prefill
+    truncates and rolls), then 8 greedy decode steps that wrap; the decode
+    kernel (G 4, S 4,096, hd 128) against its plain version on the run's
+    own cache. Returns the decode kernel launches of the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models import lm
+    phase_t0 = time.perf_counter()
+    cfg = get_config("mixtral-8x7b").replace(n_layers=2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_lm(cfg, seed=0)
+    rng = np.random.default_rng(21)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, MIXTRAL_PROMPT),
+                             device="cuda")[None]
+    rr = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = lm.prefill(cfg, params, prompt, margin=MIXTRAL_STEPS,
+                           moe_routings=rr)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    pre_drops = routing_summary(rr)
+    clen = cache[0].shape[2]
+    check(clen == cfg.sliding_window,
+          f"lm.mixtral: cache of {clen} slots, window {cfg.sliding_window}")
+    dops.decode_attention.launches = 0
+    tok, pos = torch.argmax(lg, dim=-1), MIXTRAL_PROMPT
+    step_ms, all_finite = [], bool(torch.isfinite(lg.float()).all())
+    dec_r = []
+    for _ in range(MIXTRAL_STEPS):
+        t0 = time.perf_counter()
+        lg, cache = lm.decode_step(cfg, params, cache, tok, pos,
+                                   moe_routings=dec_r)
+        tok = torch.argmax(lg, dim=-1)
+        all_finite &= bool(torch.isfinite(lg.float()).all())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        pos += 1
+    launches = dops.decode_attention.launches
+    check(launches == cfg.n_layers * MIXTRAL_STEPS,
+          f"lm.mixtral: {launches} decode kernel launches for "
+          f"{MIXTRAL_STEPS} steps of {cfg.n_layers} layers")
+    check(all_finite and tuple(lg.shape) == (1, cfg.vocab_size),
+          f"lm.mixtral: logits {tuple(lg.shape)}, finite {all_finite}")
+    # the kernel against its plain version on layer 0's wrapped window
+    k, v, slot_pos = cache[0][0], cache[1][0], cache[2][0]
+    now = pos - 1
+    valid = ((slot_pos >= 0) & (slot_pos <= now)
+             & (slot_pos > now - cfg.sliding_window))
+    check(int(valid.sum()) == cfg.sliding_window,
+          f"lm.mixtral: {int(valid.sum())} valid slots after the wrap")
+    g = torch.Generator(device="cuda").manual_seed(22)
+    hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    grp = cfg.n_heads // hkv
+    q = torch.randn((1, cfg.n_heads, hd), device="cuda",
+                    generator=g).to(torch.bfloat16)
+    out = dops.decode_attention(q, k, v, valid)
+    ref = decode_attention_ref(q.view(1, hkv, grp, hd), k, v,
+                               valid).view(1, cfg.n_heads, hd)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    check(err <= DECODE_BF16_ATOL,
+          f"lm.mixtral: decode kernel max |d out| {err} > {DECODE_BF16_ATOL}")
+    nbytes = cfg.sliding_window * hkv * hd * 2 * 2 + 2 * cfg.n_heads * hd * 2
+    kms = cuda_ms(lambda: dops.decode_attention(q, k, v, valid), 50)
+    pms = cuda_ms(lambda: decode_attention_ref(q.view(1, hkv, grp, hd), k, v,
+                                               valid), 10)
+    # library yardstick (never called by the port): SDPA, same bool mask
+    lms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q.view(1, cfg.n_heads, 1, hd), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=valid[:, None, None, :], enable_gqa=True), 50)
+    line("lm.mixtral", model=cfg.arch_id, layers=cfg.n_layers,
+         cut="2 of 32 layers (the model needs ~93 GB in bf16)",
+         d_model=cfg.d_model, heads=f"{cfg.n_heads}/{hkv}x{hd}",
+         experts=f"{cfg.n_experts} top-{cfg.top_k}, d_ff {cfg.d_ff}",
+         window=cfg.sliding_window, prompt_tokens=MIXTRAL_PROMPT,
+         decode_steps=MIXTRAL_STEPS, param_gib=lm.param_bytes(params) / 2 ** 30,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         prefill_ms=prefill_ms, decode_step_ms=dict(
+             p50=float(np.median(step_ms)), max=max(step_ms)),
+         moe_drops=dict(prefill=pre_drops, decode=routing_summary(dec_r)),
+         decode_kernel=dict(shape=dict(B=1, S=cfg.sliding_window, Hkv=hkv,
+                                       G=grp, hd=hd, dtype="bfloat16"),
+                            max_abs_err=err, tolerance=DECODE_BF16_ATOL,
+                            ms=kms, plain_ms=pms, library_ms=lms,
+                            bound_ms=nbytes / PEAK_HBM_BYTES * 1e3),
+         launches=launches, phase_s=time.perf_counter() - phase_t0)
+    del params, cache
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2848,11 +3322,14 @@ def main():
           f"a kernel was not launched on the main path: {launches}")
     rag = phase_rag(index, corpus)
     seg_read("rag")
+    dsv2 = phase_rag_dsv2(index, corpus)
+    seg_read("rag.dsv2")
     index_seg = sum(seg.values())
     check(seg["vector"] > 0 and seg["durable"] > 0 and seg["hybrid"] > 0,
           f"the segment sum was not launched on the index path: {seg}")
     del index, corpus
     torch.cuda.empty_cache()
+    mixtral_decode = phase_lm_mixtral()
     if delta_cap != 4096:
         # the delta grew at ingest: hold and time the delta kernel at the
         # size the serve_1m searches actually scanned
@@ -2870,22 +3347,26 @@ def main():
          sharded_hybrid={
              "probe": after_sharded_hybrid[0] - after_hybrid[0],
              "shared": after_sharded_hybrid[1] - after_hybrid[1]},
-         facade=facade, rag=rag, gnn={"segment_sum": gnn_launches},
+         facade=facade, rag=rag, rag_dsv2=dsv2,
+         lm_mixtral={"decode": mixtral_decode},
+         gnn={"segment_sum": gnn_launches},
          index_path_segment_sum=dict(seg, total=index_seg))
     src = "src/repro_torch/kernels/ivf_topk/csrc/ivf_topk.cu"
     kernels = [
         dict(name="ivf_probe_scan", route="cuda", source=src,
              replaces="src/repro/kernels/ivf_topk/ivf_topk.py:134",
-             launches=launches["probe"], **kern["probe"]),
+             launches=launches["probe"] + rag["probe"] + dsv2["probe"],
+             **kern["probe"]),
         dict(name="ivf_shared_scan", route="cuda", source=src,
              replaces="src/repro/kernels/ivf_topk/ivf_topk.py:68",
-             launches=launches["shared"], **kern["shared"]),
+             launches=launches["shared"] + rag["shared"] + dsv2["shared"],
+             **kern["shared"]),
         dict(name="decode_attention", route="cuda",
              source="src/repro_torch/kernels/decode_attention/csrc/"
                     "decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/"
                       "decode_attention.py:78",
-             launches=rag["decode"], **kern["decode"]),
+             launches=rag["decode"] + mixtral_decode, **kern["decode"]),
         dict(name="segment_sum", route="cuda",
              source="src/repro_torch/kernels/segment_reduce/csrc/"
                     "segment_reduce.cu",

@@ -53,12 +53,15 @@ class Init:
             int(seed))
 
     def dense(self, shape: Tuple[int, ...], fan_in: Optional[int] = None,
-              scale: float = 1.0) -> torch.Tensor:
+              scale: float = 1.0,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """A normal draw times ``scale / sqrt(fan_in)``, in ``dtype`` (None =
+        the model dtype; the MoE router is fp32 whatever the model's)."""
         fi = fan_in if fan_in is not None else shape[0]
         w = torch.randn(shape, generator=self.generator, device=self.device,
                         dtype=torch.float32)
         w.mul_(scale / math.sqrt(max(fi, 1)))
-        return w.to(self.dtype)
+        return w.to(dtype or self.dtype)
 
     def zeros(self, shape: Tuple[int, ...]) -> torch.Tensor:
         return torch.zeros(shape, dtype=self.dtype, device=self.device)

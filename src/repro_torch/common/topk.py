@@ -16,6 +16,22 @@ _SORT_MAX = 2048
 # the O(N) path counts the k-th value's ties in blocks of this many columns
 _BLOCK = 256
 
+# a float's bits, read as a signed integer of its width, give its total
+# order once the magnitude bits of negative values are flipped
+_INT_VIEW = {torch.float32: torch.int32, torch.float64: torch.int64,
+             torch.float16: torch.int16, torch.bfloat16: torch.int16}
+
+
+def _order_key(x: torch.Tensor) -> torch.Tensor:
+    """Integers that sort as ``x`` does in the IEEE total order: ``-0.0``
+    below ``+0.0``, every other pair of numbers as ``x`` itself."""
+    idt = _INT_VIEW.get(x.dtype)
+    if idt is None:
+        return x
+    bits = x.contiguous().view(idt)
+    mag = torch.iinfo(idt).max
+    return torch.where(bits < 0, bits ^ mag, bits)
+
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ``k`` largest entries along the last axis of ``x``: (values,
@@ -28,7 +44,12 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     set); the remaining places go to the entries equal to it in position
     order — the j-th of them found by a binary search over per-block tie
     counts, then over the running count inside its block; a stable sort
-    of the k survivors, taken in position order, orders them."""
+    of the k survivors, taken in position order, orders them. Floats are
+    ranked by ``_order_key``; the values returned are ``x``'s own."""
+    key = _order_key(x)
+    if key is not x:
+        _, pos = top_k(key, k)
+        return torch.gather(x, -1, pos), pos
     n = x.shape[-1]
     lead = x.shape[:-1]
     if k == 0 or n == 0:

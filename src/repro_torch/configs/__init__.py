@@ -1,5 +1,5 @@
-"""Config registry of the port: the index's own config, the RAG LM and the
-EGNN node classifier."""
+"""Config registry of the port: the index's own config, the five LM
+configs of the RAG engine and the EGNN node classifier."""
 from __future__ import annotations
 
 import importlib
@@ -9,7 +9,11 @@ from repro_torch.configs.base import GNNConfig, HMGIConfig, LMConfig, ShapeSpec
 
 _MODULES = {
     "hmgi": "repro_torch.configs.hmgi",
+    "deepseek-67b": "repro_torch.configs.deepseek_67b",
+    "qwen2-72b": "repro_torch.configs.qwen2_72b",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite",
     "egnn": "repro_torch.configs.egnn",
 }
 _Config = Union[HMGIConfig, LMConfig, GNNConfig]
@@ -18,8 +22,8 @@ _Config = Union[HMGIConfig, LMConfig, GNNConfig]
 def get_config(arch_id: str) -> _Config:
     if arch_id not in _MODULES:
         raise KeyError(f"unknown or unported arch {arch_id!r}; known: "
-                       f"{sorted(_MODULES)} (the other model configs arrive "
-                       "with ROADMAP Queue 1 items 16-17)")
+                       f"{sorted(_MODULES)} (the other GNN and recsys configs "
+                       "arrive with ROADMAP Queue 1 item 17)")
     return importlib.import_module(_MODULES[arch_id]).CONFIG
 
 
@@ -36,6 +40,13 @@ def smoke_config(arch_id: str) -> _Config:
         kw = dict(n_layers=2, d_model=64, n_heads=4, head_dim=16,
                   n_kv_heads=min(cfg.n_kv_heads, 2), d_ff=128, vocab_size=512,
                   scan_layers=True, remat=False)
+        if cfg.moe:
+            kw.update(n_experts=min(cfg.n_experts, 4), top_k=min(cfg.top_k, 2),
+                      moe_d_ff=64, dense_d_ff=128,
+                      n_shared_experts=min(cfg.n_shared_experts, 1))
+        if cfg.attention == "mla":
+            kw.update(kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+                      v_head_dim=16)
         if cfg.sliding_window:
             kw.update(sliding_window=32)
         return cfg.replace(**kw)

@@ -7,10 +7,8 @@ fields are folded into each class), so a reference config converts with
 ``LMConfig(**dataclasses.asdict(ref_cfg))`` or
 ``GNNConfig(**dataclasses.asdict(ref_cfg))``, and a snapshot's config
 fingerprint (``persistence.snapshot.config_fingerprint``) is the same in
-both packages. Fields the port does not act on yet (the LM's MLA, MoE
-and training knobs) are kept for that round trip; the code raises
-``NotImplementedError`` where one of them would change behaviour (see
-``models/lm.py``).
+both packages. Fields the port does not act on yet (the LM's training
+knobs) are kept for that round trip.
 """
 from __future__ import annotations
 
@@ -97,10 +95,9 @@ class HMGIConfig:
 
 @dataclass(frozen=True)
 class LMConfig:
-    """A transformer LM (the RAG engine's generator). The port serves dense
-    GQA (optionally with QKV bias and a sliding window); ``attention="mla"``
-    and ``moe=True`` are kept for the round trip and refused by
-    ``models/lm.py``."""
+    """A transformer LM (the RAG engine's generator): GQA or multi-head
+    latent attention, dense or mixture-of-experts FFN, optionally with QKV
+    bias and a sliding window."""
     arch_id: str = ""
     family: str = "lm"
     source: str = ""
@@ -117,21 +114,21 @@ class LMConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     # attention variant
-    attention: str = "gqa"       # "gqa" | "mla" (mla: not ported)
-    sliding_window: int = 0      # >0 => SWA
-    # MLA (not ported)
+    attention: str = "gqa"       # "gqa" | "mla"
+    sliding_window: int = 0      # >0 => SWA (mixtral)
+    # MLA (deepseek-v2)
     kv_lora_rank: int = 0
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
-    # MoE (not ported)
+    # MoE
     moe: bool = False
     n_experts: int = 0
     n_shared_experts: int = 0
     top_k: int = 0
-    moe_d_ff: int = 0
-    first_dense_layers: int = 0
-    dense_d_ff: int = 0
+    moe_d_ff: int = 0            # per-expert hidden (dsv2); mixtral uses d_ff
+    first_dense_layers: int = 0  # dsv2-lite: the first layer is a dense FFN
+    dense_d_ff: int = 0          # hidden of those dense layers
     capacity_factor: float = 1.25
     # execution (scan/remat: training knobs of the reference, kept for the
     # round trip)
@@ -179,6 +176,17 @@ class LMConfig:
         total += self.vocab_size * d * (1 if self.tie_embeddings else 2)
         total += d  # final norm
         return total
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: only the routed top_k experts
+        and the shared ones)."""
+        if not self.moe:
+            return self.param_count()
+        d, L = self.d_model, self.n_layers
+        e_ff = self.moe_d_ff or self.d_ff
+        inactive = ((L - self.first_dense_layers)
+                    * (self.n_experts - self.top_k) * 3 * d * e_ff)
+        return self.param_count() - inactive
 
 
 @dataclass(frozen=True)

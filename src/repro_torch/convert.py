@@ -18,9 +18,12 @@ reference's.
 
 ``lm_params_from_jax(tree, device)`` takes the reference ``init_lm``'s
 params with numpy leaves and returns the port's layout (see
-``models/lm.py``): the stacked ``layers`` (leading L axis) become a list
-of per-layer dicts; ``embed``, ``final_ln`` and ``head`` are kept. With it
-both packages compute the same function.
+``models/lm.py``): the unstacked ``head_layers`` (a MoE model's dense
+first layers) and then the rows of the stacked ``layers`` (leading L
+axis) become one list of per-layer dicts in layer order, MLA and MoE
+leaves included (the router's fp32 ``wr`` stays fp32); ``embed``,
+``final_ln`` and ``head`` are kept. With it both packages compute the
+same function.
 
 ``gnn_params_from_jax(tree, device)`` takes the reference ``init_model``'s
 GNN params with numpy leaves and returns the port's, in the same layout
@@ -76,17 +79,15 @@ def lm_params_from_jax(tree: Dict[str, object], device=None) -> Dict[str, object
     """tree: a reference ``init_lm`` params dict with numpy leaves (e.g.
     ``jax.tree.map(np.asarray, params)``). device: None = the CUDA device."""
     device = resolve_device(device, "lm_params_from_jax")
-    if "head_layers" in tree:
-        raise NotImplementedError(
-            "unstacked head layers (MoE first_dense_layers) are not ported "
-            "to repro_torch yet (ROADMAP.md Queue 1 item 16)")
     stacked = tree["layers"]
-    n_layers = int(np.asarray(stacked["ln1"]).shape[0])
+    n_stacked = int(np.asarray(stacked["ln1"]).shape[0])
     out = {k: _leaf(tree[k], device) for k in ("embed", "final_ln", "head")
            if k in tree}
-    out["layers"] = [_map(stacked, lambda a, i=i: _leaf(np.asarray(a)[i],
-                                                        device))
-                     for i in range(n_layers)]
+    out["layers"] = ([_map(lp, lambda a: _leaf(a, device))
+                      for lp in tree.get("head_layers", [])]
+                     + [_map(stacked, lambda a, i=i: _leaf(np.asarray(a)[i],
+                                                           device))
+                        for i in range(n_stacked)])
     return out
 
 

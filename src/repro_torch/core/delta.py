@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.common.params import resolve_device
 from repro_torch.common.reduce import row_dot
 from repro_torch.common.topk import top_k
 from repro_torch.core import ivf as ivf_mod
@@ -60,7 +61,9 @@ class DeltaStore(NamedTuple):
     superseded: torch.Tensor   # (max_ids,) bool — stale stable rows (updates)
 
 
-def init(capacity: int, dim: int, max_ids: int, device="cpu") -> DeltaStore:
+def init(capacity: int, dim: int, max_ids: int, device=None) -> DeltaStore:
+    """An empty store on ``device`` (None = the CUDA device)."""
+    device = resolve_device(device, "delta.init")
     def z(shape, dtype, fill=0):
         return torch.full(shape, fill, dtype=dtype, device=device)
     return DeltaStore(

@@ -17,6 +17,8 @@ from typing import Dict, Iterable, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.common.params import resolve_device
+
 
 class GraphStore(NamedTuple):
     indptr: torch.Tensor       # (N+1,) int32 CSR row pointers (by src)
@@ -44,8 +46,10 @@ def from_edges(n_nodes: int, src: np.ndarray, dst: np.ndarray,
                edge_weight: Optional[np.ndarray] = None,
                node_modality: Optional[np.ndarray] = None,
                make_undirected: bool = False,
-               device="cpu") -> GraphStore:
-    """Host-side construction: sorts edges by src into CSR."""
+               device=None) -> GraphStore:
+    """Host-side construction: sorts edges by src into CSR, on ``device``
+    (None = the CUDA device; raises without one)."""
+    device = resolve_device(device, "graph_store.from_edges")
     src = np.asarray(src, np.int32)
     dst = np.asarray(dst, np.int32)
     et = np.zeros_like(src) if edge_type is None else np.asarray(edge_type, np.int32)
@@ -72,11 +76,13 @@ def degree(g: GraphStore) -> torch.Tensor:
     return g.indptr[1:] - g.indptr[:-1]
 
 
-def edge_type_lut(edge_types: Iterable[int], device="cpu") -> torch.Tensor:
+def edge_type_lut(edge_types: Iterable[int], device=None) -> torch.Tensor:
     """Compiles a Cypher-style ``[:REL_A|:REL_B]`` filter — an iterable of
     edge-type ids — into a (T,) fp32 mask (indexed by edge type; excluded
     types carry zero weight). T = max requested id + 1; the traversal
-    treats types beyond the mask as excluded."""
+    treats types beyond the mask as excluded. device: None = the CUDA
+    device."""
+    device = resolve_device(device, "graph_store.edge_type_lut")
     raw = np.asarray(list(edge_types))
     if raw.size and not np.issubdtype(raw.dtype, np.integer):
         # a float-valued sequence is almost certainly a *mask* spelled as a
@@ -128,7 +134,9 @@ class NodeAttributes:
 
     @classmethod
     def from_columns(cls, n_nodes: int, cols: Dict[str, np.ndarray],
-                     device="cpu") -> "NodeAttributes":
+                     device=None) -> "NodeAttributes":
+        """(C, N) int32 columns on ``device`` (None = the CUDA device)."""
+        device = resolve_device(device, "NodeAttributes.from_columns")
         names = list(cols)
         mat = np.zeros((len(names), n_nodes), np.int32)
         for i, name in enumerate(names):

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.common.params import resolve_device
 from repro_torch.core.graph_store import GraphStore, edge_type_lut
 from repro_torch.kernels.segment_reduce.ops import segment_sum_csr
 
@@ -25,11 +26,12 @@ class TraversalResult(NamedTuple):
     total: torch.Tensor     # (N,) fp32 — mean over hops (Eq. 3's (1/h)·Σ s_g)
 
 
-def as_edge_mask(edge_type_mask, device="cpu") -> Optional[torch.Tensor]:
+def as_edge_mask(edge_type_mask, device=None) -> Optional[torch.Tensor]:
     """Normalises the two spellings of an edge-type filter: a (T,) mask
     tensor (indexed by edge type) passes through; an iterable of edge-type
-    ids compiles to one via ``graph_store.edge_type_lut``. Edge types ≥ T
-    read as excluded."""
+    ids compiles to one via ``graph_store.edge_type_lut`` on ``device``
+    (None = the CUDA device). Edge types ≥ T read as excluded."""
+    device = resolve_device(device, "traversal.as_edge_mask")
     if edge_type_mask is None or isinstance(edge_type_mask, torch.Tensor):
         return edge_type_mask
     return edge_type_lut(edge_type_mask, device=device)

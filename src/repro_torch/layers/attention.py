@@ -45,15 +45,16 @@ def attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q_positions: torch.Tensor, k_positions: torch.Tensor, *,
                 window: int = 0) -> torch.Tensor:
     """Masked attention over a whole prompt (the reference's einsums, one
-    q block). q (B, Sq, Hq, hd); k/v (B, Skv, Hkv, hd), already roped.
-    Returns (B, Sq, Hq, hd).
+    q block). q/k (B, Sq|Skv, Hq|Hkv, hd), already roped; v (B, Skv, Hkv,
+    dv), where dv may differ from hd (MLA: q/k 192 wide, v 128). Returns
+    (B, Sq, Hq, dv); the scale is 1/√hd, q's width.
 
     The GQA groups are a batch axis of the matmul (q viewed as
     (B, Hkv, G·Sq, hd)), so K/V are never repeated per query head. Scores
     are scaled in q's dtype and softmaxed in fp32; p is cast back to q's
     dtype before p·V, as in the reference."""
     bsz, sq, hq, hd = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    skv, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     g = hq // hkv
     scale = 1.0 / math.sqrt(hd)
     qg = q.reshape(bsz, sq, hkv, g, hd).permute(0, 2, 3, 1, 4)  # (B,Hkv,G,Sq,hd)
@@ -63,9 +64,9 @@ def attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = s.reshape(bsz, hkv, g, sq, skv).to(torch.float32)
     s = s + _mask_bias(q_positions, k_positions, window)
     p = torch.softmax(s, dim=-1).to(q.dtype)
-    o = p.reshape(bsz, hkv, g * sq, skv) @ v.permute(0, 2, 1, 3)  # (B,Hkv,G·Sq,hd)
-    o = o.reshape(bsz, hkv, g, sq, hd).permute(0, 3, 1, 2, 4)
-    return o.reshape(bsz, sq, hq, hd)
+    o = p.reshape(bsz, hkv, g * sq, skv) @ v.permute(0, 2, 1, 3)  # (B,Hkv,G·Sq,dv)
+    o = o.reshape(bsz, hkv, g, sq, dv).permute(0, 3, 1, 2, 4)
+    return o.reshape(bsz, sq, hq, dv)
 
 
 def attend_decode(q: torch.Tensor, k_cache: torch.Tensor,

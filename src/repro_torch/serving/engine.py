@@ -15,7 +15,12 @@ per-slot ``(n_slots,)`` position vector — with ragged prompts the slots sit
 at different sequence lengths, and each row writes K/V at its own cache
 index and attends only to its own history, so a batched tick produces the
 tokens sequential per-request decoding would. The decode attention of
-every layer of every tick runs the CUDA flash-decode kernel on the card.
+every GQA layer of every tick runs the CUDA flash-decode kernel on the
+card; an MLA model decodes in the reference's absorbed form, and its
+cache holds (latent, roped k) in place of K/V, which the per-slot copy
+and ``init_cache`` handle alike. A MoE model routes each tick's tokens
+together, so when an expert overflows its capacity a token's output
+depends on the other slots' (the reference's semantics).
 
 With an index attached and ``maintenance_interval > 0``, a
 ``MaintenanceDriver`` runs one bounded ``HMGIIndex.maintain`` pass every
@@ -74,7 +79,6 @@ class RAGEngine:
     def __init__(self, lm_cfg, lm_params, index, cfg: EngineConfig = EngineConfig(),
                  admission: Optional[AdmissionController] = None, *,
                  device=None):
-        lm.check_supported(lm_cfg)
         self.device = resolve_device(device, "RAGEngine")
         if lm_params["embed"].device != self.device:
             raise ValueError(f"RAGEngine: lm_params live on "
@@ -153,8 +157,9 @@ class RAGEngine:
                 margin=self._cache[0].shape[2] - len(prompt))
             sp.fence(logits)
         # copy this request's cache into its row of the shared cache, in
-        # place — all leaves, including the (L, clen) slot-position row:
-        # decode masks each slot's attention by its own positions
+        # place — all leaves (K/V or latent/roped k), including the (L,
+        # clen) slot-position row: decode masks each slot's attention by its
+        # own positions
         for shared, one in zip(self._cache, cache):
             shared[:, slot].copy_(one[:, 0])
         # the prefill logits give this request's first generated token (fed

@@ -67,7 +67,7 @@ def _small_index(maint_auto=False):
 def test_unported_parts_raise():
     """The index takes a mesh (its row-sharded scan is ported); only the
     GNN ring over a mesh is still refused (item 15). The NSW lane, the
-    rerank lane and traces run."""
+    rerank lane and traces run; unported configs are unknown."""
     from repro_torch.configs import get_config as pget
     from repro_torch.models.gnn.common import run_flat
     from repro_torch.models.gnn.driver import full_graph_loss
@@ -91,8 +91,12 @@ def test_unported_parts_raise():
                     device="cpu")
     nsw.ingest({"text": (np.arange(64), v)}, 64)
     assert nsw.modalities["text"].nsw.neighbors.shape == (64, 4)
-    with pytest.raises(KeyError):
-        get_config("qwen2-72b")
+    # every LM config is registered; the other GNN and recsys
+    # configs wait for item 17
+    assert get_config("qwen2-72b").qkv_bias
+    for arch in ("dimenet", "xdeepfm"):
+        with pytest.raises(KeyError, match="item 17"):
+            get_config(arch)
 
 
 def test_converter_refuses_nsw_and_sparse_state():

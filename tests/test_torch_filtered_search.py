@@ -215,7 +215,7 @@ class TestNodeAttributes:
     def test_ops(self):
         attrs = NodeAttributes.from_columns(
             6, {"a": np.array([0, 1, 2, 3, 4, 5]),
-                "b": np.array([5, 5, 0, 0, 5, 5])})
+                "b": np.array([5, 5, 0, 0, 5, 5])}, device="cpu")
         def mask(where):
             return np.asarray(attrs.node_pass(where))
         np.testing.assert_array_equal(mask(("a", "==", 2)),
@@ -232,11 +232,13 @@ class TestNodeAttributes:
             mask([("a", ">=", 1), ("b", "==", 5)]), [0, 1, 0, 0, 1, 1])
 
     def test_bad_inputs(self):
-        attrs = NodeAttributes.from_columns(3, {"a": np.zeros(3, np.int32)})
+        attrs = NodeAttributes.from_columns(3, {"a": np.zeros(3, np.int32)},
+                                            device="cpu")
         with pytest.raises(ValueError, match="op"):
             attrs.compile_where(("a", "~=", 1))
         with pytest.raises(KeyError):
             attrs.compile_where(("missing", "==", 1))
         with pytest.raises(ValueError, match="shape"):
-            NodeAttributes.from_columns(3, {"a": np.zeros(4, np.int32)})
+            NodeAttributes.from_columns(3, {"a": np.zeros(4, np.int32)},
+                                        device="cpu")
         assert attrs.node_pass(None) is None

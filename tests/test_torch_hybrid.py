@@ -29,6 +29,7 @@ from repro.query.executor import _fuse_dense as j_fuse_dense
 from repro_torch.configs.base import HMGIConfig
 from repro_torch.convert import index_from_jax_state
 from repro_torch.core import community as pcomm
+from repro_torch.core import delta as pdelta
 from repro_torch.core import fusion as pfusion
 from repro_torch.core import graph_store as pgraph
 from repro_torch.core import traversal as ptrav
@@ -55,7 +56,7 @@ def graphs(corpus):
     c = corpus
     w = np.random.default_rng(5).random(len(c.src)).astype(np.float32) + 0.5
     return (jgraph.from_edges(N, c.src, c.dst, c.edge_type, w),
-            pgraph.from_edges(N, c.src, c.dst, c.edge_type, w))
+            pgraph.from_edges(N, c.src, c.dst, c.edge_type, w, device="cpu"))
 
 
 def test_graph_store_matches_reference(graphs):
@@ -66,10 +67,10 @@ def test_graph_store_matches_reference(graphs):
     np.testing.assert_array_equal(pgraph.degree(pg).numpy(),
                                   np.asarray(jgraph.degree(jg)))
     assert pg.nbytes == jg.nbytes and pg.n_edges == jg.n_edges
-    np.testing.assert_array_equal(pgraph.edge_type_lut([3, 0, 3]).numpy(),
+    np.testing.assert_array_equal(pgraph.edge_type_lut([3, 0, 3], "cpu").numpy(),
                                   np.asarray(jgraph.edge_type_lut([3, 0, 3])))
     with pytest.raises(ValueError):
-        pgraph.edge_type_lut([0.5, 1.0])
+        pgraph.edge_type_lut([0.5, 1.0], "cpu")
 
 
 def _seeds(rng, qn=5, k=12):
@@ -137,7 +138,7 @@ def test_label_propagation_identical(graphs, which, n_iters):
         rng = np.random.default_rng(n_iters)
         src, dst = rng.integers(0, N, (2, N // 3))
         jg = jgraph.from_edges(N, src, dst)
-        pg = pgraph.from_edges(N, src, dst)
+        pg = pgraph.from_edges(N, src, dst, device="cpu")
     want = np.asarray(jcomm.label_propagation(jg, n_iters))
     got = pcomm.label_propagation(pg, n_iters).numpy()
     assert got.dtype == np.int32
@@ -305,3 +306,27 @@ def test_state_round_trip_in_port(corpus, pair):
                  (pi.hybrid_search(q, "text"), back.hybrid_search(q, "text"))):
         np.testing.assert_array_equal(a[0].numpy(), b[0].numpy())
         np.testing.assert_array_equal(a[1].numpy(), b[1].numpy())
+
+
+def test_graph_and_delta_helpers_need_a_device_or_an_explicit_cpu():
+    """The index's construction helpers follow the port's entry points:
+    with no device they run on the card, and without one they raise,
+    naming ``device='cpu'``; given the CPU they build there."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None runs there")
+    src, dst = np.array([0, 1]), np.array([1, 2])
+    calls = {
+        "from_edges": lambda **kw: pgraph.from_edges(3, src, dst, **kw),
+        "edge_type_lut": lambda **kw: pgraph.edge_type_lut([0, 2], **kw),
+        "from_columns": lambda **kw: pgraph.NodeAttributes.from_columns(
+            3, {"a": np.zeros(3, np.int32)}, **kw),
+        "delta.init": lambda **kw: pdelta.init(4, 2, 8, **kw),
+        "as_edge_mask": lambda **kw: ptrav.as_edge_mask([1], **kw),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        out = call(device="cpu")
+        leaf = out if isinstance(out, torch.Tensor) else (
+            out.values if name == "from_columns" else out[0])
+        assert leaf.device.type == "cpu", name

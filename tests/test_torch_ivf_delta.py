@@ -179,7 +179,7 @@ def test_slot_surgery_matches_reference(rng):
 
 
 def _delta_pair(rng, d=16, cap=16, max_ids=64):
-    return (jdelta.init(cap, d, max_ids), pdelta.init(cap, d, max_ids))
+    return (jdelta.init(cap, d, max_ids), pdelta.init(cap, d, max_ids, "cpu"))
 
 
 def test_delta_writes_match_reference(rng):
@@ -244,7 +244,7 @@ def test_scan_delta_many_live_rows_matches_reference(filtered):
     reference's results."""
     rng = np.random.default_rng(11 + filtered)
     d = 16
-    j, p = jdelta.init(512, d, 400), pdelta.init(512, d, 400)
+    j, p = jdelta.init(512, d, 400), pdelta.init(512, d, 400, "cpu")
     v = _corpus(rng, 300, d)
     ids = rng.permutation(400)[:300].astype(np.int32)
     ids[7] = ids[6]                          # a stale version in the store
@@ -303,7 +303,7 @@ def test_delta_codes_follow_eager_quantize(rng):
     v = rng.normal(size=(400, d)).astype(np.float32)
     ids = np.arange(400, dtype=np.int32)
     j = jdelta.insert(jdelta.init(512, d, 512), jnp.asarray(v), jnp.asarray(ids))
-    p = pdelta.insert(pdelta.init(512, d, 512), _t(v), _t(ids))
+    p = pdelta.insert(pdelta.init(512, d, 512, "cpu"), _t(v), _t(ids))
     eager = pquantize(_t(v), 8)
     np.testing.assert_array_equal(eager.data.numpy(),
                                   np.asarray(jquantize(jnp.asarray(v), 8).data))

@@ -9,7 +9,10 @@ prefix, ``partitioner.fit`` and the hop operator repeated bitwise (their
 sums run the segment-sum kernel), a bf16 checkpoint leaf round trip, and
 the row-sharded search: scores equal to the single layout's, one probe
 launch per shard, each shard's probe kernel at its ``cap_l`` against the
-plain version, the replica rebuilt after a maintain pass.
+plain version, the replica rebuilt after a maintain pass; the decode
+kernel at mixtral's G = 4 window shape, the MoE dispatch's bytes twice on
+the card, and a full-width DeepSeek-V2-Lite decode tick's capacity drops
+against the same tick on the CPU.
 
 Every test carries the ``gpu`` marker and skips itself when
 ``torch.cuda.is_available()`` is false (decided inside the test, so every
@@ -571,6 +574,112 @@ def test_decode_kernel_at_the_serving_shape():
                                valid).reshape(8, 24, 128)
     torch.cuda.synchronize()
     assert (out.float() - ref.float()).abs().max().item() <= 2 ** -6
+
+
+@pytest.mark.gpu
+def test_decode_kernel_at_the_mixtral_window_shape():
+    """mixtral-8x7b's decode over its 4,096-slot rolling window: B 1 and 8,
+    S 4096, Hkv 8, G 4, hd 128, bf16, the window full and wrapped (every
+    slot valid) and part-filled."""
+    _need_card()
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    g = torch.Generator(device="cuda").manual_seed(17)
+    for b, lengths in ((1, [4096]), (8, [4096, 4096, 100, 2000, 4095, 1,
+                                         3000, 4096])):
+        q, k, v, valid = _decode_case(g, b, 4096, 8, 4, 128, torch.bfloat16,
+                                      lengths)
+        before = dops.decode_attention.launches
+        out = dops.decode_attention(q, k, v, valid)
+        assert dops.decode_attention.launches == before + 1
+        ref = decode_attention_ref(q.reshape(b, 8, 4, 128), k, v,
+                                   valid).reshape(b, 32, 128)
+        torch.cuda.synchronize()
+        assert (out.float() - ref.float()).abs().max().item() <= 2 ** -6
+
+
+def _dsv2_moe_layer(dtype):
+    """One full-width DeepSeek-V2-Lite MoE layer's weights (64 experts of
+    2048 x 1408, the fp32 router) and its config."""
+    from repro_torch.common.params import Init
+    from repro_torch.configs import get_config
+    from repro_torch.layers.moe import init_moe
+    cfg = get_config("deepseek-v2-lite-16b")
+    return cfg, init_moe(cfg, Init(0, torch.device("cuda"), dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [8, 1536])
+def test_moe_dispatch_gives_the_same_bytes_twice(t):
+    """The dispatch's index_copy_ sends every dropped (token, choice) to
+    one discarded row, in no fixed order; the kept slots are unique, so
+    the layer's output is the same bits on every call (bf16, a decode
+    tick's 8 tokens with cap 1 and a 1,536-token prefill)."""
+    _need_card()
+    from repro_torch.layers import moe
+    cfg, p = _dsv2_moe_layer(torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(t)
+    x = (torch.randn((1, t, cfg.d_model), device="cuda", generator=g)
+         + torch.randn((cfg.d_model,), device="cuda", generator=g)
+         ).to(torch.bfloat16)
+    routings = []
+    first, _ = moe.moe_ffn(cfg, p, x, routings=routings)
+    again = [moe.moe_ffn(cfg, p, x)[0] for _ in range(3)]
+    torch.cuda.synchronize()
+    assert int((~routings[0].keep).sum()) > 0         # drops are exercised
+    for out in again:
+        assert torch.equal(out.view(torch.int16), first.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_dsv2_decode_tick_drop_share_equals_the_cpu():
+    """A full-width DeepSeek-V2-Lite cut to 2 layers (the dense first
+    layer and one MoE layer), fp32: 8 ragged prompts prefilled, then one
+    decode tick of the 8 slots on the card and on the CPU, the same
+    weights. The tick routes 8 tokens x 6 choices into 64 experts of
+    capacity 1: its drops equal the CPU's (unless a router near-tie under
+    1e-6, which another summation order may flip, is present), and the
+    logits agree to 1e-3 (fp32 on both, TF32 off)."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.layers import moe
+    from repro_torch.models import lm
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config("deepseek-v2-lite-16b").replace(n_layers=2,
+                                                     dtype="float32")
+    pc = lm.init_lm(cfg, seed=5)
+    pcpu = {"embed": pc["embed"].cpu(), "head": pc["head"].cpu(),
+            "final_ln": pc["final_ln"].cpu(),
+            "layers": [{k: ({n: t.cpu() for n, t in v.items()}
+                            if isinstance(v, dict) else v.cpu())
+                        for k, v in lp.items()} for lp in pc["layers"]]}
+    rng = np.random.default_rng(6)
+    lens = rng.integers(8, 40, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
+    toks = rng.integers(0, cfg.vocab_size, 8)
+    out = {}
+    for dev, params in (("cuda", pc), ("cpu", pcpu)):
+        cache = lm.init_cache(cfg, 8, 48, device=dev)
+        for i, prompt in enumerate(prompts):
+            _, c1 = lm.prefill(cfg, params,
+                               torch.as_tensor(prompt, device=dev)[None],
+                               margin=48 - len(prompt))
+            for shared, one in zip(cache, c1):
+                shared[:, i].copy_(one[:, 0])
+        routings = []
+        logits, _ = lm.decode_step(cfg, params, cache,
+                                   torch.as_tensor(toks, device=dev),
+                                   torch.as_tensor(lens, device=dev),
+                                   moe_routings=routings)
+        (r,) = routings
+        out[dev] = (r.keep.cpu(), r.idx.cpu(), float(moe.near_tie_gap(r)),
+                    logits.cpu())
+    (kc, ic, gap_c, lc), (kp, ip, gap_p, lp) = out["cuda"], out["cpu"]
+    assert kc.shape == (48,)
+    if min(gap_c, gap_p) >= 1e-6:
+        assert torch.equal(ic, ip)
+        assert torch.equal(kc, kp), (int((~kc).sum()), int((~kp).sum()))
+        assert (lc - lp).abs().max().item() <= 1e-3
 
 
 @pytest.mark.gpu

@@ -84,7 +84,7 @@ class TestRecency:
     def test_duplicate_ids_in_one_batch_last_wins(self):
         """One insert batch carrying two versions of an id: the later row
         wins (slot order breaks the version tie)."""
-        store = delta_mod.init(16, 8, max_ids=32)
+        store = delta_mod.init(16, 8, max_ids=32, device="cpu")
         v = np.zeros((2, 8), np.float32)
         v[0, 0] = 1.0
         v[1, 1] = 1.0
@@ -124,7 +124,7 @@ class TestRecency:
             idx.compact("text")
 
     def test_row_versions_stamped(self):
-        store = delta_mod.init(8, 4, max_ids=16)
+        store = delta_mod.init(8, 4, max_ids=16, device="cpu")
         store = delta_mod.insert(store, torch.ones((2, 4)),
                                  torch.tensor([0, 1], dtype=torch.int32))
         store = delta_mod.insert(store, torch.ones((1, 4)),

@@ -120,6 +120,22 @@ class TestTopKMerge:
         np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
         np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
 
+    @pytest.mark.parametrize("n", [12, 4100])
+    def test_top_k_signed_zero_order_equals_lax_top_k(self, n):
+        """``lax.top_k`` ranks ``+0.0`` above ``-0.0``; both of the port's
+        paths (stable sort up to 2048 columns, the O(N) path beyond) must
+        too — the merge property once failed on a lone ``-0.0``."""
+        rng = np.random.default_rng(0)
+        s = rng.integers(-1, 2, size=(2, n)).astype(np.float32)
+        zero = s == 0
+        s[zero] *= np.where(rng.random(zero.sum()) < 0.5, -1.0, 1.0)
+        k = min(n, 40)
+        got = top_k(_t(s), k)
+        want = jax.lax.top_k(jnp.asarray(s), k)
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+        np.testing.assert_array_equal(np.signbit(got[0].numpy()),
+                                      np.signbit(np.asarray(want[0])))
+
 
 def _stable_pair(x, n_stable):
     """The reference's stable store over x[:n_stable] and the port's over
@@ -143,7 +159,7 @@ class TestDelta:
         n = len(x)
         n_stable = max(n // 2, 1)
         _, stable, over = _stable_pair(x, n_stable)
-        d = delta_mod.init(16, x.shape[1], max_ids=n)
+        d = delta_mod.init(16, x.shape[1], max_ids=n, device="cpu")
         if n > n_stable:
             d = delta_mod.insert(d, _t(x[n_stable:]),
                                  torch.arange(n_stable, n, dtype=torch.int32))
@@ -168,7 +184,8 @@ class TestDelta:
         j, p, _ = _stable_pair(x, 3)
         jd = jdelta.insert(jdelta.init(16, 4, max_ids=6), jnp.asarray(x[3:]),
                            jnp.arange(3, 6))
-        pd = delta_mod.insert(delta_mod.init(16, 4, max_ids=6), _t(x[3:]),
+        pd = delta_mod.insert(delta_mod.init(16, 4, max_ids=6, device="cpu"),
+                              _t(x[3:]),
                               torch.arange(3, 6, dtype=torch.int32))
         jv, ji = jdelta.search_with_delta(j, jd, jnp.asarray(x[:2]),
                                           n_probe=2, k=3)

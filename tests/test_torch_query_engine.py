@@ -267,7 +267,8 @@ class TestEdgeTypeMask:
         # 0 -t0-> 1 -t0-> 2 ; 0 -t1-> 3 ; 3 -t0-> 4
         return graph_from_edges(5, np.array([0, 1, 0, 3]),
                                 np.array([1, 2, 3, 4]),
-                                edge_type=np.array([0, 0, 1, 0]))
+                                edge_type=np.array([0, 0, 1, 0]),
+                                device="cpu")
 
     def test_masked_types_route_no_mass(self, toy):
         seeds = torch.zeros((5,), dtype=torch.float32)
@@ -296,7 +297,7 @@ class TestEdgeTypeMask:
                                       np.asarray(b.per_hop))
         # the LUT only spans the requested ids; types beyond it (here
         # type 1) are excluded by the traversal's safe gather
-        np.testing.assert_array_equal(np.asarray(edge_type_lut([0])), [1.0])
+        np.testing.assert_array_equal(np.asarray(edge_type_lut([0], "cpu")), [1.0])
 
     def test_multi_hop_batch_typed(self, toy):
         ids = torch.tensor([[0]], dtype=torch.int32)
@@ -316,13 +317,13 @@ class TestEdgeTypeMask:
 
     def test_edge_type_lut_rejects_bad_input(self):
         with pytest.raises(ValueError, match="empty"):
-            edge_type_lut([])
+            edge_type_lut([], "cpu")
         with pytest.raises(ValueError, match="non-negative"):
-            edge_type_lut([-1])
+            edge_type_lut([-1], "cpu")
         # a float list is a mask spelled wrong, not a set of type ids —
         # reinterpreting it would silently invert the filter
         with pytest.raises(ValueError, match="mask"):
-            edge_type_lut([1.0, 0.0])
+            edge_type_lut([1.0, 0.0], "cpu")
 
 
 class TestExplain:

@@ -45,9 +45,9 @@ MAX_SEQ = 48
 N = 400
 
 
-def _lm_pair(arch="phi4-mini-3.8b"):
+def _lm_pair(arch="phi4-mini-3.8b", **kw):
     # fp32: batched-vs-single decode must agree to the argmax
-    jcfg = jsmoke(arch).replace(dtype="float32")
+    jcfg = jsmoke(arch).replace(dtype="float32", **kw)
     params, _ = jlm.init_lm(jcfg, jax.random.PRNGKey(0))
     pp = lm_params_from_jax(jax.tree.map(np.asarray, params), device="cpu")
     return jcfg, params, LMConfig(**dataclasses.asdict(jcfg)), pp
@@ -79,11 +79,14 @@ def _sequential(cfg, params, prompt, n):
 
 
 # ------------------------------------------------------------ per-slot decode
-@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "qwen2-72b"])
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "qwen2-72b",
+                                  "deepseek-v2-lite-16b"])
 def test_ragged_batch_matches_single_rows(arch):
     """lm.decode_step with a (B,) position vector: each row behaves as if
-    decoded alone at its own position."""
-    _, _, cfg, params = _lm_pair(arch)
+    decoded alone at its own position. Capacity factor 16, as in the
+    reference's test: at the default capacity a MoE row's output depends
+    on its batch (capacity drops), by the reference's semantics."""
+    _, _, cfg, params = _lm_pair(arch, capacity_factor=16.0)
     rng = np.random.default_rng(1)
     la, lb = 5, 9
     pa = torch.as_tensor(rng.integers(0, cfg.vocab_size, la))
@@ -294,6 +297,32 @@ def test_engine_refuses_maintenance_it_cannot_run(lm_setup):
     assert drv.ticks >= 4 and drv.runs == drv.ticks // 4
     assert eng.stats["maintenance_runs"] == drv.runs
     assert _engine(cfg, params, pi, maintenance_interval=0).maintenance is None
+
+
+def test_rag_engine_serves_mla_moe_like_reference(index_pair):
+    """DeepSeek-V2-Lite's smoke widths (MLA cache, a dense first layer,
+    MoE with a shared expert, the default capacity factor, so a tick's
+    slots share expert capacity) in the engine over the index, with
+    maintenance paced every 4th tick as for phi4-mini: the same token
+    streams as the JAX engine given the same retrievals."""
+    jcfg, jp, cfg, params = _lm_pair("deepseek-v2-lite-16b")
+    c, ji, _ = index_pair
+    _, _, pi = _index_pair()               # fresh: the passes may act on it
+    ecfg = dict(n_slots=3, max_seq=64, retrieve_k=4, hops=1)
+    j = JRAGEngine(jcfg, jp, ji, JEngineConfig(**ecfg, maintenance_interval=0))
+    p = _engine(cfg, params, pi, **ecfg)
+    assert p.maintenance is not None and p.maintenance.interval == 4
+    assert p._cache[0].shape == (cfg.n_layers, 3, 64, cfg.kv_lora_rank)
+    ids = p.retrieve(_queries(c, 5, seed=8))
+    rng = np.random.default_rng(9)
+    for i in range(5):
+        prompt = rng.integers(0, cfg.vocab_size, 4 + 3 * i).astype(np.int32)
+        for eng in (j, p):
+            eng.submit(i, prompt, retrieved_ids=ids[i],
+                       max_new_tokens=2 + i % 4)
+    assert p.run_to_completion() == j.run_to_completion()
+    assert p.stats["ticks"] == j.stats["ticks"] >= 4
+    assert p.stats["maintenance_runs"] == p.stats["ticks"] // 4
 
 
 def test_rag_engine_matches_reference_engine(lm_setup, index_pair):
