@@ -1,7 +1,8 @@
 """Chip smoke: builds the port's CUDA kernels and drives HMGI's main paths
 on one NVIDIA GPU (written for an H100): hybrid retrieval, RAG serving
 over the retrieval index with phi4-mini and with DeepSeek-V2-Lite at full
-width and depth, and EGNN full-graph inference at the ogbn-products shape.
+width and depth, EGNN full-graph inference at the ogbn-products shape,
+and EGNN training (full graph, minibatch, molecule).
 
     python3 chip_smoke.py
 
@@ -144,11 +145,27 @@ Phases (each prints one line; any failure exits non-zero):
                 65,536-node copy matches the CPU, and that the molecule
                 shape (128 graphs of 30 nodes / 64 edges as one
                 disjoint-union graph) matches a per-graph loop on the CPU.
+     gnn_train — EGNN training with AdamW through make_train_step and
+                Trainer: (a) on phase 7's graph and LocalExec, one warm-up
+                and 4 timed steps with a checkpoint every 2 (step ms
+                beside the forward's, loss, grad norm, peak memory, the
+                segment sum's launches a step, forward and backward,
+                against layers x (chunks + 2 x blocks), one profiled
+                step); a step, its parts and half the chunk budget from
+                the same state give the same bits; a run whose step 3
+                fails restores the step-2 checkpoint and equals the
+                uninterrupted run at step 4; the kernel at one block's
+                transpose shape against its plain version, timed; (b) one
+                step on a 65,536-node copy, gradients and new params
+                against the CPU; (c) minibatch_lg: a 232,965-node,
+                114,615,892-edge host graph, the neighbour sampler's CSR,
+                4 steps of 1,024 fanout-(15, 10) trees (sampler ms and
+                step ms apart); (d) one molecule step.
   8. the kernels line, then the contract line. The segment sum's launches
      there count the index path's too (k-means cluster sums, hop
-     out-weights), read phase by phase; the scans' count the index phases'
-     and both RAG cells' retrievals, the decode kernel's the phi4-mini cell
-     and the mixtral check.
+     out-weights), read phase by phase, and the training runs'; the
+     scans' count the index phases' and both RAG cells' retrievals, the
+     decode kernel's the phi4-mini cell and the mixtral check.
 
 It imports only torch, numpy and the port (``src/repro_torch``), and needs a
 CUDA device: without one it exits 1 and prints no result. ``--durable-child
@@ -242,6 +259,15 @@ SEG_FP32_ATOL = 1e-4
 # EGNN, card vs CPU (same weights, fp32, TF32 off): matmuls and sums in
 # another order over 4 layers, relative to max(1, max |logit|)
 GNN_CPU_RTOL = 1e-3
+# the GNN training cells: one warm-up and TRAIN_STEPS timed Trainer steps at
+# ogbn-products with a checkpoint every TRAIN_CKPT_EVERY steps, a step
+# failure injected at TRAIN_FAIL_AT in the restart run; card vs CPU on a
+# TRAIN_CPU_N-node copy; minibatch_lg (reddit-sized host graph, d_feat 602
+# as the reference's dry run uses) with MB_ROOTS roots a batch, fanouts
+# MB_FANOUTS, MB_STEPS steps
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 2, 3
+TRAIN_CPU_N = 65_536
+MB_ROOTS, MB_FANOUTS, MB_STEPS, MB_D_FEAT = 1024, (15, 10), 4, 602
 
 
 def line(tag: str, **kw) -> None:
@@ -3145,7 +3171,8 @@ def measure_segment(cfg, params, g, ex, small_err: float) -> dict:
 def phase_gnn(small_err: float):
     """EGNN full-graph inference at the ogb_products shape, then the
     molecule cell; returns (kernel measurement, launches of the
-    full-graph run)."""
+    full-graph run, (params, graph, LocalExec, forward p50 ms) for the
+    training phase)."""
     from repro_torch.configs import get_config, get_shapes
     from repro_torch.kernels.segment_reduce import ops as sops
     from repro_torch.models.gnn import driver as gd
@@ -3215,7 +3242,6 @@ def phase_gnn(small_err: float):
           "gnn: a forward with half the chunk budget differs in its bits "
           f"(max |d| {float((lh - logits[-1]).abs().max())})")
     del half, logits, lh
-    del ex, g
     torch.cuda.empty_cache()
 
     # (d) a 65,536-node copy, ~25 in-edges per node: card vs CPU
@@ -3265,7 +3291,374 @@ def phase_gnn(small_err: float):
              launches_per_batch=mol_launches,
              loss_sum=float(msums["loss_sum"]), cpu_loop_loss_sum=loop,
              abs_diff=mol_err))
-    return kern, launches
+    return kern, launches, (params, g, ex, p50)
+
+
+def grads_of(cfg, kind, params, batch):
+    """(loss, grads in leaf order, forward launches, backward launches) of
+    one batch, the way a train step takes them."""
+    from repro_torch.common.tree import leaves, tree_map
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.models.gnn import driver as gd
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    l0 = sops.segment_sum_csr.launches
+    loss, _ = gd.train_loss(cfg, kind, live, batch)
+    l1 = sops.segment_sum_csr.launches
+    grads = torch.autograd.grad(loss, leaves(live))
+    return loss.detach(), grads, l1 - l0, sops.segment_sum_csr.launches - l1
+
+
+def adamw_from(opt_cfg, grads, opt_state, params):
+    """AdamW's new params from grads in leaf order (``grads_of``)."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.train.optimizer import adamw_update
+    it = iter(grads)
+    return adamw_update(opt_cfg, tree_map(lambda _: next(it), params),
+                        opt_state, params)[0]
+
+
+def train_launches_per_step(layers: int, n_edges: int, chunks: int) -> int:
+    """Segment-sum launches of one train step: the forward's one per chunk
+    and layer, the backward's two gather transposes per message block and
+    layer (``LocalExec``'s block: the valid edges rounded up to a power of
+    two, at most ``MSG_BLOCK_EDGES``)."""
+    from repro_torch.models.gnn import common as gc
+    block = min(gc.MSG_BLOCK_EDGES, 1 << max(0, n_edges - 1).bit_length())
+    return layers * (chunks + 2 * -(-n_edges // block))
+
+
+def trees_equal(a, b) -> bool:
+    from repro_torch.common.tree import leaves
+    return all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
+def rel_err(got, want) -> float:
+    """The largest |got - want| over the pairs of leaves, each relative to
+    max(1, max |want|) of its leaf."""
+    return max(float((a.cpu() - b.cpu()).abs().max())
+               / max(1.0, float(b.abs().max())) for a, b in zip(got, want))
+
+
+def train_run(cfg, kind, params, stream, total: int, ckpt_dir: str,
+              ckpt_every: int, to_device=None, fail_at=None):
+    """``Trainer.run`` of ``make_train_step(cfg, kind)``: (trainer, each
+    step's metrics, each attempt's new params) with the metrics' tensors
+    unread until the run ends."""
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.train.optimizer import init_adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    step = gd.make_train_step(cfg, kind)
+    seen, firsts = [], []
+
+    def recorded(p, o, b):
+        out = step(p, o, b)
+        seen.append(out[2])
+        firsts.append(out[0])
+        return out
+
+    tcfg = TrainerConfig(total_steps=total, checkpoint_every=ckpt_every,
+                         checkpoint_dir=ckpt_dir, log_every=1)
+    tr = Trainer(tcfg, recorded, stream, params, init_adamw(params),
+                 to_device)
+    injected = {"n": 0}
+
+    def inject(s):
+        if s == fail_at and not injected["n"]:
+            injected["n"] = 1
+            raise RuntimeError(f"injected failure at step {s}")
+
+    tr.run(fail_injector=inject if fail_at is not None else None)
+    return tr, seen, firsts
+
+
+def measure_transpose(ex) -> dict:
+    """segment_sum_csr at the backward's shape: one message block's source
+    transpose (``block`` cotangent rows of the payload's width, grouped by
+    a stable sort of the block's sources, into all N rows) against its
+    plain version, then timed beside its bound."""
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.kernels.segment_reduce.ref import segment_sum_csr_ref
+    rowptr, perm = ex._src_csr(0)
+    d = 64 + 3                                  # EGNN's payload [h, x]
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    cot = torch.randn((ex.block, d), device="cuda", generator=gen)
+    got = sops.segment_sum_csr(cot, rowptr, perm)
+    want = segment_sum_csr_ref(cot, rowptr, perm)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(err <= SEG_FP32_ATOL, f"segment_sum transpose: max |d| {err}")
+    e, n = perm.numel(), ex.n
+    nbytes = e * d * 4 + e * 4 + (n + 1) * 4 + n * d * 4
+    bms, bby = bound(float(e * d), nbytes)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda").zero_
+    kms = cuda_ms(lambda: sops.segment_sum_csr(cot, rowptr, perm), 10, flush)
+    pms = cuda_ms(lambda: segment_sum_csr_ref(cot, rowptr, perm), 3, flush)
+    lib = torch.zeros_like(got)
+    src = ex.src[:e].long()
+    lms = cuda_ms(lambda: lib.zero_().index_add_(0, src, cot[:e]), 10, flush)
+    res = dict(shape=dict(E=e, d=d, n=n, dtype="float32", perm=True),
+               max_abs_err=err, ms=kms, plain_ms=pms, library_ms=lms,
+               library="zero_ + index_add_(0, src, cot) (atomics)",
+               bound_ms=bms, bound_by=bby, gbytes=nbytes / 1e9)
+    line("kernel.segment_sum.transpose", **res)
+    del cot, got, want, lib
+    return res
+
+
+class ConstantStream:
+    """The launcher's ``_GraphStream``: the same batch at every step."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def batch_at(self, step):
+        return self.batch
+
+
+class SampledStream:
+    """Minibatch batches drawn on the host: step s samples ``MB_ROOTS``
+    roots and their fanout trees from generators seeded by (seed, s), so a
+    restored run reads the batches an uninterrupted one read."""
+
+    def __init__(self, sampler, positions: np.ndarray, seed: int = 0):
+        self.sampler, self.pos, self.seed = sampler, positions, seed
+        self.sample_ms = []
+
+    def batch_at(self, step):
+        t0 = time.perf_counter()
+        rng = np.random.default_rng([self.seed, step])
+        roots = rng.choice(self.sampler.n_nodes, MB_ROOTS, replace=False)
+        self.sampler.rng = np.random.default_rng([self.seed, step, 1])
+        b = self.sampler.sample(roots, MB_FANOUTS)
+        safe = np.clip(b.nodes, 0, self.sampler.n_nodes - 1)
+        pos = self.pos[safe] * (b.nodes >= 0)[..., None]
+        self.sample_ms.append((time.perf_counter() - t0) * 1e3)
+        return b, pos
+
+
+def minibatch_to_card(sampled):
+    from repro_torch.models.gnn.common import FlatGraph
+    b, pos = sampled
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+
+    g = FlatGraph(feats=t(b.feats), positions=t(pos.astype(np.float32)),
+                  edge_src=t(b.edge_src), edge_dst=t(b.edge_dst),
+                  edge_mask=t(b.edge_mask), node_mask=t(b.nodes >= 0),
+                  labels=torch.zeros(b.nodes.shape, dtype=torch.int32,
+                                     device="cuda"))
+    return {"graph": g, "labels": t(b.labels)}
+
+
+def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
+    """EGNN training: (a) Trainer steps at ogbn-products on phase_gnn's
+    graph and LocalExec, (b) one step on a copy against the CPU, (c) the
+    minibatch_lg cell through the sampler, (d) one molecule step. Returns
+    the segment-sum launches of the cells' runs (the two Trainer runs and
+    the molecule step; the checks' extra steps not counted)."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.common.tree import leaves, tree_finite
+    from repro_torch.configs import get_config, get_shapes
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.models.gnn.common import FlatGraph, LocalExec
+    from repro_torch.sparse.sampler import NeighborSampler, sizes_for_fanout
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    phase_t0 = time.perf_counter()
+    cfg = get_config("egnn")
+    dims = {s.name: s.dims for s in get_shapes("egnn")}
+    root = tempfile.mkdtemp(prefix="gnn_train_")
+    opt_cfg = AdamWConfig(lr=1e-3)
+    try:
+        # (a) full graph, through Trainer, a checkpoint every 2 steps
+        blocks = -(-ex.n_edges // ex.block)
+        fwd_formula = cfg.n_layers * len(ex.chunks)
+        bwd_formula = train_launches_per_step(cfg.n_layers, ex.n_edges,
+                                              len(ex.chunks)) - fwd_formula
+        batch = {"graph": g, "exec": ex}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sops.segment_sum_csr.launches = 0
+        t0 = time.perf_counter()
+        tr, seen, firsts = train_run(cfg, "full_graph", params,
+                                     ConstantStream(batch), 1 + TRAIN_STEPS,
+                                     os.path.join(root, "plain"),
+                                     TRAIN_CKPT_EVERY)
+        run_s = time.perf_counter() - t0
+        full_launches = sops.segment_sum_csr.launches
+        peak = torch.cuda.max_memory_allocated()
+        steps_ms = [h["time_s"] * 1e3 for h in tr.history]
+        losses = [float(m["loss"]) for m in seen]
+        gnorms = [float(m["grad_norm"]) for m in seen]
+        lrs = [float(m["lr"]) for m in seen]
+        check(full_launches == (1 + TRAIN_STEPS) * (fwd_formula
+                                                    + bwd_formula),
+              f"gnn_train: {full_launches} segment-sum launches for "
+              f"{1 + TRAIN_STEPS} steps of {fwd_formula} + {bwd_formula}")
+        check(all(np.isfinite(losses + gnorms))
+              and bool(tree_finite(tr.params)),
+              f"gnn_train: a loss or gradient is not finite ({losses}, "
+              f"{gnorms})")
+        opt0 = init_adamw(params)
+        first = firsts[0]
+        del firsts
+        # a profiled step from the same params and state, then the step's
+        # parts (forward, backward, AdamW), with the launches of each
+        prof_out, prof = profile_once(
+            lambda: gd.make_train_step(cfg, "full_graph")(params, opt0,
+                                                          batch), top=10,
+            share_of="segment_sum_kernel")
+        _, grads, fwd_l, bwd_l = grads_of(cfg, "full_graph", params, batch)
+        parts = adamw_from(opt_cfg, grads, opt0, params)
+        del grads
+        torch.cuda.synchronize()
+        check(fwd_l == fwd_formula and bwd_l == bwd_formula,
+              f"gnn_train: a step launched {fwd_l} + {bwd_l}, the formula "
+              f"{fwd_formula} + {bwd_formula}")
+        same_twice = trees_equal(prof_out[0], first) and trees_equal(parts,
+                                                                     first)
+        check(same_twice, "gnn_train: steps from the same params and state "
+                          "differ in their bits")
+        del prof_out, parts
+        half = LocalExec(g, GNN_CHUNK_EDGES // 2)
+        half_chunks = len(half.chunks)
+        hp = gd.make_train_step(cfg, "full_graph")(
+            params, opt0, {"graph": g, "exec": half})[0]
+        check(trees_equal(hp, first), "gnn_train: a step with half the chunk "
+                                      "budget differs in its bits")
+        del half, hp
+        # restart contract: a failure at step 3 restores the step-2
+        # checkpoint; at step 4 the state equals the plain run's
+        fr, _, _ = train_run(cfg, "full_graph", params, ConstantStream(batch),
+                             4, os.path.join(root, "faulty"),
+                             TRAIN_CKPT_EVERY, fail_at=TRAIN_FAIL_AT)
+        (rp, ro), rstep, _ = restore_checkpoint(
+            os.path.join(root, "plain"), (params, opt0), step=4)
+        restart_ok = (rstep == 4 and fr.step == 4
+                      and trees_equal(fr.params, rp)
+                      and trees_equal(fr.opt_state, ro))
+        check(restart_ok, "gnn_train: the restarted run's state at step 4 "
+                          "differs from the uninterrupted run's")
+        del fr, rp, ro
+        torch.cuda.empty_cache()
+        line("gnn_train", cell="egnn-ogbn-products-train",
+             model=cfg.arch_id, layers=cfg.n_layers, d_hidden=cfg.d_hidden,
+             dtype=cfg.dtype, nodes=g.n_nodes, edges=ex.n_edges,
+             chunks=len(ex.chunks), msg_blocks=blocks, block_edges=ex.block,
+             steps=1 + TRAIN_STEPS, warmup_steps=1,
+             step_ms=dict(p50=float(np.percentile(steps_ms[1:], 50)),
+                          p99=float(np.percentile(steps_ms[1:], 99)),
+                          all=steps_ms),
+             forward_ms_p50=forward_ms, trainer_run_s=run_s,
+             loss=losses, grad_norm=gnorms, lr=lrs,
+             peak_mem_gib=peak / 2 ** 30,
+             segment_sum_per_step=dict(forward=fwd_l, backward=bwd_l,
+                                       formula=dict(
+                                           forward="layers x chunks",
+                                           backward="layers x 2 x blocks")),
+             trainer_launches=full_launches, step_profile=prof)
+        measure_transpose(ex)
+
+        # (b) one step on a smaller copy, card vs CPU
+        f = g.feats.shape[1]
+        small = gd.make_flat_graph(TRAIN_CPU_N, TRAIN_CPU_N * 25, f, seed=1)
+        sb = {"graph": small}
+        _, cg, _, _ = grads_of(cfg, "full_graph", params, sb)
+        cpu_p = _params_to(params, "cpu")
+        cb = {"graph": FlatGraph(*(t.cpu() for t in small))}
+        t0 = time.perf_counter()
+        _, hg, _, _ = grads_of(cfg, "full_graph", cpu_p, cb)
+        cpu_step_s = time.perf_counter() - t0
+        grad_err = rel_err(cg, hg)
+        param_err = rel_err(
+            leaves(adamw_from(opt_cfg, cg, init_adamw(params), params)),
+            leaves(adamw_from(opt_cfg, hg, init_adamw(cpu_p), cpu_p)))
+        check(grad_err <= GNN_CPU_RTOL and param_err <= GNN_CPU_RTOL,
+              f"gnn_train: {TRAIN_CPU_N}-node step, card vs CPU: gradients "
+              f"{grad_err}, new params {param_err} (relative)")
+        del small, sb, cb, cg, hg
+
+        # (c) minibatch_lg: host graph, the sampler, Trainer steps
+        md = dims["minibatch_lg"]
+        n_mb, e_mb = md["n_nodes"], md["n_edges"]
+        t0 = time.perf_counter()
+        hg_ = gd.make_flat_graph(n_mb, e_mb, MB_D_FEAT, seed=2, device="cpu")
+        data_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sampler = NeighborSampler(n_mb, hg_.edge_src.numpy(),
+                                  hg_.edge_dst.numpy(), hg_.feats.numpy(),
+                                  hg_.labels.numpy(), seed=0)
+        csr_s = time.perf_counter() - t0
+        stream = SampledStream(sampler, hg_.positions.numpy())
+        mparams = gd.init_model(cfg, 0, MB_D_FEAT)
+        n_sub, n_edge = sizes_for_fanout(MB_FANOUTS)
+        # every tree edge is valid (no node of this graph lacks in-edges)
+        # and a batch is one chunk
+        mb_formula = train_launches_per_step(cfg.n_layers, MB_ROOTS * n_edge,
+                                             1)
+        torch.cuda.reset_peak_memory_stats()
+        sops.segment_sum_csr.launches = 0
+        mtr, mseen, _ = train_run(cfg, "minibatch", mparams, stream, MB_STEPS,
+                                  os.path.join(root, "minibatch"), MB_STEPS,
+                                  to_device=minibatch_to_card)
+        mb_launches = sops.segment_sum_csr.launches
+        mpeak = torch.cuda.max_memory_allocated()
+        mlosses = [float(m["loss"]) for m in mseen]
+        check(mb_launches == MB_STEPS * mb_formula
+              and np.isfinite(mlosses + [float(m["grad_norm"])
+                                         for m in mseen]).all(),
+              f"gnn_train minibatch: launches {mb_launches} (formula "
+              f"{MB_STEPS * mb_formula}), losses {mlosses}")
+        mms = [h["time_s"] * 1e3 for h in mtr.history]
+        line("gnn_train.minibatch", cell="egnn-minibatch-lg-train",
+             host_graph=dict(nodes=n_mb, edges=e_mb, d_feat=MB_D_FEAT),
+             data_s=data_s, sampler_csr_build_s=csr_s, roots=MB_ROOTS,
+             fanouts=list(MB_FANOUTS), n_sub=n_sub, n_edge=n_edge,
+             batch_nodes=MB_ROOTS * n_sub, batch_edges=MB_ROOTS * n_edge,
+             steps=MB_STEPS, sampler_ms=stream.sample_ms,
+             step_ms=dict(p50=float(np.percentile(mms[1:], 50)),
+                          p99=float(np.percentile(mms[1:], 99)), all=mms),
+             loss=mlosses, peak_mem_gib=mpeak / 2 ** 30,
+             launches=mb_launches, launches_per_step=mb_launches / MB_STEPS)
+        del sampler, hg_, stream, mtr, mparams
+
+        # (d) one molecule step
+        mo = dims["molecule"]
+        molp = gd.init_model(cfg, 0, 4, n_out=1)
+        mb, energy = gd.make_molecule_batch(mo["batch"], mo["n_nodes"],
+                                            mo["n_edges"], seed=0)
+        mstep = gd.make_train_step(cfg, "molecule")
+        mbatch = {"graph": mb, "energy": energy}
+        sops.segment_sum_csr.launches = 0
+        mout = mstep(molp, init_adamw(molp), mbatch)
+        torch.cuda.synchronize()
+        mol_launches = sops.segment_sum_csr.launches
+        check(mol_launches == train_launches_per_step(
+                  cfg.n_layers, mo["batch"] * mo["n_edges"], 1)
+              and bool(torch.isfinite(mout[2]["loss"]))
+              and bool(tree_finite(mout[0])),
+              f"gnn_train molecule: {mol_launches} launches, loss "
+              f"{float(mout[2]['loss'])}")
+        m50, m99 = host_ms(lambda: mstep(molp, init_adamw(molp), mbatch), 10)
+        line("gnn_train.checks", steps_from_same_state_bitwise=same_twice,
+             half_budget_bitwise=True, half_budget_chunks=half_chunks,
+             restart_at_step=TRAIN_FAIL_AT, restored_from_step=2,
+             restart_bitwise=restart_ok, launches_match_formula=True,
+             card_vs_cpu=dict(nodes=TRAIN_CPU_N, edges=TRAIN_CPU_N * 25,
+                              grad_rel_err=grad_err,
+                              new_param_rel_err=param_err,
+                              tolerance_rel=GNN_CPU_RTOL,
+                              cpu_grad_s=cpu_step_s),
+             molecule=dict(cell="egnn-molecule-train", batch=mo["batch"],
+                           n_nodes=mo["n_nodes"], n_edges=mo["n_edges"],
+                           step_ms_p50=m50, step_ms_p99=m99,
+                           launches_per_step=mol_launches,
+                           loss=float(mout[2]["loss"])),
+             phase_s=time.perf_counter() - phase_t0)
+        return full_launches + mb_launches + mol_launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main():
@@ -3334,7 +3727,9 @@ def main():
         # the delta grew at ingest: hold and time the delta kernel at the
         # size the serve_1m searches actually scanned
         kern["shared"] = measure_shared(delta_cap, delta_live)
-    kern["segment"], gnn_launches = phase_gnn(small_seg_err)
+    kern["segment"], gnn_launches, trained = phase_gnn(small_seg_err)
+    train_launches = phase_gnn_train(*trained)
+    del trained
     line("launches", vector=dict(zip(("probe", "shared"), after_vector)),
          maint={"probe": after_maint[0] - after_vector[0],
                 "shared": after_maint[1] - after_vector[1]},
@@ -3350,6 +3745,7 @@ def main():
          facade=facade, rag=rag, rag_dsv2=dsv2,
          lm_mixtral={"decode": mixtral_decode},
          gnn={"segment_sum": gnn_launches},
+         gnn_train={"segment_sum": train_launches},
          index_path_segment_sum=dict(seg, total=index_seg))
     src = "src/repro_torch/kernels/ivf_topk/csrc/ivf_topk.cu"
     kernels = [
@@ -3372,7 +3768,8 @@ def main():
                     "segment_reduce.cu",
              replaces="src/repro/kernels/segment_reduce/"
                       "segment_reduce.py:50",
-             launches=gnn_launches + index_seg, **kern["segment"]),
+             launches=gnn_launches + train_launches + index_seg,
+             **kern["segment"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

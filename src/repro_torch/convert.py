@@ -28,6 +28,11 @@ same function.
 ``gnn_params_from_jax(tree, device)`` takes the reference ``init_model``'s
 GNN params with numpy leaves and returns the port's, in the same layout
 (EGNN: ``enc``, ``layers[i].{phi_e,phi_x,phi_h}.{w0,b0,w1,b1}``, ``head``).
+
+``adamw_state_from_jax(state, device)`` takes a reference ``AdamWState``
+(``step``, ``mu``, ``nu``; numpy leaves) and returns the port's
+``train.optimizer.AdamWState``: the int32 step and the fp32 moments in the
+params' layout, so a run carries across between steps.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from repro_torch.configs import get_config
 from repro_torch.common.params import resolve_device
 from repro_torch.configs.base import HMGIConfig
 from repro_torch.core.index import HMGIIndex
+from repro_torch.train.optimizer import AdamWState
 
 
 def index_from_jax_state(tree: Dict[str, np.ndarray], meta: Dict[str, object],
@@ -97,3 +103,14 @@ def gnn_params_from_jax(tree: Dict[str, object], device=None) -> Dict[str, objec
     device."""
     device = resolve_device(device, "gnn_params_from_jax")
     return _map(tree, lambda a: _leaf(a, device))
+
+
+def adamw_state_from_jax(state, device=None):
+    """state: a reference ``AdamWState`` (or a ``(step, mu, nu)`` tuple)
+    with numpy leaves. device: None = the CUDA device."""
+    device = resolve_device(device, "adamw_state_from_jax")
+    step, mu, nu = state
+    return AdamWState(
+        step=_leaf(np.asarray(step, np.int32), device),
+        mu=_map(mu, lambda a: _leaf(a, device)),
+        nu=_map(nu, lambda a: _leaf(a, device)))

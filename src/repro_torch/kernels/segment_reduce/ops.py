@@ -16,6 +16,13 @@ raise ``ValueError`` for an input the kernel does not take.
 
 ``segment_sum_csr.launches`` counts kernel launches and nothing else; both
 entry points launch through it.
+
+Both are differentiable (``_SegmentSumCSR``, on either device) when the
+messages need a gradient: the backward is the transpose of the sum, a
+gather of each message's cotangent row by its segment, 0 for a message no
+segment reads (the reference's drop rule). Under grad, ``out=`` is refused
+(a raw-pointer write into a caller's buffer carries no graph): the caller
+takes each call's own (n, d) result and assembles them.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.segment_reduce.ref import (
-    csr_from_ids, segment_sum_csr_ref, segment_sum_ref)
+    csr_from_ids, segment_sum_csr_ref)
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "segment_reduce.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -94,6 +101,50 @@ def _check(messages, rowptr, perm, out, seg_lo) -> None:
                          f"device is cuda:{torch.cuda.current_device()}")
 
 
+def csr_transpose(grad: torch.Tensor, rowptr: torch.Tensor,
+                  perm: Optional[torch.Tensor], n_messages: int
+                  ) -> torch.Tensor:
+    """The transpose of ``segment_sum_csr``: (n, d) cotangents of the sums
+    -> (n_messages, d), message ``perm[j]`` (or ``j``) getting the row of
+    the segment whose range holds position ``j``, and 0 where no range
+    does. ``perm`` must name each message at most once (``csr_from_ids``'s
+    does). Gathers only, so it has the same bits on every run."""
+    n = rowptr.numel() - 1
+    n_pos = n_messages if perm is None else perm.numel()
+    if n == 0:
+        rows = grad.new_zeros((n_pos, grad.shape[1]))
+    else:
+        pos = torch.arange(n_pos, device=grad.device)
+        seg = torch.searchsorted(rowptr.to(torch.int64), pos, right=True) - 1
+        ok = (seg >= 0) & (seg < n)
+        rows = torch.where(ok[:, None],
+                           grad.index_select(0, seg.clamp(0, n - 1)), 0.0)
+    if perm is None:
+        return rows
+    full = grad.new_zeros((n_messages, grad.shape[1]))
+    return full.index_copy_(0, perm.to(torch.int64), rows)
+
+
+class _SegmentSumCSR(torch.autograd.Function):
+    """``segment_sum_csr`` with a gradient for the messages."""
+
+    @staticmethod
+    def forward(ctx, messages, rowptr, perm):
+        ctx.save_for_backward(rowptr, perm)
+        ctx.n_messages = messages.shape[0]
+        return _segment_sum_csr(messages, rowptr, perm, None, 0)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        rowptr, perm = ctx.saved_tensors
+        return csr_transpose(grad, rowptr, perm, ctx.n_messages), None, None
+
+
+def _needs_grad(messages: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and messages.requires_grad
+
+
 def segment_sum_csr(messages: torch.Tensor, rowptr: torch.Tensor,
                     perm: Optional[torch.Tensor] = None,
                     out: Optional[torch.Tensor] = None,
@@ -104,10 +155,21 @@ def segment_sum_csr(messages: torch.Tensor, rowptr: torch.Tensor,
     rowptr[i+1])} messages[perm[j] if perm else j]`` (fp32 sum in increasing
     j, rounded once) and returns ``out``; with ``out`` None, a new (n, d)
     tensor (``seg_lo`` must then be 0). The offsets are trusted: reading
-    them to check would wait for the device."""
+    them to check would wait for the device. Messages that need a gradient
+    take the differentiable route, which refuses ``out``."""
     if rowptr.dim() != 1 or rowptr.numel() < 1:
         raise ValueError(f"segment_sum_csr: rowptr must be (n+1,), got "
                          f"{tuple(rowptr.shape)}")
+    if _needs_grad(messages):
+        if out is not None or seg_lo:
+            raise ValueError("segment_sum_csr: out=/seg_lo= take no gradient; "
+                             "under grad call it without out and assemble "
+                             "the results")
+        return _SegmentSumCSR.apply(messages, rowptr, perm)
+    return _segment_sum_csr(messages, rowptr, perm, out, seg_lo)
+
+
+def _segment_sum_csr(messages, rowptr, perm, out, seg_lo) -> torch.Tensor:
     n = rowptr.numel() - 1
     if out is None:
         if seg_lo:
@@ -146,7 +208,7 @@ def segment_sum(messages: torch.Tensor, seg_ids: torch.Tensor,
     """messages (E, d) -> (n_segments, d) in the messages' dtype; ids < 0
     or >= n_segments drop (the reference's ``segment_sum_mm``)."""
     if messages.device.type == "cpu":
-        return segment_sum_ref(messages, seg_ids, n_segments)
+        return segment_sum_csr(messages, *csr_from_ids(seg_ids, n_segments))
     if seg_ids.device != messages.device or seg_ids.shape != messages.shape[:1]:
         raise ValueError(f"segment_sum: seg_ids {tuple(seg_ids.shape)} on "
                          f"{seg_ids.device} for messages "

@@ -27,6 +27,22 @@ count too. With every edge computed in the same block at the same place
 whatever the chunks, its message, and so the whole forward, has the same
 bits for every chunk budget, on the card and on the CPU.
 
+Under grad (training), ``push`` and ``push_attn`` are differentiable with
+memory bounded by one message block: each block runs inside
+``torch.utils.checkpoint`` (its per-edge temporaries, ~2.7 KB an edge for
+EGNN, are dropped after the forward and recomputed one block at a time in
+the backward), and each chunk goes through the differentiable segment sum,
+which returns the chunk's own rows (assembled with one ``cat``). The
+transposes of the two row gathers are not ``index_add_`` (atomics: the bits
+would change from run to run on the card) but ``_GatherRows``, whose
+backward runs the segment-sum kernel over a CSR grouping of the block's
+edges: by destination, the block's slice of ``rowptr`` (the edges are
+destination-sorted); by source, a stable sort of the block's sources. The
+blocks' contributions are accumulated by autograd in reverse block order,
+whatever the chunks, so a step's gradients also have the same bits for
+every chunk budget. Under ``no_grad`` the forward and its launches
+(one per chunk) are what they were.
+
 The ring engine (``RingGraph``, ``RingExec``, ``to_ring``) and ``run_flat``
 over a mesh wait for sharding (ROADMAP Queue 1 item 15).
 """
@@ -36,6 +52,7 @@ from typing import Callable, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.segment_reduce import ops
 from repro_torch.sparse import segment as seg
@@ -77,6 +94,24 @@ def chunk_bounds(rowptr: np.ndarray, chunk_edges: int) -> List[int]:
         lo = min(max(hi, lo + 1), n)
         bounds.append(lo)
     return bounds
+
+
+class _GatherRows(torch.autograd.Function):
+    """``table.index_select(0, idx)`` whose transpose sums each table row's
+    cotangents with the segment-sum kernel, in one fixed order: ``csr()``
+    gives the grouping of ``idx``'s positions by row, ``(rowptr (rows + 1,)
+    int32, perm int32 or None)``, built only when the backward runs."""
+
+    @staticmethod
+    def forward(ctx, table, idx, csr):
+        ctx.csr = csr
+        return table.index_select(0, idx)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        rowptr, perm = ctx.csr()
+        return ops.segment_sum_csr(grad.contiguous(), rowptr, perm), None, None
 
 
 class LocalExec:
@@ -124,17 +159,48 @@ class LocalExec:
         dist = torch.linalg.vector_norm(rel, dim=-1)
         return rel, torch.where(self.g.edge_mask, dist, 0.0)
 
+    def _block_edges(self, k: int) -> Tuple[int, int]:
+        """[a, b): the valid sorted edges of block k."""
+        a = k * self.block
+        return a, min(a + self.block, self.n_edges)
+
+    def _dst_csr(self, k: int):
+        """Block k's edges grouped by destination: its slice of ``rowptr``
+        over all N nodes, rebased to the block (no perm)."""
+        a, b = self._block_edges(k)
+        return self.rowptr.clamp(a, b) - a, None
+
+    def _src_csr(self, k: int):
+        """Block k's edges grouped by source: a stable sort of its sources
+        (ties in edge order) and their offsets over all N nodes."""
+        a, b = self._block_edges(k)
+        keys, perm = torch.sort(self.src[a:b], stable=True)
+        bounds = torch.arange(self.n + 1, dtype=torch.int32,
+                              device=keys.device)
+        rowptr = torch.searchsorted(keys, bounds).to(torch.int32)
+        return rowptr, perm.to(torch.int32)
+
     def _block_rows(self, fn, node_payload: torch.Tensor, k: int):
         """``fn(src rows, dst rows)`` of sorted-edge block k, padded to
-        ``block`` rows with copies of node 0."""
+        ``block`` rows with copies of node 0. Under grad the block is
+        checkpointed and its gathers are ``_GatherRows``."""
         a = k * self.block
         src = self.src[a:a + self.block]
         dst = self.dst[a:a + self.block]
         if src.numel() < self.block:
             pad = src.new_zeros(self.block - src.numel())
             src, dst = torch.cat([src, pad]), torch.cat([dst, pad])
-        return fn(node_payload.index_select(0, src),
-                  node_payload.index_select(0, dst))
+        if not torch.is_grad_enabled():
+            return fn(node_payload.index_select(0, src),
+                      node_payload.index_select(0, dst))
+
+        def run(payload):
+            return fn(_GatherRows.apply(payload, src,
+                                        lambda: self._src_csr(k)),
+                      _GatherRows.apply(payload, dst,
+                                        lambda: self._dst_csr(k)))
+
+        return checkpoint(run, node_payload, use_reentrant=False)
 
     def messages(self, fn, node_payload: torch.Tensor):
         """Yields ``(chunk, rows)`` for every chunk in order: ``rows`` is
@@ -168,10 +234,25 @@ class LocalExec:
         kernel into their output rows; the chunks tile ``[0, N)``, so every
         row is written.
         """
-        agg = node_payload.new_empty((self.n, d_out))
-        for (lo, _, _, _, rp), msgs in self.messages(msg_fn, node_payload):
+        return self._aggregate(self.messages(msg_fn, node_payload),
+                               node_payload, d_out)
+
+    def _aggregate(self, chunk_msgs, node_payload: torch.Tensor,
+                   d_out: int) -> torch.Tensor:
+        """Segment-sums each chunk's messages (Ec, d_out) into rows
+        ``[seg_lo, seg_hi)``: written in place (no grad), or each chunk's
+        own rows joined in chunk order (messages that need a gradient)."""
+        agg, parts = None, []
+        for (lo, _, _, _, rp), msgs in chunk_msgs:
+            if msgs.requires_grad:
+                parts.append(ops.segment_sum_csr(msgs.contiguous(), rp))
+                continue
+            if agg is None:
+                agg = node_payload.new_empty((self.n, d_out))
             ops.segment_sum_csr(msgs.contiguous(), rp, out=agg, seg_lo=lo)
-        return agg
+        if parts:
+            return torch.cat(parts)
+        return node_payload.new_empty((self.n, d_out)) if agg is None else agg
 
     def gather_src(self, node_payload: torch.Tensor) -> torch.Tensor:
         """Per-edge source rows (E, Dp) in the graph's edge order, 0 on
@@ -189,14 +270,15 @@ class LocalExec:
         logit_fn gives (M, H), msg_fn (M, H, dh) with H · dh = d_out. A
         chunk holds every in-edge of its destinations, so each softmax is
         chunk-local."""
-        agg = node_payload.new_empty((self.n, d_out))
-        for ((lo, hi, e0, e1, rp), logits), (_, msgs) in zip(
-                self.messages(logit_fn, node_payload),
-                self.messages(msg_fn, node_payload)):
-            w = seg.segment_softmax(logits, self.dst[e0:e1] - lo, hi - lo)
-            msgs = (msgs * w[..., None]).reshape(e1 - e0, d_out)
-            ops.segment_sum_csr(msgs.contiguous(), rp, out=agg, seg_lo=lo)
-        return agg
+        def weighted():
+            for (chunk, logits), (_, msgs) in zip(
+                    self.messages(logit_fn, node_payload),
+                    self.messages(msg_fn, node_payload)):
+                lo, hi, e0, e1, _ = chunk
+                w = seg.segment_softmax(logits, self.dst[e0:e1] - lo, hi - lo)
+                yield chunk, (msgs * w[..., None]).reshape(e1 - e0, d_out)
+
+        return self._aggregate(weighted(), node_payload, d_out)
 
 
 def run_flat(apply_local, g: FlatGraph, params, mesh=None):

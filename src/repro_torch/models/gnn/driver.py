@@ -1,14 +1,22 @@
-"""GNN driver of the port (``repro.models.gnn.driver``), serving half:
-synthetic graph builders, model dispatch (EGNN), and the forward losses of
-the full-graph and molecule layouts.
+"""GNN driver of the port (``repro.models.gnn.driver``): synthetic graph
+builders, model dispatch (EGNN), the losses of the three layouts
+(full_graph / minibatch / molecule) and their train steps.
 
 The graph builders draw from numpy exactly as the reference does, so the
 same seed gives the same arrays, placed on ``device`` (None = the CUDA
-device). ``molecule_loss`` runs a batch of small graphs as one disjoint-union
-graph (node ids of graph b offset by b·n), so one kernel launch per layer
-serves the whole batch where the reference ``vmap``s over graphs; the sums
-agree. Training (``make_train_step``) and ``minibatch_loss`` (with
-``sparse/sampler.py``) are not ported yet.
+device). ``molecule_loss`` and ``minibatch_loss`` run a batch of small
+graphs (molecules, or the sampler's fanout trees) as one disjoint-union
+graph (node ids of graph b offset by b·n), so one kernel launch per chunk
+and layer serves the whole batch where the reference ``vmap``s over
+graphs; the sums agree.
+
+``make_train_step`` returns ``step(params, opt_state, batch) -> (new
+params, new opt state, metrics)``: the gradient of ``train_loss`` through
+the differentiable segment sum and ``LocalExec``'s checkpointed blocks,
+then ``adamw_update``. It returns new trees and leaves its inputs as they
+were, as the reference's functional step does. A full-graph batch may
+carry ``"exec"``, a ``LocalExec`` built on its graph once and reused
+across steps.
 """
 from __future__ import annotations
 
@@ -18,8 +26,10 @@ import numpy as np
 import torch
 
 from repro_torch.common.params import resolve_device
+from repro_torch.common.tree import leaves, tree_map
 from repro_torch.models.gnn import egnn as egnn_mod
 from repro_torch.models.gnn.common import FlatGraph, LocalExec, run_flat
+from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
 N_CLASSES = 16
 
@@ -142,3 +152,60 @@ def molecule_loss(cfg, params, batched_g: FlatGraph, energy, triplets=None):
     return {"loss_sum": torch.sum((pred - energy) ** 2),
             "count": torch.tensor(float(energy.shape[0]),
                                   device=energy.device)}
+
+
+def minibatch_loss(cfg, params, batched_g: FlatGraph, root_labels):
+    """CE on each sampled tree's root node (local index 0), the trees run
+    as one disjoint-union graph: tree b's root is node b·n_sub."""
+    b, n = batched_g.feats.shape[:2]
+    logits = node_logits_local(cfg, params, disjoint_union(batched_g))
+    roots = logits.reshape(b, n, -1)[:, 0]                   # (B, n_classes)
+    return _ce_sums(roots, root_labels,
+                    torch.ones(root_labels.shape, dtype=torch.float32,
+                               device=root_labels.device))
+
+
+# ---------------------------------------------------------------------------
+# train steps
+# ---------------------------------------------------------------------------
+
+def train_loss(cfg, kind: str, params, batch):
+    """(loss, sums) of one batch on one device: ``loss_sum / max(count,
+    1)``."""
+    if kind == "full_graph":
+        sums = full_graph_loss(cfg, params, batch["graph"], None,
+                               batch.get("triplets"), ex=batch.get("exec"))
+    elif kind == "molecule":
+        sums = molecule_loss(cfg, params, batch["graph"], batch["energy"],
+                             batch.get("triplets"))
+    elif kind == "minibatch":
+        sums = minibatch_loss(cfg, params, batch["graph"], batch["labels"])
+    else:
+        raise ValueError(kind)
+    loss = sums["loss_sum"] / torch.clamp(sums["count"], min=1.0)
+    return loss, sums
+
+
+def make_train_step(cfg, kind: str, mesh=None,
+                    opt_cfg: AdamWConfig = AdamWConfig(lr=1e-3)):
+    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
+    metrics are ``loss``, the loss sums, ``grad_norm`` and ``lr``."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "GNN training over a mesh (RingGraph / RingExec) is not ported "
+            "to repro_torch yet (ROADMAP.md Queue 1 item 15)")
+
+    def step(params, opt_state, batch):
+        with torch.enable_grad():
+            live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+            loss, sums = train_loss(cfg, kind, live, batch)
+            grads = torch.autograd.grad(loss, leaves(live))
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), params)
+        params, opt_state, om = adamw_update(opt_cfg, grads, opt_state,
+                                             params)
+        metrics = {"loss": loss.detach(),
+                   **{k: v.detach() for k, v in sums.items()}, **om}
+        return params, opt_state, metrics
+
+    return step

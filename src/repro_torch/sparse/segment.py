@@ -3,7 +3,9 @@ message-passing substrate of the GNN path.
 
 ``segment_sum`` runs the CUDA segment-sum kernel on CUDA tensors (its plain
 version on CPU tensors) through ``kernels.segment_reduce.ops.segment_sum``,
-and ``segment_mean`` is built on it, as in the reference. ``segment_max``
+and ``segment_mean`` is built on it, as in the reference. Both are
+differentiable, as ``jax.ops.segment_sum`` is: the backward gathers each
+row's cotangent by its id (0 for a dropped id). ``segment_max``
 and ``segment_softmax`` are plain torch (``scatter_reduce``): the reference
 uses ``jax.ops`` there and has no Pallas kernel for them. All four keep the
 reference's masking: ids < 0 or >= num_segments contribute nothing, an

@@ -32,6 +32,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.persistence.durable, repro_torch.checkpoint\n"
         "import repro_torch.persistence.crash_harness\n"
         "import repro_torch.sharding\n"
+        "import repro_torch.common.tree, repro_torch.sparse.sampler\n"
+        "import repro_torch.train.optimizer, repro_torch.train.trainer\n"
+        "import repro_torch.runtime.fault\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib')) or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n")

@@ -243,18 +243,27 @@ def test_unported_parts_raise(graph):
 
 
 def test_entry_points_default_to_the_card():
-    """No device given means CUDA: each raises on a host without one."""
+    """No device given means CUDA: each raises on a host without one. The
+    optimizer state follows the params' device."""
+    from repro_torch.convert import adamw_state_from_jax
+    from repro_torch.train.optimizer import init_adamw
     cfg = smoke_config("egnn")
+    zeros = {"enc": np.zeros((2, 2), np.float32)}
     calls = (lambda: td.make_flat_graph(10, 20, 4),
              lambda: td.make_molecule_batch(2, 5, 8),
              lambda: td.init_model(cfg, 0, 4),
-             lambda: gnn_params_from_jax({"enc": np.zeros((2, 2), np.float32)}))
+             lambda: gnn_params_from_jax(zeros),
+             lambda: adamw_state_from_jax((np.int32(0), zeros, zeros)))
     for call in calls:
         if torch.cuda.is_available():
             assert call() is not None
         else:
             with pytest.raises(RuntimeError, match="CUDA"):
                 call()
+    state = init_adamw(td.init_model(cfg, 0, 4, device="cpu"))
+    assert {t.device.type for t in (state.step, state.mu["enc"],
+                                    state.nu["head"])} == {"cpu"}
+    assert state.mu["enc"].dtype == torch.float32
 
 
 def test_launch_counter_stays_still_on_the_cpu(graph):

@@ -7,6 +7,9 @@ progressive rounds' probe-kernel launches, and durability on the card:
 ``recover`` byte-equal to the live index and to the harness's golden
 prefix, ``partitioner.fit`` and the hop operator repeated bitwise (their
 sums run the segment-sum kernel), a bf16 checkpoint leaf round trip, and
+EGNN training on the card: the segment sum's backward and the gather
+transpose against the CPU and ``index_add_``, one train step against the
+CPU's, its launches, and the no-grad forward's launches; and
 the row-sharded search: scores equal to the single layout's, one probe
 launch per shard, each shard's probe kernel at its ``cap_l`` against the
 plain version, the replica rebuilt after a maintain pass; the decode
@@ -834,6 +837,150 @@ def test_egnn_forward_on_the_card_matches_the_cpu():
     want = gd.node_logits_local(cfg, cpu_p, cpu_g)
     assert (got.cpu() - want).abs().max().item() <= 1e-3 * max(
         1.0, want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_sum_backward_on_the_card_equals_the_cpu(dtype):
+    """The gradient flows through the kernel's launch on the card (Queue 3
+    item 8) and equals the CPU version's: ids < 0 and >= n give 0."""
+    _need_card()
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.sparse import segment as seg
+    g = torch.Generator(device="cuda").manual_seed(21)
+    msg, ids = _seg_case(g, 20_000, 3_000, 68, dtype)
+    cot = torch.randn((3_000, 68), device="cuda", generator=g).to(dtype)
+    x = msg.clone().requires_grad_(True)
+    before = sops.segment_sum_csr.launches
+    out = seg.segment_sum(x, ids, 3_000)
+    assert sops.segment_sum_csr.launches == before + 1
+    assert out.grad_fn is not None
+    (got,) = torch.autograd.grad(out, x, cot)
+    xc = msg.cpu().requires_grad_(True)
+    (want,) = torch.autograd.grad(seg.segment_sum(xc, ids.cpu(), 3_000), xc,
+                                  cot.cpu())
+    assert torch.equal(got.cpu(), want)
+    dropped = (ids < 0) | (ids >= 3_000)
+    assert not bool(got[dropped].any())
+    # segment_mean differentiates through it
+    xm = msg.float().clone().requires_grad_(True)
+    (gm,) = torch.autograd.grad(seg.segment_mean(xm, ids, 3_000).sum(), xm)
+    xmc = msg.float().cpu().requires_grad_(True)
+    (gmc,) = torch.autograd.grad(
+        seg.segment_mean(xmc, ids.cpu(), 3_000).sum(), xmc)
+    assert torch.equal(gm.cpu(), gmc)
+
+
+@pytest.mark.gpu
+def test_gather_transpose_on_the_card_equals_index_add():
+    """``LocalExec``'s gather transpose (the kernel over a source-sorted
+    CSR) against ``index_add_`` (atomics) within fp32 tolerance, and the
+    same bits twice; one launch per backward."""
+    _need_card()
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.models.gnn.common import _GatherRows
+    g = torch.Generator(device="cuda").manual_seed(22)
+    n, e, d = 50_000, 1 << 20, 67
+    table = torch.randn((n, d), device="cuda", generator=g)
+    idx = torch.randint(0, n, (e,), device="cuda", generator=g,
+                        dtype=torch.int32)
+    cot = torch.randn((e, d), device="cuda", generator=g)
+
+    def csr():
+        keys, perm = torch.sort(idx, stable=True)
+        bounds = torch.arange(n + 1, device="cuda", dtype=torch.int32)
+        return (torch.searchsorted(keys, bounds).to(torch.int32),
+                perm.to(torch.int32))
+
+    def grad():
+        t = table.clone().requires_grad_(True)
+        return torch.autograd.grad(_GatherRows.apply(t, idx, csr), t, cot)[0]
+
+    before = sops.segment_sum_csr.launches
+    a, b = grad(), grad()
+    assert sops.segment_sum_csr.launches == before + 2
+    assert torch.equal(a, b)
+    want = torch.zeros_like(table).index_add_(0, idx.long(), cot)
+    torch.testing.assert_close(a, want, rtol=0, atol=1e-4)
+
+
+def _egnn_train_case(n=3000, e=75_000):
+    from repro_torch.configs import get_config
+    from repro_torch.models.gnn import driver as gd
+    cfg = get_config("egnn")
+    g = gd.make_flat_graph(n, e, 100, seed=1)
+    params = gd.init_model(cfg, 0, 100)
+    return cfg, g, params
+
+
+@pytest.mark.gpu
+def test_egnn_train_step_on_the_card_matches_the_cpu(monkeypatch):
+    """A full-width EGNN step on a 3,000-node graph in message blocks of
+    16,384 edges: the card's new params and gradients against the same
+    step on the CPU (1e-3 relative to max(1, |want|)), the same bits twice
+    and for another chunk budget, and ``layers × (chunks + 2 × blocks)``
+    launches (the forward's chunks, then each block's two gather
+    transposes)."""
+    _need_card()
+    from repro_torch.common.tree import leaves, tree_map
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.models.gnn import common as gc
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.train.optimizer import init_adamw
+    monkeypatch.setattr(gc, "MSG_BLOCK_EDGES", 1 << 14)
+    cfg, g, params = _egnn_train_case()
+    step = gd.make_train_step(cfg, "full_graph")
+    ex = gc.LocalExec(g, 20_000)
+    blocks = -(-ex.n_edges // ex.block)
+    assert blocks > 1 and len(ex.chunks) > 1
+
+    def grads(p, batch):
+        live = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        loss, _ = gd.train_loss(cfg, "full_graph", live, batch)
+        return torch.autograd.grad(loss, leaves(live))
+
+    before = sops.segment_sum_csr.launches
+    new, _, m = step(params, init_adamw(params), {"graph": g, "exec": ex})
+    assert sops.segment_sum_csr.launches - before == cfg.n_layers * (
+        len(ex.chunks) + 2 * blocks)
+    again, _, _ = step(params, init_adamw(params), {"graph": g, "exec": ex})
+    half, _, _ = step(params, init_adamw(params),
+                      {"graph": g, "exec": gc.LocalExec(g, 9_000)})
+    for a, b, c in zip(leaves(new), leaves(again), leaves(half)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    cpu = lambda t: t.cpu()                                 # noqa: E731
+    cg, cp = type(g)(*(t.cpu() for t in g)), tree_map(cpu, params)
+    want, _, wm = step(cp, init_adamw(cp), {"graph": cg})
+    for a, b in zip(leaves(new), leaves(want)):
+        assert (a.cpu() - b).abs().max().item() <= 1e-3 * max(
+            1.0, b.abs().max().item())
+    for a, b in zip(grads(params, {"graph": g, "exec": ex}),
+                    grads(cp, {"graph": cg})):
+        assert (a.cpu() - b).abs().max().item() <= 1e-3 * max(
+            1.0, b.abs().max().item())
+    assert abs(float(m["loss"]) - float(wm["loss"])) <= 1e-3 * max(
+        1.0, abs(float(wm["loss"])))
+
+
+@pytest.mark.gpu
+def test_no_grad_forward_still_launches_layers_x_chunks():
+    """Serving's forward under ``no_grad``: one launch per chunk and layer,
+    the bits of the forward taken under grad."""
+    _need_card()
+    from repro_torch.common.tree import tree_map
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.models.gnn.common import LocalExec
+    cfg, g, params = _egnn_train_case()
+    ex = LocalExec(g, 20_000)
+    before = sops.segment_sum_csr.launches
+    with torch.no_grad():
+        plain = gd.node_logits_local(cfg, params, g, ex=ex)
+    assert sops.segment_sum_csr.launches - before == cfg.n_layers * len(
+        ex.chunks)
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    assert torch.equal(gd.node_logits_local(cfg, live, g, ex=ex).detach(),
+                       plain)
 
 
 @pytest.mark.gpu
