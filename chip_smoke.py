@@ -149,13 +149,17 @@ Phases (each prints one line; any failure exits non-zero):
                 Trainer: (a) on phase 7's graph and LocalExec, one warm-up
                 and 4 timed steps with a checkpoint every 2 (step ms
                 beside the forward's, loss, grad norm, peak memory, the
-                segment sum's launches a step, forward and backward,
-                against layers x (chunks + 2 x blocks), one profiled
-                step); a step, its parts and half the chunk budget from
-                the same state give the same bits; a run whose step 3
-                fails restores the step-2 checkpoint and equals the
-                uninterrupted run at step 4; the kernel at one block's
-                transpose shape against its plain version, timed; (b) one
+                launches a step: the summing kernel's in the forward,
+                layers x chunks, and the in-place kernel's in the
+                backward's gather transposes, layers x 2 x blocks; one
+                profiled step with its aten::add* device time); a step,
+                its parts and half the chunk budget from the same state
+                give the same bits; a run whose step 3 fails restores the
+                step-2 checkpoint and equals the uninterrupted run at step
+                4; the in-place kernel at one block's source and
+                destination transposes against its plain version bit for
+                bit, timed beside a touched-rows bound and index_add_ in
+                place, and PR 21's full-N transpose beside it; (b) one
                 step on a 65,536-node copy, gradients and new params
                 against the CPU; (c) minibatch_lg: a 232,965-node,
                 114,615,892-edge host graph, the neighbour sampler's CSR,
@@ -163,7 +167,9 @@ Phases (each prints one line; any failure exits non-zero):
                 step ms apart); (d) one molecule step.
   8. the kernels line, then the contract line. The segment sum's launches
      there count the index path's too (k-means cluster sums, hop
-     out-weights), read phase by phase, and the training runs'; the
+     out-weights), read phase by phase, and the training runs' forwards;
+     the in-place kernel's (segment_sum_csr_accumulate) the training
+     runs' gather transposes; the
      scans' count the index phases' and both RAG cells' retrievals, the
      decode kernel's the phi4-mini cell and the mixtral check.
 
@@ -173,6 +179,7 @@ DIR VECS.npy`` is the durable phase's own child process.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -341,7 +348,7 @@ def host_ms(fn, reps: int):
     return float(np.percentile(out, 50)), float(np.percentile(out, 99))
 
 
-def profile_window(fn, top: int = 6, share_of: str = "",
+def profile_window(fn, top: int = 6, share_of="",
                    ops_top: int = 0) -> dict:
     """Device time by kernel over one synchronised call of ``fn`` after a
     warm-up call (see ``profile_once``)."""
@@ -350,15 +357,17 @@ def profile_window(fn, top: int = 6, share_of: str = "",
     return profile_once(fn, top, share_of, ops_top)[1]
 
 
-def profile_once(fn, top: int = 6, share_of: str = "", ops_top: int = 0):
+def profile_once(fn, top: int = 6, share_of="", ops_top: int = 0,
+                 op_sum: str = ""):
     """(fn's result, its profile): device time by kernel over one
     synchronised call of ``fn`` (torch.profiler / CUPTI): the ``top``
     kernels by self device time, the device-busy sum, the host wall time,
-    the device's idle share, with ``share_of`` the device time, launches
-    and share of busy time of the kernels whose names contain it, and with
-    ``ops_top`` the ``ops_top`` PyTorch operators (aten::bmm, aten::mm,
-    ...) by the device time of the kernels each launched itself, with
-    their call counts."""
+    the device's idle share, with ``share_of`` (a name or a tuple of
+    names) the device time, launches and share of busy time of the kernels
+    whose names contain it, with ``ops_top`` the ``ops_top`` PyTorch
+    operators (aten::bmm, aten::mm, ...) by the device time of the kernels
+    each launched itself, with their call counts, and with ``op_sum`` the
+    same summed over the operators whose names start with it."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -379,18 +388,26 @@ def profile_once(fn, top: int = 6, share_of: str = "", ops_top: int = 0):
                       for e in kern[:top]],
            "busy_ms": busy, "wall_ms": wall,
            "idle_share": max(0.0, 1.0 - busy / wall)}
+    cpu_ops = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.self_device_time_total > 0]
+    cpu_ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
     if ops_top:
-        cpu_ops = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CPU
-                   and e.self_device_time_total > 0]
-        cpu_ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
         res["top_ops_ms"] = [[e.key, e.self_device_time_total / 1e3, e.count]
                              for e in cpu_ops[:ops_top]]
-    if share_of:
-        hit = [e for e in kern if share_of in e.key]
+    if op_sum:
+        hit = [e for e in cpu_ops if e.key.startswith(op_sum)]
+        res[op_sum + "*"] = {
+            "ms": sum(e.self_device_time_total for e in hit) / 1e3,
+            "calls": sum(e.count for e in hit),
+            "by_op": {e.key: [e.self_device_time_total / 1e3, e.count]
+                      for e in hit}}
+    for name in (share_of if isinstance(share_of, tuple)
+                 else (share_of,) if share_of else ()):
+        hit = [e for e in kern if name in e.key]
         ms = sum(e.self_device_time_total for e in hit) / 1e3
-        res[share_of] = {"ms": ms, "launches": sum(e.count for e in hit),
-                         "share_of_busy": ms / busy}
+        res[name] = {"ms": ms, "launches": sum(e.count for e in hit),
+                     "share_of_busy": ms / busy}
     return out, res
 
 
@@ -3229,6 +3246,8 @@ def phase_gnn(small_err: float):
          forward_ms=dict(p50=p50, p99=p99, all=times),
          edges_per_s=e / (p50 / 1e3), loss_sum=float(sums["loss_sum"]),
          correct=float(sums["correct"]), launches=launches,
+         logits_sha256=hashlib.sha256(
+             lg.detach().cpu().numpy().tobytes()).hexdigest(),
          peak_mem_gib=peak / 2 ** 30, forward_profile=prof)
     # (c) determinism: two forwards, and a forward with half the budget
     same = torch.equal(logits[0], logits[-1])
@@ -3294,18 +3313,46 @@ def phase_gnn(small_err: float):
     return kern, launches, (params, g, ex, p50)
 
 
-def grads_of(cfg, kind, params, batch):
-    """(loss, grads in leaf order, forward launches, backward launches) of
-    one batch, the way a train step takes them."""
-    from repro_torch.common.tree import leaves, tree_map
+def seg_counts():
+    """(summing kernel's, in-place kernel's) launch counts."""
     from repro_torch.kernels.segment_reduce import ops as sops
+    return (sops.segment_sum_csr.launches,
+            sops.segment_sum_csr_accumulate.launches)
+
+
+def seg_zero() -> None:
+    from repro_torch.kernels.segment_reduce import ops as sops
+    sops.segment_sum_csr.launches = 0
+    sops.segment_sum_csr_accumulate.launches = 0
+
+
+def grads_of(cfg, kind, params, batch, peaks=None):
+    """(loss, grads in leaf order, forward launches, backward launches) of
+    one batch, the way a train step takes them; each launches a pair
+    (summing kernel, in-place kernel). A ``peaks`` dict gets the device
+    memory (GiB): the forward's peak, what it leaves allocated, and the
+    backward's own peak."""
+    from repro_torch.common.tree import leaves, tree_map
     from repro_torch.models.gnn import driver as gd
     live = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    l0 = sops.segment_sum_csr.launches
+    if peaks is not None:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    l0 = seg_counts()
     loss, _ = gd.train_loss(cfg, kind, live, batch)
-    l1 = sops.segment_sum_csr.launches
+    l1 = seg_counts()
+    if peaks is not None:
+        torch.cuda.synchronize()
+        peaks["forward"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        peaks["after_forward"] = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
     grads = torch.autograd.grad(loss, leaves(live))
-    return loss.detach(), grads, l1 - l0, sops.segment_sum_csr.launches - l1
+    l2 = seg_counts()
+    if peaks is not None:
+        torch.cuda.synchronize()
+        peaks["backward"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return (loss.detach(), grads, (l1[0] - l0[0], l1[1] - l0[1]),
+            (l2[0] - l1[0], l2[1] - l1[1]))
 
 
 def adamw_from(opt_cfg, grads, opt_state, params):
@@ -3317,14 +3364,15 @@ def adamw_from(opt_cfg, grads, opt_state, params):
                         opt_state, params)[0]
 
 
-def train_launches_per_step(layers: int, n_edges: int, chunks: int) -> int:
-    """Segment-sum launches of one train step: the forward's one per chunk
-    and layer, the backward's two gather transposes per message block and
-    layer (``LocalExec``'s block: the valid edges rounded up to a power of
-    two, at most ``MSG_BLOCK_EDGES``)."""
+def train_launches_per_step(layers: int, n_edges: int, chunks: int):
+    """(summing, in-place) kernel launches of one train step: the
+    forward's summing launch per chunk and layer; the backward's two
+    in-place launches (the gather transposes) per message block and layer
+    (``LocalExec``'s block: the valid edges rounded up to a power of two,
+    at most ``MSG_BLOCK_EDGES``), and no summing launch."""
     from repro_torch.models.gnn import common as gc
     block = min(gc.MSG_BLOCK_EDGES, 1 << max(0, n_edges - 1).bit_length())
-    return layers * (chunks + 2 * -(-n_edges // block))
+    return layers * chunks, layers * 2 * -(-n_edges // block)
 
 
 def trees_equal(a, b) -> bool:
@@ -3372,37 +3420,112 @@ def train_run(cfg, kind, params, stream, total: int, ckpt_dir: str,
 
 
 def measure_transpose(ex) -> dict:
-    """segment_sum_csr at the backward's shape: one message block's source
-    transpose (``block`` cotangent rows of the payload's width, grouped by
-    a stable sort of the block's sources, into all N rows) against its
-    plain version, then timed beside its bound."""
+    """The backward's gather transposes at one message block (block 0:
+    ``block`` cotangent rows of the payload's width, d = 67 fp32). PR 21's
+    route first: the summing kernel over all N rows of a stable sort of the
+    block's sources, against its plain version, timed. Then the in-place
+    kernel at the block's source side (its distinct sources: the compacted
+    CSR, perm, listed rows) and destination side (its range of
+    destinations: its ``rowptr`` slice), each bit for bit against its plain
+    version into the same random buffer, timed beside a bound that counts
+    the cotangent once and each touched row read once and written once,
+    its plain version, and ``index_add_`` into the same buffer in place.
+    Returns the in-place kernel's kernels-line entry: one block's two
+    transposes (ms, plain, bound and library summed), each side under
+    ``sides``."""
     from repro_torch.kernels.segment_reduce import ops as sops
-    from repro_torch.kernels.segment_reduce.ref import segment_sum_csr_ref
-    rowptr, perm = ex._src_csr(0)
+    from repro_torch.kernels.segment_reduce.ref import (
+        segment_sum_csr_accumulate_ref, segment_sum_csr_ref)
     d = 64 + 3                                  # EGNN's payload [h, x]
+    e, n = min(ex.block, ex.n_edges), ex.n
     gen = torch.Generator(device="cuda").manual_seed(31)
     cot = torch.randn((ex.block, d), device="cuda", generator=gen)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda").zero_
+    keys, perm = torch.sort(ex.src[:e], stable=True)
+    rowptr = torch.searchsorted(keys, torch.arange(
+        n + 1, dtype=torch.int32, device="cuda")).to(torch.int32)
+    perm = perm.to(torch.int32)
     got = sops.segment_sum_csr(cot, rowptr, perm)
     want = segment_sum_csr_ref(cot, rowptr, perm)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     check(err <= SEG_FP32_ATOL, f"segment_sum transpose: max |d| {err}")
-    e, n = perm.numel(), ex.n
     nbytes = e * d * 4 + e * 4 + (n + 1) * 4 + n * d * 4
     bms, bby = bound(float(e * d), nbytes)
-    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda").zero_
     kms = cuda_ms(lambda: sops.segment_sum_csr(cot, rowptr, perm), 10, flush)
     pms = cuda_ms(lambda: segment_sum_csr_ref(cot, rowptr, perm), 3, flush)
     lib = torch.zeros_like(got)
     src = ex.src[:e].long()
     lms = cuda_ms(lambda: lib.zero_().index_add_(0, src, cot[:e]), 10, flush)
-    res = dict(shape=dict(E=e, d=d, n=n, dtype="float32", perm=True),
-               max_abs_err=err, ms=kms, plain_ms=pms, library_ms=lms,
-               library="zero_ + index_add_(0, src, cot) (atomics)",
-               bound_ms=bms, bound_by=bby, gbytes=nbytes / 1e9)
-    line("kernel.segment_sum.transpose", **res)
-    del cot, got, want, lib
-    return res
+    line("kernel.segment_sum.transpose",
+         route="PR 21's: the summing kernel into all N rows, then "
+               "autograd's (N, d) add", shape=dict(E=e, d=d, n=n,
+                                                   dtype="float32",
+                                                   perm=True),
+         max_abs_err=err, ms=kms, plain_ms=pms, library_ms=lms,
+         library="zero_ + index_add_(0, src, cot) (atomics)",
+         bound_ms=bms, bound_by=bby, gbytes=nbytes / 1e9)
+    del got, want, lib, keys, perm, rowptr
+    torch.cuda.empty_cache()
+    base = torch.randn((n, d), device="cuda", generator=gen)
+
+    def side(name, rowptr, perm, rows, seg_lo, idx):
+        r = rowptr.numel() - 1
+        kw = dict(rows=rows, seg_lo=seg_lo)
+        out = sops.segment_sum_csr_accumulate(cot, rowptr, perm,
+                                              out=base.clone(), **kw)
+        ref = segment_sum_csr_accumulate_ref(cot, rowptr, perm,
+                                             out=base.clone(), **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(out, ref)
+        err = float((out - ref).abs().max())
+        check(same, f"in-place transpose, {name} side: not bitwise equal to "
+                    f"its plain version (max |d| {err})")
+        lib = base.clone().index_add_(0, idx, cot[:e])
+        torch.cuda.synchronize()
+        lib_err = float((lib - out).abs().max())
+        # the cotangent, perm, rowptr and rows read once; each touched row
+        # read once and written once
+        nbytes = (e * d * 4 + (0 if perm is None else e * 4) + (r + 1) * 4
+                  + (0 if rows is None else r * 4) + 2 * r * d * 4)
+        bms, bby = bound(float(e * d + r * d), nbytes)
+        kms = cuda_ms(lambda: sops.segment_sum_csr_accumulate(
+            cot, rowptr, perm, out=out, **kw), 10, flush)
+        pms = cuda_ms(lambda: segment_sum_csr_accumulate_ref(
+            cot, rowptr, perm, out=ref, **kw), 3, flush)
+        lms = cuda_ms(lambda: lib.index_add_(0, idx, cot[:e]), 10, flush)
+        res = dict(shape=dict(E=e, d=d, rows=r, n=n, dtype="float32",
+                              perm=perm is not None),
+                   group=sops.group_size(r, e if perm is not None
+                                         else cot.shape[0]),
+                   max_abs_err=err, bitwise=same, ms=kms, plain_ms=pms,
+                   library_ms=lms,
+                   library="index_add_(0, idx, cot) into the same buffer, "
+                           "in place (atomics)",
+                   library_max_abs_diff=lib_err, bound_ms=bms, bound_by=bby,
+                   gbytes=nbytes / 1e9,
+                   achieved_tb_s=nbytes / (kms * 1e-3) / 1e12)
+        line(f"kernel.segment_sum_accumulate.{name}", **res)
+        del out, ref, lib
+        return res
+
+    src_rp, src_perm, src_rows = ex._src_csr(0)
+    dst_rp, dst_lo = ex._dst_csr(0)
+    sides = {"source": side("source", src_rp, src_perm, src_rows, 0, src),
+             "destination": side("destination", dst_rp, None, None, dst_lo,
+                                 ex.dst[:e].long())}
+    del cot, base
+    torch.cuda.empty_cache()
+    both = sides.values()
+    return dict(max_abs_err=max(v["max_abs_err"] for v in both),
+                ms=sum(v["ms"] for v in both),
+                plain_ms=sum(v["plain_ms"] for v in both),
+                bound_ms=sum(v["bound_ms"] for v in both),
+                bound_by="bytes" if all(v["bound_by"] == "bytes"
+                                        for v in both) else "operations",
+                library_ms=sum(v["library_ms"] for v in both),
+                measured="one message block's two transposes (source + "
+                         "destination side)", sides=sides)
 
 
 class ConstantStream:
@@ -3455,12 +3578,12 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
     """EGNN training: (a) Trainer steps at ogbn-products on phase_gnn's
     graph and LocalExec, (b) one step on a copy against the CPU, (c) the
     minibatch_lg cell through the sampler, (d) one molecule step. Returns
-    the segment-sum launches of the cells' runs (the two Trainer runs and
-    the molecule step; the checks' extra steps not counted)."""
+    the summing and the in-place kernels' launches of the cells' runs (the
+    two Trainer runs and the molecule step; the checks' extra steps not
+    counted) and the in-place kernel's kernels-line entry."""
     from repro_torch.checkpoint import restore_checkpoint
     from repro_torch.common.tree import leaves, tree_finite
     from repro_torch.configs import get_config, get_shapes
-    from repro_torch.kernels.segment_reduce import ops as sops
     from repro_torch.models.gnn import driver as gd
     from repro_torch.models.gnn.common import FlatGraph, LocalExec
     from repro_torch.sparse.sampler import NeighborSampler, sizes_for_fanout
@@ -3473,29 +3596,29 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
     try:
         # (a) full graph, through Trainer, a checkpoint every 2 steps
         blocks = -(-ex.n_edges // ex.block)
-        fwd_formula = cfg.n_layers * len(ex.chunks)
-        bwd_formula = train_launches_per_step(cfg.n_layers, ex.n_edges,
-                                              len(ex.chunks)) - fwd_formula
+        fwd_formula, bwd_formula = train_launches_per_step(
+            cfg.n_layers, ex.n_edges, len(ex.chunks))
         batch = {"graph": g, "exec": ex}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        sops.segment_sum_csr.launches = 0
+        seg_zero()
         t0 = time.perf_counter()
         tr, seen, firsts = train_run(cfg, "full_graph", params,
                                      ConstantStream(batch), 1 + TRAIN_STEPS,
                                      os.path.join(root, "plain"),
                                      TRAIN_CKPT_EVERY)
         run_s = time.perf_counter() - t0
-        full_launches = sops.segment_sum_csr.launches
+        full_launches, full_acc = seg_counts()
         peak = torch.cuda.max_memory_allocated()
         steps_ms = [h["time_s"] * 1e3 for h in tr.history]
         losses = [float(m["loss"]) for m in seen]
         gnorms = [float(m["grad_norm"]) for m in seen]
         lrs = [float(m["lr"]) for m in seen]
-        check(full_launches == (1 + TRAIN_STEPS) * (fwd_formula
-                                                    + bwd_formula),
-              f"gnn_train: {full_launches} segment-sum launches for "
-              f"{1 + TRAIN_STEPS} steps of {fwd_formula} + {bwd_formula}")
+        check(full_launches == (1 + TRAIN_STEPS) * fwd_formula
+              and full_acc == (1 + TRAIN_STEPS) * bwd_formula,
+              f"gnn_train: {full_launches} summing and {full_acc} in-place "
+              f"launches for {1 + TRAIN_STEPS} steps of {fwd_formula} and "
+              f"{bwd_formula}")
         check(all(np.isfinite(losses + gnorms))
               and bool(tree_finite(tr.params)),
               f"gnn_train: a loss or gradient is not finite ({losses}, "
@@ -3508,14 +3631,18 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
         prof_out, prof = profile_once(
             lambda: gd.make_train_step(cfg, "full_graph")(params, opt0,
                                                           batch), top=10,
-            share_of="segment_sum_kernel")
-        _, grads, fwd_l, bwd_l = grads_of(cfg, "full_graph", params, batch)
+            share_of=("segment_sum_kernel", "segment_accumulate_kernel"),
+            op_sum="aten::add")
+        peaks = {}
+        _, grads, fwd_l, bwd_l = grads_of(cfg, "full_graph", params, batch,
+                                          peaks)
         parts = adamw_from(opt_cfg, grads, opt0, params)
         del grads
         torch.cuda.synchronize()
-        check(fwd_l == fwd_formula and bwd_l == bwd_formula,
-              f"gnn_train: a step launched {fwd_l} + {bwd_l}, the formula "
-              f"{fwd_formula} + {bwd_formula}")
+        check(fwd_l == (fwd_formula, 0) and bwd_l == (0, bwd_formula),
+              f"gnn_train: a step launched (summing, in-place) {fwd_l} in "
+              f"the forward and {bwd_l} in the backward, the formula "
+              f"({fwd_formula}, 0) and (0, {bwd_formula})")
         same_twice = trees_equal(prof_out[0], first) and trees_equal(parts,
                                                                      first)
         check(same_twice, "gnn_train: steps from the same params and state "
@@ -3552,13 +3679,15 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
                           all=steps_ms),
              forward_ms_p50=forward_ms, trainer_run_s=run_s,
              loss=losses, grad_norm=gnorms, lr=lrs,
-             peak_mem_gib=peak / 2 ** 30,
-             segment_sum_per_step=dict(forward=fwd_l, backward=bwd_l,
-                                       formula=dict(
-                                           forward="layers x chunks",
-                                           backward="layers x 2 x blocks")),
-             trainer_launches=full_launches, step_profile=prof)
-        measure_transpose(ex)
+             peak_mem_gib=peak / 2 ** 30, step_parts_mem_gib=peaks,
+             aten_add_device_ms=prof.get("aten::add*", {}).get("ms"),
+             segment_sum_per_step=dict(forward=fwd_l[0], backward=bwd_l[0],
+                                       formula="layers x chunks, forward"),
+             in_place_per_step=dict(forward=fwd_l[1], backward=bwd_l[1],
+                                    formula="layers x 2 x blocks, backward"),
+             trainer_launches=dict(summing=full_launches,
+                                   in_place=full_acc), step_profile=prof)
+        acc_kern = measure_transpose(ex)
 
         # (b) one step on a smaller copy, card vs CPU
         f = g.feats.shape[1]
@@ -3598,18 +3727,18 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
         mb_formula = train_launches_per_step(cfg.n_layers, MB_ROOTS * n_edge,
                                              1)
         torch.cuda.reset_peak_memory_stats()
-        sops.segment_sum_csr.launches = 0
+        seg_zero()
         mtr, mseen, _ = train_run(cfg, "minibatch", mparams, stream, MB_STEPS,
                                   os.path.join(root, "minibatch"), MB_STEPS,
                                   to_device=minibatch_to_card)
-        mb_launches = sops.segment_sum_csr.launches
+        mb_launches, mb_acc = seg_counts()
         mpeak = torch.cuda.max_memory_allocated()
         mlosses = [float(m["loss"]) for m in mseen]
-        check(mb_launches == MB_STEPS * mb_formula
+        check((mb_launches, mb_acc) == tuple(MB_STEPS * f for f in mb_formula)
               and np.isfinite(mlosses + [float(m["grad_norm"])
                                          for m in mseen]).all(),
-              f"gnn_train minibatch: launches {mb_launches} (formula "
-              f"{MB_STEPS * mb_formula}), losses {mlosses}")
+              f"gnn_train minibatch: launches {(mb_launches, mb_acc)} "
+              f"(formula {MB_STEPS} x {mb_formula}), losses {mlosses}")
         mms = [h["time_s"] * 1e3 for h in mtr.history]
         line("gnn_train.minibatch", cell="egnn-minibatch-lg-train",
              host_graph=dict(nodes=n_mb, edges=e_mb, d_feat=MB_D_FEAT),
@@ -3620,7 +3749,8 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
              step_ms=dict(p50=float(np.percentile(mms[1:], 50)),
                           p99=float(np.percentile(mms[1:], 99)), all=mms),
              loss=mlosses, peak_mem_gib=mpeak / 2 ** 30,
-             launches=mb_launches, launches_per_step=mb_launches / MB_STEPS)
+             launches=dict(summing=mb_launches, in_place=mb_acc),
+             launches_per_step=[mb_launches / MB_STEPS, mb_acc / MB_STEPS])
         del sampler, hg_, stream, mtr, mparams
 
         # (d) one molecule step
@@ -3630,16 +3760,16 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
                                             mo["n_edges"], seed=0)
         mstep = gd.make_train_step(cfg, "molecule")
         mbatch = {"graph": mb, "energy": energy}
-        sops.segment_sum_csr.launches = 0
+        seg_zero()
         mout = mstep(molp, init_adamw(molp), mbatch)
         torch.cuda.synchronize()
-        mol_launches = sops.segment_sum_csr.launches
-        check(mol_launches == train_launches_per_step(
+        mol_launches, mol_acc = seg_counts()
+        check((mol_launches, mol_acc) == train_launches_per_step(
                   cfg.n_layers, mo["batch"] * mo["n_edges"], 1)
               and bool(torch.isfinite(mout[2]["loss"]))
               and bool(tree_finite(mout[0])),
-              f"gnn_train molecule: {mol_launches} launches, loss "
-              f"{float(mout[2]['loss'])}")
+              f"gnn_train molecule: {(mol_launches, mol_acc)} launches, "
+              f"loss {float(mout[2]['loss'])}")
         m50, m99 = host_ms(lambda: mstep(molp, init_adamw(molp), mbatch), 10)
         line("gnn_train.checks", steps_from_same_state_bitwise=same_twice,
              half_budget_bitwise=True, half_budget_chunks=half_chunks,
@@ -3653,10 +3783,11 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
              molecule=dict(cell="egnn-molecule-train", batch=mo["batch"],
                            n_nodes=mo["n_nodes"], n_edges=mo["n_edges"],
                            step_ms_p50=m50, step_ms_p99=m99,
-                           launches_per_step=mol_launches,
+                           launches_per_step=[mol_launches, mol_acc],
                            loss=float(mout[2]["loss"])),
              phase_s=time.perf_counter() - phase_t0)
-        return full_launches + mb_launches + mol_launches
+        return (full_launches + mb_launches + mol_launches,
+                full_acc + mb_acc + mol_acc, acc_kern)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3728,8 +3859,9 @@ def main():
         # size the serve_1m searches actually scanned
         kern["shared"] = measure_shared(delta_cap, delta_live)
     kern["segment"], gnn_launches, trained = phase_gnn(small_seg_err)
-    train_launches = phase_gnn_train(*trained)
+    train_launches, train_acc, kern["accumulate"] = phase_gnn_train(*trained)
     del trained
+    check(train_acc > 0, "the in-place kernel was not launched by training")
     line("launches", vector=dict(zip(("probe", "shared"), after_vector)),
          maint={"probe": after_maint[0] - after_vector[0],
                 "shared": after_maint[1] - after_vector[1]},
@@ -3745,7 +3877,8 @@ def main():
          facade=facade, rag=rag, rag_dsv2=dsv2,
          lm_mixtral={"decode": mixtral_decode},
          gnn={"segment_sum": gnn_launches},
-         gnn_train={"segment_sum": train_launches},
+         gnn_train={"segment_sum": train_launches,
+                    "segment_sum_accumulate": train_acc},
          index_path_segment_sum=dict(seg, total=index_seg))
     src = "src/repro_torch/kernels/ivf_topk/csrc/ivf_topk.cu"
     kernels = [
@@ -3770,6 +3903,12 @@ def main():
                       "segment_reduce.py:50",
              launches=gnn_launches + train_launches + index_seg,
              **kern["segment"]),
+        dict(name="segment_sum_csr_accumulate", route="cuda",
+             source="src/repro_torch/kernels/segment_reduce/csrc/"
+                    "segment_reduce.cu",
+             replaces="src/repro/kernels/segment_reduce/"
+                      "segment_reduce.py:50",
+             launches=train_acc, **kern["accumulate"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,15 @@ raise ``ValueError`` for an input the kernel does not take.
 - ``segment_sum_csr(messages, rowptr, perm=None, out=None, seg_lo=0)`` is
   for callers that already hold the grouping (``LocalExec``'s destination-
   sorted edges): it writes rows ``[seg_lo, seg_lo + n)`` of ``out``.
+- ``segment_sum_csr_accumulate(messages, rowptr, perm=None, *, out,
+  rows=None, seg_lo=0)`` adds each segment's sum in place into its row of
+  ``out`` (``rows[i]``, or ``seg_lo + i``) and touches no other row: the
+  backward role, ``LocalExec``'s gather transposes adding a message
+  block's cotangents into one gradient buffer per layer.
 
-``segment_sum_csr.launches`` counts kernel launches and nothing else; both
-entry points launch through it.
+``segment_sum_csr.launches`` counts the launches of the summing kernel and
+nothing else (both first entry points launch through it);
+``segment_sum_csr_accumulate.launches`` counts the in-place kernel's.
 
 Both are differentiable (``_SegmentSumCSR``, on either device) when the
 messages need a gradient: the backward is the transpose of the sum, a
@@ -35,11 +41,12 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.segment_reduce.ref import (
-    csr_from_ids, segment_sum_csr_ref)
+    csr_from_ids, segment_sum_csr_accumulate_ref, segment_sum_csr_ref)
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "segment_reduce.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+_ACC_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _DTYPES = (torch.float32, torch.bfloat16)
 _INT32_LIMIT = 2 ** 31 - 2 ** 20     # rows, segments and entries (int32)
 
@@ -49,6 +56,15 @@ def _lib():
     """The kernel's C entry point; builds the library on first use."""
     fn = _build.load(_SRC).segment_sum_csr
     fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _acc_lib():
+    """The in-place kernel's C entry point (the same library)."""
+    fn = _build.load(_SRC).segment_sum_csr_accumulate
+    fn.argtypes = _ACC_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -218,3 +234,66 @@ def segment_sum(messages: torch.Tensor, seg_ids: torch.Tensor,
                          f"kernel's int32 offsets (< {_INT32_LIMIT})")
     rowptr, perm = csr_from_ids(seg_ids, n_segments)
     return segment_sum_csr(messages, rowptr, perm)
+
+
+def group_size(n_seg: int, n_entries: int) -> int:
+    """Segments per warp of the in-place kernel: about 32 entries a warp
+    (one coalesced ``perm`` load), 1 to 31 segments. It changes no bit."""
+    return max(1, min(31, int(32 * n_seg / max(n_entries, 1))))
+
+
+def segment_sum_csr_accumulate(messages: torch.Tensor, rowptr: torch.Tensor,
+                               perm: Optional[torch.Tensor] = None, *,
+                               out: torch.Tensor,
+                               rows: Optional[torch.Tensor] = None,
+                               seg_lo: int = 0) -> torch.Tensor:
+    """In place: ``out[r_i] = out[r_i] + Σ_{j ∈ [rowptr[i], rowptr[i+1])}
+    messages[perm[j] if perm else j]`` for each segment i (the sum in fp32
+    from 0 in increasing j, added once in fp32 and rounded once to
+    ``out``'s dtype), where ``r_i = rows[i]`` (int32, distinct) or
+    ``seg_lo + i``; returns ``out``. Only the listed rows are read or
+    written, each by one warp: no atomics, the same bits on every run
+    (and for every ``group_size``). The offsets and the rows are trusted:
+    reading them to check would wait for the device. It takes no gradient
+    (it is a backward's accumulation)."""
+    if rowptr.dim() != 1 or rowptr.numel() < 1:
+        raise ValueError(f"segment_sum_csr_accumulate: rowptr must be "
+                         f"(n+1,), got {tuple(rowptr.shape)}")
+    n = rowptr.numel() - 1
+    if _needs_grad(messages):
+        raise ValueError("segment_sum_csr_accumulate takes no gradient")
+    if rows is not None and (rows.dim() != 1 or rows.numel() != n):
+        raise ValueError(f"segment_sum_csr_accumulate: rows must be ({n},), "
+                         f"got {tuple(rows.shape)}")
+    if rows is not None and seg_lo:
+        raise ValueError("segment_sum_csr_accumulate: rows= and seg_lo= "
+                         "exclude each other")
+    if messages.device.type == "cpu":
+        return segment_sum_csr_accumulate_ref(messages, rowptr, perm, out=out,
+                                              rows=rows, seg_lo=seg_lo)
+    if messages.device.type != "cuda":
+        raise ValueError(f"segment_sum runs on CUDA or CPU tensors, got "
+                         f"{messages.device}")
+    _check(messages, rowptr, perm, out, seg_lo)
+    if rows is not None and (rows.device != messages.device
+                             or rows.dtype != torch.int32
+                             or not rows.is_contiguous()):
+        raise ValueError("segment_sum_csr_accumulate: rows must be "
+                         "contiguous int32 on the messages' device")
+    if n == 0:
+        return out
+    g = group_size(n, messages.shape[0] if perm is None else perm.numel())
+    stream = torch.cuda.current_stream(messages.device).cuda_stream
+    err = _acc_lib()(messages.data_ptr(), rowptr.data_ptr(),
+                     None if perm is None else perm.data_ptr(),
+                     None if rows is None else rows.data_ptr(),
+                     out.data_ptr(), n, messages.shape[1], seg_lo, g,
+                     int(messages.dtype == torch.bfloat16), stream)
+    if err:
+        raise RuntimeError(f"segment_sum_csr_accumulate: kernel launch failed "
+                           f"with CUDA error {err}")
+    segment_sum_csr_accumulate.launches += 1
+    return out
+
+
+segment_sum_csr_accumulate.launches = 0

@@ -34,14 +34,23 @@ EGNN, are dropped after the forward and recomputed one block at a time in
 the backward), and each chunk goes through the differentiable segment sum,
 which returns the chunk's own rows (assembled with one ``cat``). The
 transposes of the two row gathers are not ``index_add_`` (atomics: the bits
-would change from run to run on the card) but ``_GatherRows``, whose
-backward runs the segment-sum kernel over a CSR grouping of the block's
-edges: by destination, the block's slice of ``rowptr`` (the edges are
-destination-sorted); by source, a stable sort of the block's sources. The
-blocks' contributions are accumulated by autograd in reverse block order,
-whatever the chunks, so a step's gradients also have the same bits for
-every chunk budget. Under ``no_grad`` the forward and its launches
-(one per chunk) are what they were.
+would change from run to run on the card), nor a dense (N, Dp) gradient a
+block that autograd would then add up. A call keeps one (N, Dp) gradient
+buffer for its payload (``_GradBuffer``, zero-filled at the first block's
+backward), and the blocks read the payload through a token,
+``_GradSink``'s output. Each gather (``_GatherRows``) returns no gradient:
+its backward adds its block's cotangents in place into the buffer, with
+the in-place segment-sum kernel (``ops.segment_sum_csr_accumulate``) over
+the rows the block touches only: by destination, the block's range of
+destinations and its slice of ``rowptr`` (the edges are
+destination-sorted); by source, its distinct sources, a CSR compacted from
+a stable sort of the block's sources (``csr_by_row``). The engine runs the
+sink's backward after every gather's, and it hands out the buffer as the
+payload's gradient. The blocks are added in the engine's reverse creation
+order, the same whatever the chunks, so a step's gradients have the same
+bits for every chunk budget. Under ``no_grad`` (or when the payload takes
+no gradient) the forward and its launches (one per chunk) are what they
+were.
 
 The ring engine (``RingGraph``, ``RingExec``, ``to_ring``) and ``run_flat``
 over a mesh wait for sharding (ROADMAP Queue 1 item 15).
@@ -96,22 +105,76 @@ def chunk_bounds(rowptr: np.ndarray, chunk_edges: int) -> List[int]:
     return bounds
 
 
-class _GatherRows(torch.autograd.Function):
-    """``table.index_select(0, idx)`` whose transpose sums each table row's
-    cotangents with the segment-sum kernel, in one fixed order: ``csr()``
-    gives the grouping of ``idx``'s positions by row, ``(rowptr (rows + 1,)
-    int32, perm int32 or None)``, built only when the backward runs."""
+def csr_by_row(idx: torch.Tensor):
+    """``idx``'s positions grouped by the row they read, over the distinct
+    rows only: ``(rowptr (R + 1,), perm, rows (R,))``, all int32, from a
+    stable sort (ties in position order) and ``unique_consecutive``."""
+    keys, perm = torch.sort(idx, stable=True)
+    rows, counts = torch.unique_consecutive(keys, return_counts=True)
+    rowptr = torch.zeros(rows.numel() + 1, dtype=torch.int32,
+                         device=idx.device)
+    rowptr[1:] = counts.cumsum(0)
+    return rowptr, perm.to(torch.int32), rows.to(torch.int32)
+
+
+class _GradBuffer:
+    """One call's gradient of its payload: an (N, Dp) tensor of the
+    payload's dtype, zero-filled at the first ``add``, into which each
+    block's gather transposes add in place (the module docstring)."""
+
+    def __init__(self, payload: torch.Tensor):
+        self.shape, self.dtype = tuple(payload.shape), payload.dtype
+        self.device = payload.device
+        self.buf = None
+
+    def add(self, grad, rowptr, perm=None, rows=None, seg_lo=0) -> None:
+        """Adds the CSR-grouped sums of ``grad``'s rows into their rows."""
+        if self.buf is None:
+            self.buf = torch.zeros(self.shape, dtype=self.dtype,
+                                   device=self.device)
+        ops.segment_sum_csr_accumulate(grad.contiguous(), rowptr, perm,
+                                       out=self.buf, rows=rows, seg_lo=seg_lo)
+
+    def take(self) -> torch.Tensor:
+        buf, self.buf = self.buf, None
+        if buf is None:
+            buf = torch.zeros(self.shape, dtype=self.dtype, device=self.device)
+        return buf
+
+
+class _GradSink(torch.autograd.Function):
+    """The identity on the payload: its output is the token the gathers
+    read. Its backward runs after every gather's backward (they all hang
+    off the token) and hands out the buffer as the payload's gradient."""
 
     @staticmethod
-    def forward(ctx, table, idx, csr):
-        ctx.csr = csr
+    def forward(ctx, payload, buffer):
+        ctx.set_materialize_grads(False)
+        ctx.buffer = buffer
+        return payload.view_as(payload)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        buf = ctx.buffer.take()
+        return (buf if grad is None else buf.add_(grad)), None
+
+
+class _GatherRows(torch.autograd.Function):
+    """``table.index_select(0, idx)`` whose transpose is ``add(grad)``: it
+    adds the cotangents into a ``_GradBuffer`` and returns no gradient for
+    ``table``, which is a ``_GradSink``'s token."""
+
+    @staticmethod
+    def forward(ctx, table, idx, add):
+        ctx.add = add
         return table.index_select(0, idx)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
-        rowptr, perm = ctx.csr()
-        return ops.segment_sum_csr(grad.contiguous(), rowptr, perm), None, None
+        ctx.add(grad)
+        return None, None, None
 
 
 class LocalExec:
@@ -139,6 +202,7 @@ class LocalExec:
         self.block = min(MSG_BLOCK_EDGES,
                          1 << max(0, self.n_edges - 1).bit_length())
         rp_host = self.rowptr.cpu().numpy().astype(np.int64)
+        self._rp_host = rp_host
         self.chunks: List[Tuple[int, int, int, int, torch.Tensor]] = []
         seg_b = chunk_bounds(rp_host, chunk_edges)
         for lo, hi in zip(seg_b[:-1], seg_b[1:]):
@@ -165,25 +229,40 @@ class LocalExec:
         return a, min(a + self.block, self.n_edges)
 
     def _dst_csr(self, k: int):
-        """Block k's edges grouped by destination: its slice of ``rowptr``
-        over all N nodes, rebased to the block (no perm)."""
+        """Block k's edges grouped by destination over the rows its edges
+        reach, ``[lo, hi)``: ``(rowptr (hi - lo + 1,) int32 rebased to the
+        block, lo)``, the block's slice of ``rowptr`` (no perm; the padding
+        rows past its edges are in no segment)."""
         a, b = self._block_edges(k)
-        return self.rowptr.clamp(a, b) - a, None
+        lo = int(np.searchsorted(self._rp_host, a, side="right")) - 1
+        hi = int(np.searchsorted(self._rp_host, b, side="left"))
+        return self.rowptr[lo:hi + 1].clamp(a, b) - a, lo
 
     def _src_csr(self, k: int):
-        """Block k's edges grouped by source: a stable sort of its sources
-        (ties in edge order) and their offsets over all N nodes."""
+        """Block k's edges grouped by source over its distinct sources:
+        ``csr_by_row`` of its sources."""
         a, b = self._block_edges(k)
-        keys, perm = torch.sort(self.src[a:b], stable=True)
-        bounds = torch.arange(self.n + 1, dtype=torch.int32,
-                              device=keys.device)
-        rowptr = torch.searchsorted(keys, bounds).to(torch.int32)
-        return rowptr, perm.to(torch.int32)
+        return csr_by_row(self.src[a:b])
 
-    def _block_rows(self, fn, node_payload: torch.Tensor, k: int):
+    def _add_dst(self, buffer: _GradBuffer, k: int, grad) -> None:
+        """Adds block k's cotangents into its destinations' rows."""
+        a, b = self._block_edges(k)
+        if b <= a:                  # a graph without edges: nothing to add
+            return
+        rowptr, lo = self._dst_csr(k)
+        buffer.add(grad, rowptr, seg_lo=lo)
+
+    def _add_src(self, buffer: _GradBuffer, k: int, grad) -> None:
+        """Adds block k's cotangents into its distinct sources' rows."""
+        rowptr, perm, rows = self._src_csr(k)
+        buffer.add(grad, rowptr, perm, rows)
+
+    def _block_rows(self, fn, node_payload: torch.Tensor, k: int,
+                    buffer=None):
         """``fn(src rows, dst rows)`` of sorted-edge block k, padded to
         ``block`` rows with copies of node 0. Under grad the block is
-        checkpointed and its gathers are ``_GatherRows``."""
+        checkpointed; with a ``buffer`` (``node_payload`` is then its
+        sink's token) its gathers are ``_GatherRows``."""
         a = k * self.block
         src = self.src[a:a + self.block]
         dst = self.dst[a:a + self.block]
@@ -195,18 +274,31 @@ class LocalExec:
                       node_payload.index_select(0, dst))
 
         def run(payload):
-            return fn(_GatherRows.apply(payload, src,
-                                        lambda: self._src_csr(k)),
-                      _GatherRows.apply(payload, dst,
-                                        lambda: self._dst_csr(k)))
+            if buffer is None:
+                return fn(payload.index_select(0, src),
+                          payload.index_select(0, dst))
+            return fn(_GatherRows.apply(
+                          payload, src, lambda g: self._add_src(buffer, k, g)),
+                      _GatherRows.apply(
+                          payload, dst, lambda g: self._add_dst(buffer, k, g)))
 
         return checkpoint(run, node_payload, use_reentrant=False)
 
-    def messages(self, fn, node_payload: torch.Tensor):
+    @staticmethod
+    def _sink(node_payload: torch.Tensor):
+        """(what the blocks read, the gradient buffer or None): under grad,
+        a payload that takes a gradient is read through a ``_GradSink``."""
+        if not (torch.is_grad_enabled() and node_payload.requires_grad):
+            return node_payload, None
+        buffer = _GradBuffer(node_payload)
+        return _GradSink.apply(node_payload, buffer), buffer
+
+    def messages(self, fn, node_payload: torch.Tensor, buffer=None):
         """Yields ``(chunk, rows)`` for every chunk in order: ``rows`` is
         ``fn(src rows, dst rows)`` of the chunk's edges (Ec, ...), taken
         from the fixed blocks of sorted edges (the module docstring says
-        why). fn must compute each row from its own edge alone."""
+        why). fn must compute each row from its own edge alone. With a
+        ``buffer``, ``node_payload`` is its sink's token (``_sink``)."""
         t = self.block
         last_k, last = -1, None
         for chunk in self.chunks:
@@ -218,7 +310,8 @@ class LocalExec:
                 min(e0 // t, max(0, self.n_edges - 1) // t)]
             for k in ks:
                 if k != last_k:
-                    last_k, last = k, self._block_rows(fn, node_payload, k)
+                    last_k, last = k, self._block_rows(fn, node_payload, k,
+                                                       buffer)
                 a = k * t
                 parts.append(last[max(e0, a) - a:min(e1, a + t) - a])
             yield chunk, parts[0] if len(parts) == 1 else torch.cat(parts)
@@ -234,7 +327,8 @@ class LocalExec:
         kernel into their output rows; the chunks tile ``[0, N)``, so every
         row is written.
         """
-        return self._aggregate(self.messages(msg_fn, node_payload),
+        token, buffer = self._sink(node_payload)
+        return self._aggregate(self.messages(msg_fn, token, buffer),
                                node_payload, d_out)
 
     def _aggregate(self, chunk_msgs, node_payload: torch.Tensor,
@@ -269,11 +363,14 @@ class LocalExec:
         """Softmax-normalised (per destination) attention aggregation:
         logit_fn gives (M, H), msg_fn (M, H, dh) with H · dh = d_out. A
         chunk holds every in-edge of its destinations, so each softmax is
-        chunk-local."""
+        chunk-local. Both message streams read the payload through one
+        sink, so the call keeps one gradient buffer."""
+        token, buffer = self._sink(node_payload)
+
         def weighted():
             for (chunk, logits), (_, msgs) in zip(
-                    self.messages(logit_fn, node_payload),
-                    self.messages(msg_fn, node_payload)):
+                    self.messages(logit_fn, token, buffer),
+                    self.messages(msg_fn, token, buffer)):
                 lo, hi, e0, e1, _ = chunk
                 w = seg.segment_softmax(logits, self.dst[e0:e1] - lo, hi - lo)
                 yield chunk, (msgs * w[..., None]).reshape(e1 - e0, d_out)

@@ -8,8 +8,9 @@ progressive rounds' probe-kernel launches, and durability on the card:
 prefix, ``partitioner.fit`` and the hop operator repeated bitwise (their
 sums run the segment-sum kernel), a bf16 checkpoint leaf round trip, and
 EGNN training on the card: the segment sum's backward and the gather
-transpose against the CPU and ``index_add_``, one train step against the
-CPU's, its launches, and the no-grad forward's launches; and
+transpose against the CPU and ``index_add_``, the in-place kernel of the
+transposes against its plain version bit for bit, one train step against
+the CPU's, its launches, and the no-grad forward's launches; and
 the row-sharded search: scores equal to the single layout's, one probe
 launch per shard, each shard's probe kernel at its ``cap_l`` against the
 plain version, the replica rebuilt after a maintain pass; the decode
@@ -873,12 +874,13 @@ def test_segment_sum_backward_on_the_card_equals_the_cpu(dtype):
 
 @pytest.mark.gpu
 def test_gather_transpose_on_the_card_equals_index_add():
-    """``LocalExec``'s gather transpose (the kernel over a source-sorted
-    CSR) against ``index_add_`` (atomics) within fp32 tolerance, and the
-    same bits twice; one launch per backward."""
+    """``LocalExec``'s gather transpose (the in-place kernel over the
+    compacted CSR of the rows read, into its sink's buffer) against
+    ``index_add_`` (atomics) within fp32 tolerance, and the same bits
+    twice; one launch per backward."""
     _need_card()
     from repro_torch.kernels.segment_reduce import ops as sops
-    from repro_torch.models.gnn.common import _GatherRows
+    from repro_torch.models.gnn import common as gc
     g = torch.Generator(device="cuda").manual_seed(22)
     n, e, d = 50_000, 1 << 20, 67
     table = torch.randn((n, d), device="cuda", generator=g)
@@ -886,22 +888,129 @@ def test_gather_transpose_on_the_card_equals_index_add():
                         dtype=torch.int32)
     cot = torch.randn((e, d), device="cuda", generator=g)
 
-    def csr():
-        keys, perm = torch.sort(idx, stable=True)
-        bounds = torch.arange(n + 1, device="cuda", dtype=torch.int32)
-        return (torch.searchsorted(keys, bounds).to(torch.int32),
-                perm.to(torch.int32))
-
     def grad():
         t = table.clone().requires_grad_(True)
-        return torch.autograd.grad(_GatherRows.apply(t, idx, csr), t, cot)[0]
+        buf = gc._GradBuffer(t)
+        token = gc._GradSink.apply(t, buf)
+        rows = gc._GatherRows.apply(
+            token, idx, lambda c: buf.add(c, *gc.csr_by_row(idx)))
+        return torch.autograd.grad(rows, t, cot)[0]
 
-    before = sops.segment_sum_csr.launches
+    before = sops.segment_sum_csr_accumulate.launches
     a, b = grad(), grad()
-    assert sops.segment_sum_csr.launches == before + 2
+    assert sops.segment_sum_csr_accumulate.launches == before + 2
     assert torch.equal(a, b)
     want = torch.zeros_like(table).index_add_(0, idx.long(), cot)
     torch.testing.assert_close(a, want, rtol=0, atol=1e-4)
+
+
+def _acc_case(g, n_rows, n_seg, d, dtype, with_perm, mean_deg):
+    """A CSR of n_seg segments of 0..2·mean_deg entries (a perm over the
+    messages, or the messages in order), distinct rows of an (n_rows, d)
+    output, and that output's random start."""
+    deg = torch.randint(0, 2 * mean_deg + 1, (n_seg,), device="cuda",
+                        generator=g)
+    rowptr = torch.zeros(n_seg + 1, dtype=torch.int32, device="cuda")
+    rowptr[1:] = deg.cumsum(0)
+    e = int(rowptr[-1]) + 5
+    msg = torch.randn((e, d), device="cuda", generator=g).to(dtype)
+    perm = (torch.randperm(e, device="cuda", generator=g)[:e - 5].int()
+            if with_perm else None)
+    rows = torch.randperm(n_rows, device="cuda", generator=g)[:n_seg].int()
+    out0 = torch.randn((n_rows, d), device="cuda", generator=g).to(dtype)
+    return msg, rowptr, perm, rows, out0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 5, 33, 67, 68, 129, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_accumulate_kernel_matches_plain_version(d, dtype, monkeypatch):
+    """The in-place kernel against its plain version bit for bit: the
+    compacted-source form (perm, listed rows, ~1.2 entries a segment) and
+    the destination-range form (no perm, ``seg_lo``, ~25 entries, empty
+    segments); every group size gives the same bits; rows not listed keep
+    theirs; one launch a call."""
+    _need_card()
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.kernels.segment_reduce.ref import (
+        segment_sum_csr_accumulate_ref)
+    g = torch.Generator(device="cuda").manual_seed(40 + d)
+    msg, rowptr, perm, rows, out0 = _acc_case(g, 9_000, 4_000, d, dtype,
+                                              True, 1)
+    want = segment_sum_csr_accumulate_ref(msg, rowptr, perm,
+                                          out=out0.clone(), rows=rows)
+    auto = sops.group_size
+    for group in (None, 1, 7, 31):
+        monkeypatch.setattr(sops, "group_size", auto if group is None
+                            else lambda n, e, group=group: group)
+        before = sops.segment_sum_csr_accumulate.launches
+        got = sops.segment_sum_csr_accumulate(msg, rowptr, perm,
+                                              out=out0.clone(), rows=rows)
+        assert sops.segment_sum_csr_accumulate.launches == before + 1
+        assert torch.equal(got, want), group
+    keep = torch.ones(9_000, dtype=torch.bool, device="cuda")
+    keep[rows.long()] = False
+    assert torch.equal(want[keep], out0[keep])
+    msg, rowptr, _, _, out0 = _acc_case(g, 3_000, 1_500, d, dtype, False, 25)
+    rowptr[100:201] = rowptr[100]                  # 100 empty segments
+    want = segment_sum_csr_accumulate_ref(msg, rowptr, out=out0.clone(),
+                                          seg_lo=700)
+    for group in (None, 2, 31):
+        monkeypatch.setattr(sops, "group_size", auto if group is None
+                            else lambda n, e, group=group: group)
+        got = sops.segment_sum_csr_accumulate(msg, rowptr, out=out0.clone(),
+                                              seg_lo=700)
+        assert torch.equal(got, want), group
+    assert torch.equal(want[:700], out0[:700])
+    assert torch.equal(want[2_200:], out0[2_200:])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_accumulate_kernel_refuses_what_it_cannot_take():
+    """ValueError and no launch: fp16, a CPU output, a width that differs,
+    int64 rows, rows beside ``seg_lo``, a range past the output, messages
+    that need a gradient."""
+    _need_card()
+    from repro_torch.kernels.segment_reduce import ops as sops
+    msg = torch.ones((8, 4), device="cuda")
+    rowptr = torch.tensor([0, 3, 8], device="cuda", dtype=torch.int32)
+    rows = torch.tensor([5, 1], device="cuda", dtype=torch.int32)
+    out = torch.zeros((6, 4), device="cuda")
+    acc = sops.segment_sum_csr_accumulate
+    bad = [
+        lambda: acc(msg.half(), rowptr, out=out.half()),
+        lambda: acc(msg, rowptr, out=out.cpu()),
+        lambda: acc(msg, rowptr, out=torch.zeros((6, 5), device="cuda")),
+        lambda: acc(msg, rowptr, out=out, rows=rows.long()),
+        lambda: acc(msg, rowptr, out=out, rows=rows, seg_lo=1),
+        lambda: acc(msg, rowptr, out=out, seg_lo=5),
+        lambda: acc(msg.clone().requires_grad_(True), rowptr, out=out),
+    ]
+    before = acc.launches
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert acc.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [67, 68])
+def test_forward_kernel_bits_unchanged_beside_accumulate(d):
+    """The summing kernel (the forward's, the index path's) still equals
+    its plain version bit for bit at EGNN's widths, and the in-place kernel
+    into zeros equals it (0 + s = s)."""
+    _need_card()
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.kernels.segment_reduce.ref import segment_sum_csr_ref
+    g = torch.Generator(device="cuda").manual_seed(60 + d)
+    msg, rowptr, perm, _, _ = _acc_case(g, 1, 20_000, d, torch.float32, True,
+                                        25)
+    fwd = sops.segment_sum_csr(msg, rowptr, perm)
+    assert torch.equal(fwd, segment_sum_csr_ref(msg, rowptr, perm))
+    zeros = torch.zeros((20_000, d), device="cuda")
+    assert torch.equal(sops.segment_sum_csr_accumulate(msg, rowptr, perm,
+                                                       out=zeros), fwd)
 
 
 def _egnn_train_case(n=3000, e=75_000):
@@ -918,9 +1027,9 @@ def test_egnn_train_step_on_the_card_matches_the_cpu(monkeypatch):
     """A full-width EGNN step on a 3,000-node graph in message blocks of
     16,384 edges: the card's new params and gradients against the same
     step on the CPU (1e-3 relative to max(1, |want|)), the same bits twice
-    and for another chunk budget, and ``layers × (chunks + 2 × blocks)``
-    launches (the forward's chunks, then each block's two gather
-    transposes)."""
+    and for another chunk budget, ``layers × chunks`` launches of the
+    summing kernel (the forward's chunks) and ``layers × 2 × blocks`` of the
+    in-place one (each block's two gather transposes)."""
     _need_card()
     from repro_torch.common.tree import leaves, tree_map
     from repro_torch.kernels.segment_reduce import ops as sops
@@ -940,9 +1049,12 @@ def test_egnn_train_step_on_the_card_matches_the_cpu(monkeypatch):
         return torch.autograd.grad(loss, leaves(live))
 
     before = sops.segment_sum_csr.launches
+    before_acc = sops.segment_sum_csr_accumulate.launches
     new, _, m = step(params, init_adamw(params), {"graph": g, "exec": ex})
-    assert sops.segment_sum_csr.launches - before == cfg.n_layers * (
-        len(ex.chunks) + 2 * blocks)
+    assert sops.segment_sum_csr.launches - before == cfg.n_layers * len(
+        ex.chunks)
+    assert sops.segment_sum_csr_accumulate.launches - before_acc == (
+        cfg.n_layers * 2 * blocks)
     again, _, _ = step(params, init_adamw(params), {"graph": g, "exec": ex})
     half, _, _ = step(params, init_adamw(params),
                       {"graph": g, "exec": gc.LocalExec(g, 9_000)})

@@ -200,22 +200,20 @@ def test_push_grads_are_bitwise_independent_of_chunk_size(monkeypatch):
 
 
 def test_gather_transpose_equals_index_add():
-    """``_GatherRows``' backward (the segment sum over a CSR grouping)
-    against ``index_add_`` of the same cotangents, and the same bits twice."""
+    """``_GatherRows``' backward (the in-place segment sum over the
+    compacted CSR of the rows it read, into its sink's buffer) against
+    ``index_add_`` of the same cotangents, and the same bits twice."""
     rng = np.random.default_rng(4)
     table = _port(rng.normal(size=(30, 6)).astype(np.float32))
     idx = _port(rng.integers(0, 30, 200).astype(np.int32))
     cot = _port(rng.normal(size=(200, 6)).astype(np.float32))
 
-    def csr():
-        keys, perm = torch.sort(idx, stable=True)
-        bounds = torch.arange(31, dtype=torch.int32)
-        return (torch.searchsorted(keys, bounds).to(torch.int32),
-                perm.to(torch.int32))
-
     def grad():
         t = table.clone().requires_grad_(True)
-        rows = t_common._GatherRows.apply(t, idx, csr)
+        buf = t_common._GradBuffer(t)
+        token = t_common._GradSink.apply(t, buf)
+        rows = t_common._GatherRows.apply(
+            token, idx, lambda g: buf.add(g, *t_common.csr_by_row(idx)))
         return torch.autograd.grad(rows, t, cot)[0]
 
     want = torch.zeros_like(table).index_add_(0, idx.long(), cot)
