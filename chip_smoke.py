@@ -2,7 +2,8 @@
 on one NVIDIA GPU (written for an H100): hybrid retrieval, RAG serving
 over the retrieval index with phi4-mini and with DeepSeek-V2-Lite at full
 width and depth, EGNN full-graph inference at the ogbn-products shape,
-and EGNN training (full graph, minibatch, molecule).
+EGNN training (full graph, minibatch, molecule), and phi4-mini training
+at full width and depth.
 
     python3 chip_smoke.py
 
@@ -165,11 +166,31 @@ Phases (each prints one line; any failure exits non-zero):
                 114,615,892-edge host graph, the neighbour sampler's CSR,
                 4 steps of 1,024 fanout-(15, 10) trees (sampler ms and
                 step ms apart); (d) one molecule step.
+     lm_train — LM training through models.lm.make_train_step (the GNN
+                state freed first): (a) phi4-mini at full width and depth
+                (bf16, seeded random weights), seq 4,096, micro-batch 1 x
+                grad_accum 4 (global batch 4, cut from train_4k's 256),
+                remat, q_block 1,024, AdamW (lr 3e-4, warm-up 100,
+                cosine): one warm-up and 3 timed steps (step p50/p99,
+                tokens/s, mfu against 989 TFLOP/s bf16, peak memory, the
+                token transpose's launches a step: one per micro-batch),
+                one profiled step; the token transpose (the in-place kernel
+                at 4,096 x 3,072 bf16 into 200,064 rows) against its plain
+                version bit for bit, timed beside its byte bound and
+                index_put_(accumulate=True); (b) 2-layer full-width copies
+                of phi4-mini (grad_accum 2) and DeepSeek-V2-Lite (a dense
+                and an MLA + MoE layer), one fp32 step each at seq 128,
+                card against CPU; (c) their bf16 twins, two runs of one step
+                bitwise; (d) the Trainer with checkpoints on the 2-layer
+                phi4-mini (~8.2 GB each), a failure at step 3 restored
+                bitwise; (e) python -m repro_torch.launch.train --arch
+                phi4-mini-3.8b --steps 2 as a child process.
   8. the kernels line, then the contract line. The segment sum's launches
      there count the index path's too (k-means cluster sums, hop
      out-weights), read phase by phase, and the training runs' forwards;
-     the in-place kernel's (segment_sum_csr_accumulate) the training
-     runs' gather transposes; the
+     the in-place kernel's (segment_sum_csr_accumulate) the GNN training
+     runs' gather transposes and the LM runs' token transposes ((a)'s
+     steps and (d)'s Trainer runs); the
      scans' count the index phases' and both RAG cells' retrievals, the
      decode kernel's the phi4-mini cell and the mixtral check.
 
@@ -202,6 +223,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # cores, dense int8 on the tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_INT8_TC_OPS = 1979e12
+PEAK_BF16_TC_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 VEC_N, HYB_N, DIM, BATCH = 1_048_576, 131_072, 384, 256
 # the hybrid phase's ingest runs the reference's host Louvain sweep, about
@@ -275,6 +297,21 @@ GNN_CPU_RTOL = 1e-3
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 2, 3
 TRAIN_CPU_N = 65_536
 MB_ROOTS, MB_FANOUTS, MB_STEPS, MB_D_FEAT = 1024, (15, 10), 4, 602
+# the LM training cell: phi4-mini at full width and depth, train_4k's
+# sequence, micro-batch 1 x LM_ACCUM micro-batches, one warm-up and
+# LM_STEPS timed steps; its checks on 2-layer full-width copies (card vs
+# CPU at LM_CPU_SEQ in fp32; two runs bitwise in bf16; the Trainer's
+# restart at LM_CKPT_SEQ, which needs LM_CKPT_MIN_FREE of disk: two
+# ~8.2 GB checkpoints)
+LM_SEQ, LM_ACCUM, LM_STEPS = 4096, 4, 3
+LM_CUT = ("lm_train: global batch 4 (micro-batch 1 x grad_accum 4), cut "
+          "from train_4k's 256; seq 4,096, width, vocabulary and depth as "
+          "published")
+LM_CPU_SEQ, LM_CKPT_SEQ = 128, 512
+LM_CKPT_MIN_FREE = 20e9
+# card vs CPU in fp32 (TF32 off): PR 20's 1e-4, relative to each leaf's
+# largest |value| (to max(1, ...) for the params)
+LM_CPU_RTOL = 1e-4
 
 
 def line(tag: str, **kw) -> None:
@@ -557,6 +594,24 @@ def batch_independent(scan, args, sel) -> bool:
     return all(torch.equal(b[sel], s_) for b, s_ in zip(big, small))
 
 
+def grouped_matmul_ms(slab, vmin, scale, probes, q, k_parts: int, cap: int,
+                      flush):
+    """(ms, width): the probe scan's library yardstick, the same dot
+    products as one batched torch.matmul over the already-dequantized fp32
+    slab (K, cap, d), queries grouped by probed partition (padded to the
+    most-probed one, ``width``); dequantization not timed."""
+    deq = ((slab.to(torch.float32) + 128.0) * scale[:, None]
+           + vmin[:, None]).reshape(k_parts, cap, -1)
+    hits = torch.bincount(probes.flatten().long(), minlength=k_parts)
+    width = int(hits.max())
+    qg = torch.zeros((k_parts, width, q.shape[1]), device="cuda")
+    for p in range(k_parts):
+        who = torch.nonzero((probes == p).any(dim=1)).flatten()
+        qg[p, :len(who)] = q[who]
+    deq_t = deq.transpose(1, 2)
+    return cuda_ms(lambda: torch.matmul(qg, deq_t), 10, flush), width
+
+
 def measure_probe() -> dict:
     """ivf_probe_scan against its plain version at serve_1m: Q=256, d=384,
     K=64, cap=32,769, n_probe=8, on a seeded slab of that shape; the same
@@ -615,19 +670,8 @@ def measure_probe() -> dict:
     skewed_ms = cuda_ms(lambda: ops.probe_scan(
         q, qsum, slab, aff, scale, bias, skewed, cap, chunk), 20, flush)
     pms = cuda_ms(lambda: ref.probe_scan(*args), 2, flush)
-    # library yardstick: the same dot products as one batched torch.matmul
-    # over the already-dequantized fp32 slab, queries grouped by probed
-    # partition (padded to the most-probed one); dequantization not timed
-    deq = ((slab.to(torch.float32) + 128.0) * scale[:, None]
-           + vmin[:, None]).reshape(k_parts, cap, DIM)
-    hits = torch.bincount(probes.flatten().long(), minlength=k_parts)
-    width = int(hits.max())
-    qg = torch.zeros((k_parts, width, DIM), device="cuda")
-    for p in range(k_parts):
-        who = torch.nonzero((probes == p).any(dim=1)).flatten()
-        qg[p, :len(who)] = q[who]
-    deq_t = deq.transpose(1, 2)
-    lms = cuda_ms(lambda: torch.matmul(qg, deq_t), 10, flush)
+    lms, width = grouped_matmul_ms(slab, vmin, scale, probes, q, k_parts,
+                                   cap, flush)
     err = max(c["max_abs_err"] for c in checks.values())
     line("kernel.probe_scan", shape=dict(Q=BATCH, d=DIM, K=k_parts, cap=cap,
                                          n_probe=n_probe, chunk=chunk),
@@ -1308,6 +1352,9 @@ def phase_sharded(index, corpus) -> None:
                       + 2 * BATCH * cfg.n_probe * nchp * 4)
             bms, bby, fp32_ms, _ = scan_bounds(BATCH * cfg.n_probe * cap_l,
                                                DIM, nbytes)
+            data0, vmin0, scale0, _ = placed[0].slab_view()
+            lib_ms, lib_width = grouped_matmul_ms(data0, vmin0, scale0, pr,
+                                                  qn, k_parts, cap_l, flush)
             shard_kernel = dict(
                 shape=dict(Q=BATCH, d=DIM, K=k_parts, cap_l=cap_l,
                            n_probe=cfg.n_probe, chunk=16),
@@ -1315,8 +1362,13 @@ def phase_sharded(index, corpus) -> None:
                 ms=cuda_ms(lambda: ops.probe_scan(*shard_args), 20, flush),
                 plain_ms=cuda_ms(lambda: ref.probe_scan(*shard_args), 2,
                                  flush),
+                library_ms=lib_ms,
+                library="torch.matmul (K,%d,d)x(K,d,cap_l) fp32, shard 0's "
+                        "dequantized slab, queries grouped by partition"
+                        % lib_width,
                 bound_ms=bms, bound_by=bby, bound_fp32_ms=fp32_ms,
                 gbytes=nbytes / 1e9, distinct_probed=distinct)
+            del data0, vmin0, scale0
             ops.probe_scan.launches = saved
             del flush, gen, shard_args
         del placed
@@ -3525,7 +3577,9 @@ def measure_transpose(ex) -> dict:
                                         for v in both) else "operations",
                 library_ms=sum(v["library_ms"] for v in both),
                 measured="one message block's two transposes (source + "
-                         "destination side)", sides=sides)
+                         "destination side); sides.token, the LM's token "
+                         "transpose (lm_train), is not in the sums",
+                sides=sides)
 
 
 class ConstantStream:
@@ -3792,6 +3846,374 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def lm_train_flops(cfg, seqs: int, seq: int) -> float:
+    """A train step's FLOPs with remat: 6·N per token (the tied embedding
+    counted once, as the logits' weight), the attention's 12·L·S²·D per
+    sequence (forward and backward, the full S × S the port computes), and
+    one more forward of the rematerialised layers (2·N_layer per token and
+    4·L·S²·D per sequence)."""
+    n = cfg.param_count()
+    emb = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    tokens = seqs * seq
+    per_layer_attn = seq * seq * cfg.n_heads * cfg.resolved_head_dim * seqs
+    layers = cfg.n_layers - cfg.first_dense_layers
+    return (6.0 * n * tokens + 12.0 * cfg.n_layers * per_layer_attn
+            + 2.0 * (n - emb) * layers / cfg.n_layers * tokens
+            + 4.0 * layers * per_layer_attn)
+
+
+def lm_batch(cfg, accum: int, micro: int, seq: int, step: int = 0):
+    """The LM stream's batch ``step`` (the port's ``SyntheticLMStream``),
+    shaped (accum, micro, seq) when accum > 1."""
+    from repro_torch.data.pipeline import SyntheticLMStream
+    b = SyntheticLMStream(cfg.vocab_size, accum * micro, seq,
+                          seed=0).batch_at(step)
+    shape = (accum, micro, seq) if accum > 1 else (micro, seq)
+    return {k: torch.from_numpy(v.reshape(shape)).to("cuda")
+            for k, v in b.items()}
+
+
+def tree_clone(tree):
+    from repro_torch.common.tree import tree_map
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def leaf_rel_errs(got, want, floor_one: bool) -> float:
+    """The largest |got - want| over the pairs of leaves, each relative to
+    its leaf's largest |want| (to max(1, that) with ``floor_one``)."""
+    from repro_torch.common.tree import leaves
+    worst = 0.0
+    for a, b in zip(leaves(got), leaves(want)):
+        b = b.cpu()
+        scale = float(b.abs().max())
+        scale = max(1.0, scale) if floor_one else max(scale, 1e-30)
+        worst = max(worst, float((a.cpu() - b).abs().max()) / scale)
+    return worst
+
+
+def measure_token_transpose(tokens: torch.Tensor, d: int, n_rows: int):
+    """The token lookup's transpose at the train step's shape: one
+    micro-batch's cotangent (tokens × d, bf16) added in place into an
+    (n_rows, d) bf16 gradient over its distinct tokens, the in-place kernel
+    against its plain version (bit for bit, into the same random buffer),
+    timed beside a bound that counts the cotangent, perm, offsets and rows
+    once and each touched row read once and written once, its plain version
+    and ``index_put_(accumulate=True)`` into the same buffer in place."""
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.kernels.segment_reduce.ref import (
+        segment_sum_csr_accumulate_ref)
+    from repro_torch.sparse.segment import csr_by_row
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    flat = tokens.reshape(-1)
+    e = flat.numel()
+    cot = torch.randn((e, d), device="cuda", generator=gen).to(torch.bfloat16)
+    base = torch.randn((n_rows, d), device="cuda",
+                       generator=gen).to(torch.bfloat16)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda").zero_
+    rowptr, perm, rows = csr_by_row(flat)
+    r = rows.numel()
+    saved = sops.segment_sum_csr_accumulate.launches
+    out = sops.segment_sum_csr_accumulate(cot, rowptr, perm, out=base.clone(),
+                                          rows=rows)
+    ref = segment_sum_csr_accumulate_ref(cot, rowptr, perm, out=base.clone(),
+                                         rows=rows)
+    idx = flat.long()
+    lib = base.clone().index_put_((idx,), cot, accumulate=True)
+    torch.cuda.synchronize()
+    same = torch.equal(out, ref)
+    err = float((out.float() - ref.float()).abs().max())
+    check(same, f"token transpose: the in-place kernel is not bitwise equal "
+                f"to its plain version (max |d| {err})")
+    lib_err = float((lib.float() - out.float()).abs().max())
+    nbytes = e * d * 2 + e * 4 + (r + 1) * 4 + r * 4 + 2 * r * d * 2
+    bms, bby = bound(float(e * d + r * d), nbytes)
+    kms = cuda_ms(lambda: sops.segment_sum_csr_accumulate(
+        cot, rowptr, perm, out=out, rows=rows), 20, flush)
+    pms = cuda_ms(lambda: segment_sum_csr_accumulate_ref(
+        cot, rowptr, perm, out=ref, rows=rows), 5, flush)
+    lms = cuda_ms(lambda: lib.index_put_((idx,), cot, accumulate=True), 20,
+                  flush)
+    sops.segment_sum_csr_accumulate.launches = saved
+    res = dict(shape=dict(E=e, d=d, rows=r, n=n_rows, dtype="bfloat16",
+                          perm=True),
+               group=sops.group_size(r, e), max_abs_err=err, bitwise=same,
+               ms=kms, plain_ms=pms, library_ms=lms,
+               library="index_put_((tokens,), cot, accumulate=True) into "
+                       "the same buffer, in place",
+               library_max_abs_diff=lib_err, bound_ms=bms, bound_by=bby,
+               gbytes=nbytes / 1e9,
+               achieved_tb_s=nbytes / (kms * 1e-3) / 1e12)
+    line("kernel.segment_sum_accumulate.token", **res)
+    del out, ref, lib, base, cot
+    torch.cuda.empty_cache()
+    return res
+
+
+def lm_cpu_check(name: str, cfg, seed: int, accum: int, micro: int):
+    """One train step of ``cfg`` (fp32) on the card and on the CPU from the
+    same params: loss, grad norm, new params and moments compared (the
+    router's near-ties, where a MoE model's routing may flip, are checked
+    first and such a case is not compared, with a warning)."""
+    from repro_torch.layers import moe
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    from repro_torch.common.tree import tree_map
+    params = lm.init_lm(cfg, seed, device="cuda")
+    cpu_p = tree_map(lambda t: t.to("cpu", copy=True), params)
+    batch = lm_batch(cfg, accum, micro, LM_CPU_SEQ, step=seed)
+    cpu_b = {k: v.cpu() for k, v in batch.items()}
+    gap = float("inf")
+    if cfg.moe:
+        routings = []
+        with torch.no_grad():
+            for t in batch["tokens"].reshape(-1, micro, LM_CPU_SEQ):
+                lm.forward(cfg, params, t, moe_routings=routings)
+        gap = float(torch.stack([moe.near_tie_gap(r) for r in routings]).min())
+    # eps 1e-3: Adam's first update is then a smooth function of the
+    # gradient (at 1e-8 it is near sign(g) where |g| is near eps)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, eps=1e-3)
+    opts = lm.ExecOpts(q_block=64)
+    step = lm.make_train_step(cfg, None, opts, ocfg, grad_accum=accum)
+    cp, co, cm = step(params, init_adamw(params), batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hp, ho, hm = step(cpu_p, init_adamw(cpu_p), cpu_b)
+    cpu_s = time.perf_counter() - t0
+    res = dict(cell=name, layers=cfg.n_layers, seq=LM_CPU_SEQ,
+               grad_accum=accum, micro_batch=micro, router_gap=gap,
+               cpu_step_s=cpu_s, tolerance_rel=LM_CPU_RTOL)
+    if gap < NEAR_TIE:
+        print(f"chip_smoke: warning: {name}: router near-tie {gap:.2e} < "
+              f"{NEAR_TIE}: card vs CPU not compared", flush=True)
+        res["compared"] = False
+        return res
+    loss_err = abs(float(cm["loss"]) - float(hm["loss"])) / abs(
+        float(hm["loss"]))
+    gn_err = abs(float(cm["grad_norm"]) - float(hm["grad_norm"])) / abs(
+        float(hm["grad_norm"]))
+    p_err = leaf_rel_errs(cp, hp, True)
+    m_err = max(leaf_rel_errs(co.mu, ho.mu, False),
+                leaf_rel_errs(co.nu, ho.nu, False))
+    check(max(loss_err, gn_err, p_err, m_err) <= LM_CPU_RTOL,
+          f"lm_train {name}, card vs CPU: loss {loss_err}, grad norm "
+          f"{gn_err}, params {p_err}, moments {m_err} (relative)")
+    res.update(compared=True, loss=float(cm["loss"]), loss_rel_err=loss_err,
+               grad_norm_rel_err=gn_err, new_param_rel_err=p_err,
+               moment_rel_err=m_err)
+    return res
+
+
+def lm_bitwise_check(cfg, seed: int, accum: int, micro: int) -> bool:
+    """Two runs of one bf16 step from the same params and state: params,
+    moments and loss with the same bits."""
+    from repro_torch.common.tree import leaves
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    params = lm.init_lm(cfg, seed, device="cuda")
+    state = init_adamw(params)
+    batch = lm_batch(cfg, accum, micro, LM_CPU_SEQ, step=seed)
+    step = lm.make_train_step(cfg, None, lm.ExecOpts(q_block=64),
+                              AdamWConfig(lr=1e-3, warmup_steps=1),
+                              grad_accum=accum)
+    outs = [step(tree_clone(params), tree_clone(state), batch)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(
+        leaves(outs[0][:2]) + [outs[0][2]["loss"]],
+        leaves(outs[1][:2]) + [outs[1][2]["loss"]]))
+
+
+def lm_trainer_restart(cfg, root: str) -> dict:
+    """The Trainer with the LM step: 4 steps with a checkpoint every 2 (and
+    the Trainer's own at the end); a run whose step 3 fails restores the
+    step-2 checkpoint and must equal the uninterrupted run at step 4, bit
+    for bit. The uninterrupted run
+    keeps its step-4 state in memory (its directory is removed before the
+    restarted run, so two checkpoints at most are on disk)."""
+    from repro_torch.data.pipeline import SyntheticLMStream
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    def to_device(b):
+        return {k: torch.from_numpy(v.reshape(2, 1, LM_CKPT_SEQ)).to("cuda")
+                for k, v in b.items()}
+
+    def run(total, d, fail_at=None):
+        params = lm.init_lm(cfg, 5, device="cuda")
+        step = lm.make_train_step(cfg, None, lm.ExecOpts(q_block=256),
+                                  AdamWConfig(lr=1e-3, warmup_steps=1),
+                                  grad_accum=2)
+        tcfg = TrainerConfig(total_steps=total,
+                             checkpoint_every=TRAIN_CKPT_EVERY,
+                             checkpoint_dir=d, log_every=1)
+        tr = Trainer(tcfg, step, SyntheticLMStream(cfg.vocab_size, 2,
+                                                   LM_CKPT_SEQ, seed=3),
+                     params, init_adamw(params), to_device)
+        injected = {"n": 0}
+
+        def inject(s):
+            if s == fail_at and not injected["n"]:
+                injected["n"] = 1
+                raise RuntimeError(f"injected failure at step {s}")
+
+        t0 = time.perf_counter()
+        tr.run(fail_injector=inject if fail_at is not None else None)
+        return tr, time.perf_counter() - t0
+
+    from repro_torch.common.tree import leaves
+    seg_zero()
+    plain, plain_s = run(TRAIN_FAIL_AT + 1, os.path.join(root, "plain"))
+    ckpt_bytes = dir_bytes(os.path.join(root, "plain"))
+    shutil.rmtree(os.path.join(root, "plain"), ignore_errors=True)
+    faulty, faulty_s = run(TRAIN_FAIL_AT + 1, os.path.join(root, "faulty"),
+                           TRAIN_FAIL_AT)
+    launches = seg_counts()[1]
+    same = (faulty.step == plain.step == TRAIN_FAIL_AT + 1
+            and all(torch.equal(a, b) for a, b in zip(
+                leaves((faulty.params, faulty.opt_state)),
+                leaves((plain.params, plain.opt_state)))))
+    check(same, "lm_train: the restarted run's state at step 4 differs "
+                "from the uninterrupted run's")
+    shutil.rmtree(os.path.join(root, "faulty"), ignore_errors=True)
+    return dict(steps=TRAIN_FAIL_AT + 1, restart_at_step=TRAIN_FAIL_AT,
+                restored_from_step=2, restart_bitwise=same, seq=LM_CKPT_SEQ,
+                grad_accum=2, plain_run_s=plain_s, restarted_run_s=faulty_s,
+                checkpoint_dir_gb=ckpt_bytes / 1e9,
+                losses=[h["loss"] for h in plain.history],
+                launches=launches)
+
+
+def phase_lm_train() -> tuple:
+    """LM training (phi4-mini, the reference's ``make_train_step``
+    semantics): (a) full width and depth, train_4k's sequence, micro-batch
+    1 x grad_accum 4, one warm-up and 3 timed steps, one profiled; the
+    token transpose at its shape; (b) 2-layer full-width copies of
+    phi4-mini and DeepSeek-V2-Lite, one fp32 step each, card against CPU;
+    (c) their bf16 twins, two runs of one step bitwise; (d) the Trainer's
+    restart with checkpoints on the 2-layer phi4-mini; (e) the launcher as
+    a child process. Returns (the in-place kernel's launches of (a)'s and
+    (d)'s runs, the token transpose's measurement)."""
+    from repro_torch.common.tree import leaves, tree_finite
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    phase_t0 = time.perf_counter()
+    cfg = get_config("phi4-mini-3.8b")
+    # (a) full width and depth
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, 0, device="cuda")
+    state = init_adamw(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gib = torch.cuda.memory_allocated() / 2 ** 30 - held_gib
+    opts = lm.ExecOpts(remat=True, q_block=1024)
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=100, schedule="cosine")
+    step = lm.make_train_step(cfg, None, opts, ocfg, grad_accum=LM_ACCUM)
+    batches = [lm_batch(cfg, LM_ACCUM, 1, LM_SEQ, step=s)
+               for s in range(2 + LM_STEPS)]
+    seg_zero()
+    steps_ms, metrics = [], []
+    for s in range(1 + LM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[s])
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    main_launches = seg_counts()[1]
+    check(main_launches == (1 + LM_STEPS) * LM_ACCUM,
+          f"lm_train: the token transpose launched {main_launches} times in "
+          f"{1 + LM_STEPS} steps of {LM_ACCUM} micro-batches")
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    check(bool(np.isfinite(losses + gnorms).all())
+          and bool(tree_finite(params)),
+          f"lm_train: a loss, grad norm or param is not finite ({losses}, "
+          f"{gnorms})")
+    _, prof = profile_once(lambda: step(params, state, batches[-1]), top=10,
+                           share_of=("segment_accumulate_kernel",),
+                           ops_top=8)
+    prof_launches = seg_counts()[1] - main_launches
+    timed = steps_ms[1:]
+    p50 = float(np.percentile(timed, 50))
+    tokens = LM_ACCUM * LM_SEQ
+    flops = lm_train_flops(cfg, LM_ACCUM, LM_SEQ)
+    line("lm_train", cell="phi4-mini-train-4k", model=cfg.arch_id,
+         layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+         dtype=cfg.dtype, params=cfg.param_count(), seq=LM_SEQ,
+         micro_batch=1, grad_accum=LM_ACCUM, global_batch=LM_ACCUM,
+         cut=LM_CUT, remat=opts.remat, q_block=opts.q_block,
+         init_s=init_s, held_before_gib=held_gib, state_gib=state_gib,
+         warmup_steps=1,
+         step_ms=dict(p50=p50, p99=float(np.percentile(timed, 99)),
+                      all=steps_ms),
+         tokens_per_s=tokens / (p50 * 1e-3), tflops_per_step=flops / 1e12,
+         mfu=flops / (p50 * 1e-3) / PEAK_BF16_TC_FLOPS,
+         mfu_of="989 TFLOP/s dense bf16 (H100 SXM data sheet)",
+         peak_mem_gib=peak / 2 ** 30, loss=losses, grad_norm=gnorms,
+         lr=[float(m["lr"]) for m in metrics],
+         token_transpose_per_step=main_launches / (1 + LM_STEPS),
+         profiled_step_token_transposes=prof_launches, step_profile=prof)
+    token_kern = measure_token_transpose(batches[0]["tokens"][0], cfg.d_model,
+                                         cfg.vocab_size)
+    del params, state, batches, metrics, step
+    torch.cuda.empty_cache()
+
+    # (b) card vs CPU, fp32, 2 layers at full width
+    two = cfg.replace(n_layers=2)
+    dsv2 = get_config(DSV2).replace(n_layers=2)
+    cpu = [lm_cpu_check("phi4-mini-2l", two.replace(dtype="float32"), 1, 2, 1),
+           lm_cpu_check("deepseek-v2-lite-2l", dsv2.replace(dtype="float32"),
+                        2, 1, 2)]
+    torch.cuda.empty_cache()
+    # (c) their bf16 twins, two runs of one step
+    bitwise = {"phi4-mini-2l": lm_bitwise_check(two, 1, 2, 1),
+               "deepseek-v2-lite-2l": lm_bitwise_check(dsv2, 2, 1, 2)}
+    check(all(bitwise.values()),
+          f"lm_train: two runs of one bf16 step differ in their bits "
+          f"({bitwise})")
+    torch.cuda.empty_cache()
+    # (d) the Trainer's restart with checkpoints
+    root = tempfile.mkdtemp(prefix="lm_train_")
+    try:
+        free = shutil.disk_usage(root).free
+        check(free >= LM_CKPT_MIN_FREE,
+              f"lm_train: {free / 1e9:.1f} GB free under {root}, the "
+              f"Trainer check needs {LM_CKPT_MIN_FREE / 1e9:.0f}")
+        restart = lm_trainer_restart(two, root)
+        torch.cuda.empty_cache()
+        # (e) the launcher, as a user runs it, in a child process
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "phi4-mini-3.8b", "--steps", "2", "--ckpt-dir",
+             os.path.join(root, "launch")], env=env, capture_output=True,
+            text=True, timeout=600)
+        launch_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    final = re.findall(r"final loss: (\S+)", child.stdout)
+    check(child.returncode == 0 and final and np.isfinite(float(final[-1])),
+          f"lm_train: the launcher exited {child.returncode}, stdout "
+          f"{child.stdout[-500:]!r}, stderr {child.stderr[-1500:]!r}")
+    line("lm_train.checks", card_vs_cpu=cpu, two_runs_bitwise=bitwise,
+         trainer=restart, launcher=dict(
+             command="python -m repro_torch.launch.train --arch "
+                     "phi4-mini-3.8b --steps 2", exit=child.returncode,
+             final_loss=float(final[-1]), wall_s=launch_s),
+         left_out="a full-depth checkpoint (46 GB of host copy and disk "
+                  "writes); the Trainer runs on the 2-layer copy",
+         phase_s=time.perf_counter() - phase_t0)
+    return main_launches + restart["launches"], token_kern
+
+
 def main():
     # the port must import before anything is printed: a copy of this
     # script without the repository fails here, with nothing on stdout
@@ -3862,6 +4284,8 @@ def main():
     train_launches, train_acc, kern["accumulate"] = phase_gnn_train(*trained)
     del trained
     check(train_acc > 0, "the in-place kernel was not launched by training")
+    torch.cuda.empty_cache()
+    lm_acc, kern["accumulate"]["sides"]["token"] = phase_lm_train()
     line("launches", vector=dict(zip(("probe", "shared"), after_vector)),
          maint={"probe": after_maint[0] - after_vector[0],
                 "shared": after_maint[1] - after_vector[1]},
@@ -3879,6 +4303,7 @@ def main():
          gnn={"segment_sum": gnn_launches},
          gnn_train={"segment_sum": train_launches,
                     "segment_sum_accumulate": train_acc},
+         lm_train={"segment_sum_accumulate": lm_acc},
          index_path_segment_sum=dict(seg, total=index_seg))
     src = "src/repro_torch/kernels/ivf_topk/csrc/ivf_topk.cu"
     kernels = [
@@ -3908,7 +4333,7 @@ def main():
                     "segment_reduce.cu",
              replaces="src/repro/kernels/segment_reduce/"
                       "segment_reduce.py:50",
-             launches=train_acc, **kern["accumulate"]),
+             launches=train_acc + lm_acc, **kern["accumulate"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

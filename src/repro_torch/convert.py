@@ -32,7 +32,9 @@ GNN params with numpy leaves and returns the port's, in the same layout
 ``adamw_state_from_jax(state, device)`` takes a reference ``AdamWState``
 (``step``, ``mu``, ``nu``; numpy leaves) and returns the port's
 ``train.optimizer.AdamWState``: the int32 step and the fp32 moments in the
-params' layout, so a run carries across between steps.
+params' layout, so a run carries across between steps. An LM's moments
+(stacked ``layers``, and ``head_layers``) are split per layer as
+``lm_params_from_jax`` splits the params.
 """
 from __future__ import annotations
 
@@ -110,7 +112,11 @@ def adamw_state_from_jax(state, device=None):
     with numpy leaves. device: None = the CUDA device."""
     device = resolve_device(device, "adamw_state_from_jax")
     step, mu, nu = state
-    return AdamWState(
-        step=_leaf(np.asarray(step, np.int32), device),
-        mu=_map(mu, lambda a: _leaf(a, device)),
-        nu=_map(nu, lambda a: _leaf(a, device)))
+
+    def moments(tree):
+        if isinstance(tree, dict) and isinstance(tree.get("layers"), dict):
+            return lm_params_from_jax(tree, device)   # an LM: stacked layers
+        return _map(tree, lambda a: _leaf(a, device))
+
+    return AdamWState(step=_leaf(np.asarray(step, np.int32), device),
+                      mu=moments(mu), nu=moments(nu))

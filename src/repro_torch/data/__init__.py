@@ -1,1 +1,2 @@
-"""Synthetic corpora (numpy-seeded, identical to the reference)."""
+"""Synthetic corpora (numpy-seeded, identical to the reference) and the
+host data pipeline (``pipeline``: the training streams and ``Prefetcher``)."""

@@ -236,10 +236,21 @@ def segment_sum(messages: torch.Tensor, seg_ids: torch.Tensor,
     return segment_sum_csr(messages, rowptr, perm)
 
 
+# the in-place kernel's warps at least, where the segments allow: 16 a
+# streaming multiprocessor of the H100's 132
+_ACC_MIN_WARPS = 2048
+
+
 def group_size(n_seg: int, n_entries: int) -> int:
     """Segments per warp of the in-place kernel: about 32 entries a warp
-    (one coalesced ``perm`` load), 1 to 31 segments. It changes no bit."""
-    return max(1, min(31, int(32 * n_seg / max(n_entries, 1))))
+    (one coalesced ``perm`` load), 1 to 31 segments, but not so many that
+    fewer than ``_ACC_MIN_WARPS`` warps share the entries (a small launch,
+    such as an LM micro-batch's ~4,050 tokens, would otherwise run on ~130
+    warps). It changes no bit."""
+    g = max(1, min(31, int(32 * n_seg / max(n_entries, 1))))
+    if not n_entries:
+        return g
+    return min(g, max(1, -(-n_seg // _ACC_MIN_WARPS)))
 
 
 def segment_sum_csr_accumulate(messages: torch.Tensor, rowptr: torch.Tensor,

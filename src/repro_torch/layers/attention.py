@@ -43,11 +43,32 @@ def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,
 
 def attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q_positions: torch.Tensor, k_positions: torch.Tensor, *,
-                window: int = 0) -> torch.Tensor:
-    """Masked attention over a whole prompt (the reference's einsums, one
-    q block). q/k (B, Sq|Skv, Hq|Hkv, hd), already roped; v (B, Skv, Hkv,
-    dv), where dv may differ from hd (MLA: q/k 192 wide, v 128). Returns
-    (B, Sq, Hq, dv); the scale is 1/√hd, q's width.
+                window: int = 0, q_block: int = 0) -> torch.Tensor:
+    """Masked attention over a whole prompt (the reference's einsums). q/k
+    (B, Sq|Skv, Hq|Hkv, hd), already roped; v (B, Skv, Hkv, dv), where dv
+    may differ from hd (MLA: q/k 192 wide, v 128). Returns (B, Sq, Hq,
+    dv); the scale is 1/√hd, q's width.
+
+    ``q_block`` cuts the queries into blocks of that many rows, each
+    attending to the whole K/V as below, as the reference's ``q_block``
+    does: the fp32 scores live one block at a time, (B, Hkv, G·qb, Skv).
+    One block when it is 0, not below Sq, or does not divide Sq (the
+    reference's rule). Training passes ``ExecOpts.q_block``; prefill keeps
+    one block."""
+    sq = q.shape[1]
+    qb = q_block if (q_block and q_block < sq) else sq
+    if sq % qb:
+        qb = sq
+    if qb == sq:
+        return _attend_block(q, k, v, q_positions, k_positions, window)
+    return torch.cat([_attend_block(q[:, i:i + qb], k, v,
+                                    q_positions[i:i + qb], k_positions,
+                                    window)
+                      for i in range(0, sq, qb)], dim=1)
+
+
+def _attend_block(q, k, v, q_positions, k_positions, window):
+    """One query block of ``attend_full``.
 
     The GQA groups are a batch axis of the matmul (q viewed as
     (B, Hkv, G·Sq, hd)), so K/V are never repeated per query head. Scores
@@ -98,11 +119,12 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def gqa_forward(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str, cache=None,
-                cache_pos=None):
+                cache_pos=None, q_block: int = 0):
     """One attention sublayer.
 
     mode "full":   x (B, S, D), positions (S,); returns (out, (k, v)) with
-                   k/v (B, S, Hkv, hd) — prefill.
+                   k/v (B, S, Hkv, hd) — prefill and training; ``q_block``
+                   as for ``attend_full``.
     mode "decode": x (B, 1, D), positions (B, 1), cache = (k_cache, v_cache,
                    slot_pos) of this layer ((B, clen, Hkv, hd) twice and
                    (B, clen) int32), cache_pos (B,) per-row positions.
@@ -126,7 +148,7 @@ def gqa_forward(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
 
     if mode == "full":
         out = attend_full(q, k, v, positions, positions,
-                          window=cfg.sliding_window)
+                          window=cfg.sliding_window, q_block=q_block)
         new_cache = (k, v)
     elif mode == "decode":
         k_cache, v_cache, slot_pos = cache

@@ -35,13 +35,14 @@ def init_mla(cfg, init: Init) -> Dict[str, torch.Tensor]:
 
 def mla_forward(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str, cache=None,
-                cache_pos=None):
+                cache_pos=None, q_block: int = 0):
     """One attention sublayer.
 
     mode "full":   x (B, S, D), positions (S,); returns (out, (latent,
                    k_rope)) with latent (B, S, r) and k_rope (B, S, dr) —
-                   prefill, attending over the materialised K/V (scaled in
-                   q's dtype by 1/√(dn+dr), softmax in fp32).
+                   prefill and training, attending over the materialised
+                   K/V (scaled in q's dtype by 1/√(dn+dr), softmax in fp32;
+                   ``q_block`` as for ``attend_full``).
     mode "decode": x (B, 1, D), positions (B, 1), cache = (latent, k_rope,
                    slot_pos) of this layer ((B, clen, r), (B, clen, dr),
                    (B, clen) int32), cache_pos (B,). Each row writes its
@@ -74,7 +75,8 @@ def mla_forward(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
             [k_nope, k_rope[:, :, None, :].expand(*k_rope.shape[:2], h, dr)],
             dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
-        out = attend_full(q_full, k_full, v, positions, positions)
+        out = attend_full(q_full, k_full, v, positions, positions,
+                          q_block=q_block)
         new_cache = (latent, k_rope)
     elif mode == "decode":
         lat_cache, rope_cache, slot_pos = cache

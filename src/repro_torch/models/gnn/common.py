@@ -65,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.segment_reduce import ops
 from repro_torch.sparse import segment as seg
+from repro_torch.sparse.segment import csr_by_row
 
 # edges per chunk: the chunk's messages are held for the kernel (EGNN at
 # d_hidden 64: 272 B per edge, 1.1 GB for 4 Mi edges)
@@ -103,18 +104,6 @@ def chunk_bounds(rowptr: np.ndarray, chunk_edges: int) -> List[int]:
         lo = min(max(hi, lo + 1), n)
         bounds.append(lo)
     return bounds
-
-
-def csr_by_row(idx: torch.Tensor):
-    """``idx``'s positions grouped by the row they read, over the distinct
-    rows only: ``(rowptr (R + 1,), perm, rows (R,))``, all int32, from a
-    stable sort (ties in position order) and ``unique_consecutive``."""
-    keys, perm = torch.sort(idx, stable=True)
-    rows, counts = torch.unique_consecutive(keys, return_counts=True)
-    rowptr = torch.zeros(rows.numel() + 1, dtype=torch.int32,
-                         device=idx.device)
-    rowptr[1:] = counts.cumsum(0)
-    return rowptr, perm.to(torch.int32), rows.to(torch.int32)
 
 
 class _GradBuffer:

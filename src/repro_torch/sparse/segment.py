@@ -10,6 +10,9 @@ and ``segment_softmax`` are plain torch (``scatter_reduce``): the reference
 uses ``jax.ops`` there and has no Pallas kernel for them. All four keep the
 reference's masking: ids < 0 or >= num_segments contribute nothing, an
 empty segment's max is -inf, and softmax denominators are floored at 1e-20.
+``csr_by_row`` groups the positions of a gather by the row they read: the
+CSR that a gather's transpose (``ops.segment_sum_csr_accumulate``) adds
+with, in the GNN engine and in the LM's token lookup.
 """
 from __future__ import annotations
 
@@ -24,6 +27,18 @@ def _ok(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
 
 def _expand(mask: torch.Tensor, ndim: int) -> torch.Tensor:
     return mask.reshape(mask.shape + (1,) * (ndim - 1))
+
+
+def csr_by_row(idx: torch.Tensor):
+    """``idx``'s positions grouped by the row they read, over the distinct
+    rows only: ``(rowptr (R + 1,), perm, rows (R,))``, all int32, from a
+    stable sort (ties in position order) and ``unique_consecutive``."""
+    keys, perm = torch.sort(idx, stable=True)
+    rows, counts = torch.unique_consecutive(keys, return_counts=True)
+    rowptr = torch.zeros(rows.numel() + 1, dtype=torch.int32,
+                         device=idx.device)
+    rowptr[1:] = counts.cumsum(0)
+    return rowptr, perm.to(torch.int32), rows.to(torch.int32)
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,

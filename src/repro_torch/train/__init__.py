@@ -1,2 +1,2 @@
-"""Training of the port (the reference's ``repro.train``): AdamW and the
-fault-tolerant trainer."""
+"""Training of the port (the reference's ``repro.train``): AdamW, the
+fault-tolerant trainer and gradient compression."""

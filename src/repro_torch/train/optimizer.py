@@ -6,8 +6,10 @@ The moments are fp32 on each parameter's device. As in the reference,
 from the fp32 step (Python doubles would round otherwise), the clip scale
 is ``min(1, clip / (‖g‖ + 1e-9))``, and weight decay applies to every leaf,
 biases included. ``adamw_update`` returns new trees and leaves its inputs
-as they were. The port keeps no logical axes, so the reference's
-``opt_state_axes`` has no twin.
+as they were. ``adamw_update_`` computes the same, with the same
+expressions, and writes it in place into the params and the state (the
+LM's train step, whose state would not fit twice on the card). The port
+keeps no logical axes, so the reference's ``opt_state_axes`` has no twin.
 """
 from __future__ import annotations
 
@@ -65,10 +67,9 @@ def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_frac + (1 - cfg.min_lr_frac) * cos)
 
 
-@torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
-    """Returns (new_params, new_state, metrics {"grad_norm", "lr"}). Grads
-    may be bf16; the math is fp32, the new params keep their dtype."""
+def _coefficients(cfg: AdamWConfig, grads, state: AdamWState):
+    """(grad norm, clip scale, new step, lr, 1 - b1**step, 1 - b2**step),
+    fp32 tensors computed as the reference computes them."""
     gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
              if cfg.clip_norm else 1.0)
@@ -79,19 +80,62 @@ def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
                                      device=stepf.device), stepf)
     b2c = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
                                      device=stepf.device), stepf)
+    return gnorm, scale, step, lr, b1c, b2c
 
-    def upd(p, g, m, v):
-        g = g.to(torch.float32) * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
-        mh = m / b1c
-        vh = v / b2c
-        p32 = p.to(torch.float32)
-        step_ = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p32
-        return (p32 - lr * step_).to(p.dtype), m, v
 
-    out = tree_map(lambda p, g, m, v: upd(p, g, m, v), params, grads,
-                   state.mu, state.nu)
+def _leaf_update(cfg: AdamWConfig, p, g, m, v, scale, lr, b1c, b2c):
+    """(new p in p's dtype, new m, new v) of one leaf, or of a block of its
+    rows: the math is elementwise."""
+    g = g.to(torch.float32) * scale
+    m = cfg.b1 * m + (1 - cfg.b1) * g
+    v = cfg.b2 * v + (1 - cfg.b2) * torch.square(g)
+    mh = m / b1c
+    vh = v / b2c
+    p32 = p.to(torch.float32)
+    step_ = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p32
+    return (p32 - lr * step_).to(p.dtype), m, v
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
+    """Returns (new_params, new_state, metrics {"grad_norm", "lr"}). Grads
+    may be bf16; the math is fp32, the new params keep their dtype."""
+    gnorm, scale, step, lr, b1c, b2c = _coefficients(cfg, grads, state)
+    out = tree_map(lambda p, g, m, v: _leaf_update(cfg, p, g, m, v, scale,
+                                                   lr, b1c, b2c),
+                   params, grads, state.mu, state.nu)
     pick = lambda i: tree_map(lambda _, o: o[i], params, out)   # noqa: E731
     metrics = {"grad_norm": gnorm, "lr": lr}
     return pick(0), AdamWState(step=step, mu=pick(1), nu=pick(2)), metrics
+
+
+# rows of one leaf updated at a time by ``adamw_update_``: about this many
+# elements (phi4-mini's embedding, 614.6 M elements, would otherwise hold
+# ~8 fp32 temporaries of 2.46 GB each)
+UPDATE_BLOCK_ELEMS = 1 << 24
+
+
+@torch.no_grad()
+def adamw_update_(cfg: AdamWConfig, grads, state: AdamWState, params):
+    """``adamw_update`` in place: the params, ``state.mu``, ``state.nu``
+    and ``state.step`` are overwritten with what ``adamw_update`` returns,
+    bit for bit. The global norm of all the gradients comes first; then,
+    leaf by leaf and in blocks of whole rows of about
+    ``UPDATE_BLOCK_ELEMS`` elements, each new value is computed out of place with
+    ``adamw_update``'s expressions and copied into the state. Returns
+    (params, state, metrics), the trees given."""
+    gnorm, scale, step, lr, b1c, b2c = _coefficients(cfg, grads, state)
+    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.mu),
+                          leaves(state.nu)):
+        rows = p.shape[0] if p.dim() else 1
+        per_row = max(1, p[0].numel()) if p.dim() else 1
+        blk = max(1, UPDATE_BLOCK_ELEMS // per_row)
+        for a in range(0, rows, blk):
+            sl = slice(a, a + blk) if p.dim() else ...
+            new_p, new_m, new_v = _leaf_update(cfg, p[sl], g[sl], m[sl],
+                                               v[sl], scale, lr, b1c, b2c)
+            m[sl].copy_(new_m)
+            v[sl].copy_(new_v)
+            p[sl].copy_(new_p)
+    state.step.copy_(step)
+    return params, state, {"grad_norm": gnorm, "lr": lr}

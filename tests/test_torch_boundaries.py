@@ -35,6 +35,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.common.tree, repro_torch.sparse.sampler\n"
         "import repro_torch.train.optimizer, repro_torch.train.trainer\n"
         "import repro_torch.runtime.fault\n"
+        "import repro_torch.data.pipeline, repro_torch.train.compression\n"
+        "import repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib')) or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n")

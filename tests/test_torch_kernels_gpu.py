@@ -16,7 +16,11 @@ launch per shard, each shard's probe kernel at its ``cap_l`` against the
 plain version, the replica rebuilt after a maintain pass; the decode
 kernel at mixtral's G = 4 window shape, the MoE dispatch's bytes twice on
 the card, and a full-width DeepSeek-V2-Lite decode tick's capacity drops
-against the same tick on the CPU.
+against the same tick on the CPU; and LM training: the token lookup's
+transpose (the in-place kernel over a micro-batch's distinct tokens, at
+phi4-mini's 4,096 × 3,072 bf16 into 200,064 rows and at small odd shapes)
+against its plain version bit for bit, a smoke-width train step on the
+card against the CPU, and two card runs of a bf16 step bitwise.
 
 Every test carries the ``gpu`` marker and skips itself when
 ``torch.cuda.is_available()`` is false (decided inside the test, so every
@@ -1294,3 +1298,120 @@ def test_sharded_search_across_cards():
             assert int((want[0][r] == want[0][r, j]).sum()) > 1
     devs = [loc.data.device for loc in sh.modalities["text"].ivf_sharded]
     assert devs == [torch.device("cuda", i) for i in range(n)]
+
+
+# ------------------------------------------------------------- LM training
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,d,n_rows,vocab", [
+    (4096, 3072, 200_064, 200_064),     # phi4-mini's micro-batch
+    (37, 5, 11, 7), (300, 129, 1000, 50), (1, 64, 3, 3)])
+def test_token_transpose_kernel_matches_plain_version(e, d, n_rows, vocab):
+    """The LM lookup's transpose: a micro-batch's bf16 cotangent added in
+    place over its distinct tokens (repeated ids) into a random bf16
+    table, the in-place kernel against its plain version bit for bit (both
+    sum in fp32 from 0 and round once into the row)."""
+    _need_card()
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.kernels.segment_reduce.ref import (
+        segment_sum_csr_accumulate_ref)
+    from repro_torch.sparse.segment import csr_by_row
+    g = torch.Generator(device="cuda").manual_seed(e + d)
+    tokens = torch.randint(0, vocab, (e,), device="cuda", generator=g)
+    cot = torch.randn((e, d), device="cuda", generator=g).to(torch.bfloat16)
+    base = torch.randn((n_rows, d), device="cuda",
+                       generator=g).to(torch.bfloat16)
+    rowptr, perm, rows = csr_by_row(tokens)
+    before = sops.segment_sum_csr_accumulate.launches
+    got = sops.segment_sum_csr_accumulate(cot, rowptr, perm,
+                                          out=base.clone(), rows=rows)
+    assert sops.segment_sum_csr_accumulate.launches == before + 1
+    want = segment_sum_csr_accumulate_ref(cot, rowptr, perm,
+                                          out=base.clone(), rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    untouched = torch.ones(n_rows, dtype=torch.bool, device="cuda")
+    untouched[tokens] = False
+    assert torch.equal(got[untouched], base[untouched])
+
+
+def _lm_step_case(arch, dtype):
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+    cfg = smoke_config(arch).replace(dtype=dtype)
+    params = lm.init_lm(cfg, 4, device="cuda")
+    rng = np.random.default_rng(9)
+    toks = rng.integers(0, cfg.vocab_size, (4, 33))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1].reshape(2, 2, 32)),
+             "labels": torch.from_numpy(toks[:, 1:].reshape(2, 2, 32))}
+    return cfg, params, batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "qwen2-72b",
+                                  "deepseek-v2-lite-16b"])
+def test_lm_train_step_on_the_card_matches_the_cpu(arch):
+    """A smoke-width step with grad_accum 2 in fp32 (remat, query blocks):
+    loss, grad norm, new params and moments on the card against the CPU
+    (1e-4 relative, PR 20's fp32 tolerance; ε 1e-3 keeps Adam's first
+    update a smooth function of the gradient); one token transpose
+    launch per micro-batch."""
+    _need_card()
+    from repro_torch.common.tree import leaves, tree_map
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.layers import moe
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    cfg, params, batch = _lm_step_case(arch, "float32")
+    cpu_p = tree_map(lambda t: t.cpu(), params)
+    if cfg.moe:
+        routings = []
+        with torch.no_grad():
+            for t in batch["tokens"]:
+                lm.forward(cfg, params, t.cuda(), moe_routings=routings)
+        if min(float(moe.near_tie_gap(r)) for r in routings) < 1e-6:
+            pytest.skip("router near-tie: card and CPU may route apart")
+    step = lm.make_train_step(cfg, None, lm.ExecOpts(q_block=16),
+                              AdamWConfig(lr=1e-3, warmup_steps=1, eps=1e-3),
+                              grad_accum=2)
+    before = sops.segment_sum_csr_accumulate.launches
+    gp, gs, gm = step(params, init_adamw(params),
+                      {k: v.cuda() for k, v in batch.items()})
+    assert sops.segment_sum_csr_accumulate.launches == before + 2
+    hp, hs, hm = step(cpu_p, init_adamw(cpu_p), batch)
+
+    def rel(a, b, floor_one):
+        b = b.cpu()
+        scale = float(b.abs().max())
+        scale = max(1.0, scale) if floor_one else max(scale, 1e-30)
+        return float((a.cpu() - b).abs().max()) / scale
+
+    for k in ("loss", "grad_norm"):
+        assert rel(gm[k], hm[k], False) <= 1e-4
+    assert max(rel(a, b, True) for a, b in zip(leaves(gp), leaves(hp))) <= 1e-4
+    for ga, ha in ((gs.mu, hs.mu), (gs.nu, hs.nu)):
+        assert max(rel(a, b, False)
+                   for a, b in zip(leaves(ga), leaves(ha))) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "deepseek-v2-lite-16b"])
+def test_lm_train_step_on_the_card_repeats_bitwise(arch):
+    """Two runs of one bf16 step from the same params and state (the token
+    transpose, MoE's dispatch and combine, cuBLAS): the same bits."""
+    _need_card()
+    from repro_torch.common.tree import leaves, tree_map
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    cfg, params, batch = _lm_step_case(arch, "bfloat16")
+    batch = {k: v.cuda() for k, v in batch.items()}
+    state = init_adamw(params)
+    step = lm.make_train_step(cfg, None, lm.ExecOpts(q_block=16),
+                              AdamWConfig(lr=1e-3, warmup_steps=1),
+                              grad_accum=2)
+    clone = lambda tree: tree_map(lambda t: t.clone(), tree)  # noqa: E731
+    a = step(clone(params), clone(state), batch)
+    b = step(clone(params), clone(state), batch)
+    torch.cuda.synchronize()
+    assert torch.equal(a[2]["loss"], b[2]["loss"])
+    assert all(torch.equal(x, y) for x, y in zip(leaves(a[:2]),
+                                                  leaves(b[:2])))
