@@ -2,8 +2,9 @@
 on one NVIDIA GPU (written for an H100): hybrid retrieval, RAG serving
 over the retrieval index with phi4-mini and with DeepSeek-V2-Lite at full
 width and depth, EGNN full-graph inference at the ogbn-products shape,
-EGNN training (full graph, minibatch, molecule), and phi4-mini training
-at full width and depth.
+EGNN training (full graph, minibatch, molecule), NequIP, DimeNet and
+Equiformer-v2 inference and training at their published configs, and
+phi4-mini training at full width and depth.
 
     python3 chip_smoke.py
 
@@ -161,11 +162,31 @@ Phases (each prints one line; any failure exits non-zero):
                 destination transposes against its plain version bit for
                 bit, timed beside a touched-rows bound and index_add_ in
                 place, and PR 21's full-N transpose beside it; (b) one
-                step on a 65,536-node copy, gradients and new params
+                step on a 16,384-node copy, gradients and new params
                 against the CPU; (c) minibatch_lg: a 232,965-node,
                 114,615,892-edge host graph, the neighbour sampler's CSR,
                 4 steps of 1,024 fanout-(15, 10) trees (sampler ms and
                 step ms apart); (d) one molecule step.
+     gnn_models — NequIP, DimeNet and Equiformer-v2 at their published
+                configs (fp32, seeded random weights, TF32 off), each on
+                the molecule cell (128 graphs of 30 nodes / 64 edges;
+                DimeNet with its triplets), the full_graph_sm cell (2,708
+                nodes, 10,556 edges, d_feat 1,433) and gnn_train's sampled
+                minibatch_lg batch (DimeNet without triplets), NequIP also
+                on phase 7's ogbn-products graph: forward p50/p99 (loss
+                under no_grad), train-step p50/p99 where a step fits,
+                edges/s, peak memory, the segment-sum and in-place
+                launches per forward and per step held to their formulas,
+                the Wigner-D launches (Equiformer-v2), one profiled
+                forward or step per cell. Checks per arch: (a) 8 molecules
+                at full width and depth, logits and one step's new params
+                card against CPU; (b) two forwards, and a forward at half
+                the chunk budget, bit for bit; (c) two train steps from
+                one state bit for bit; (d) rotation invariance of the
+                molecule cell's logits; (e) both kernels against their
+                plain versions at the new widths (289, 6,272 and 128
+                summed; 291, 6,275 and 128 added in place), timed beside
+                their byte bounds and index_add_.
      lm_train — LM training through models.lm.make_train_step (the GNN
                 state freed first): (a) phi4-mini at full width and depth
                 (bf16, seeded random weights), seq 4,096, micro-batch 1 x
@@ -179,18 +200,19 @@ Phases (each prints one line; any failure exits non-zero):
                 version bit for bit, timed beside its byte bound and
                 index_put_(accumulate=True); (b) 2-layer full-width copies
                 of phi4-mini (grad_accum 2) and DeepSeek-V2-Lite (a dense
-                and an MLA + MoE layer), one fp32 step each at seq 128,
+                and an MLA + MoE layer), one fp32 step each at seq 64,
                 card against CPU; (c) their bf16 twins, two runs of one step
                 bitwise; (d) the Trainer with checkpoints on the 2-layer
-                phi4-mini (~8.2 GB each), a failure at step 3 restored
-                bitwise; (e) python -m repro_torch.launch.train --arch
+                phi4-mini with its vocabulary cut to 32,768 (~3 GB each), a
+                failure at step 3 restored bitwise; (e) python -m repro_torch.launch.train --arch
                 phi4-mini-3.8b --steps 2 as a child process.
   8. the kernels line, then the contract line. The segment sum's launches
      there count the index path's too (k-means cluster sums, hop
      out-weights), read phase by phase, and the training runs' forwards;
      the in-place kernel's (segment_sum_csr_accumulate) the GNN training
      runs' gather transposes and the LM runs' token transposes ((a)'s
-     steps and (d)'s Trainer runs); the
+     steps and (d)'s Trainer runs); both also count the gnn_models cells'
+     forwards and steps (not their checks); the
      scans' count the index phases' and both RAG cells' retrievals, the
      decode kernel's the phi4-mini cell and the mixtral check.
 
@@ -295,20 +317,72 @@ GNN_CPU_RTOL = 1e-3
 # as the reference's dry run uses) with MB_ROOTS roots a batch, fanouts
 # MB_FANOUTS, MB_STEPS steps
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 2, 3
-TRAIN_CPU_N = 65_536
+# cut from 65,536 nodes (35 s of CPU) to make room for the gnn_models phase
+TRAIN_CPU_N = 16_384
 MB_ROOTS, MB_FANOUTS, MB_STEPS, MB_D_FEAT = 1024, (15, 10), 4, 602
+# the gnn_models phase: NequIP, DimeNet and Equiformer-v2 at their
+# published configs (fp32) on the molecule, full_graph_sm and minibatch_lg
+# cells, NequIP also at ogbn-products; forwards and steps timed after one
+# warm-up (the ogbn-products forward: MODEL_OGB_REPS). Card vs CPU on
+# MODEL_CPU_MOLECULES molecules (logits, gradients, one step's new params
+# and first moments) at EGNN's 1e-3, and rotation invariance at
+# tests/test_gnn.py's 1e-4, every arch held. DimeNet's spherical Bessel j_5
+# and j_6 (an upward recurrence, unstable at z·r/c < l/2) amplify each
+# device's rounding by orders of magnitude where two unit-sphere atoms are
+# close (the reference's own logits move by 6.39 relative when the
+# molecule cell's molecules are rotated: tests/test_torch_gnn_models.py):
+# DimeNet is held on the same molecules with their bonds spread
+# (``driver.spread_bonds``: 1.7 to 4.8 long), and its unit-sphere readings
+# are printed beside, not held
+MODEL_ARCHS = ("nequip", "dimenet", "equiformer-v2")
+# timed calls after the warm-up; the cells of seconds a forward
+# (nequip-ogbn-products, equiformer-v2-minibatch-lg) take MODEL_BIG_REPS
+MODEL_FWD_REPS, MODEL_STEP_REPS, MODEL_BIG_REPS = 4, 2, 2
+MODEL_CPU_MOLECULES = 8
+MODEL_CPU_RTOL, MODEL_ROT_RTOL = 1e-3, 1e-4
+# (b)'s cell and chunk budget per arch: a budget that cuts the cell's
+# graph into several chunks, as its half does (the default budgets are one
+# chunk there); DimeNet's sums do not go through the chunks
+MODEL_BITWISE = {"nequip": ("minibatch-lg", 65_536),
+                 "equiformer-v2": ("full-graph-sm", 4_096),
+                 "dimenet": ("full-graph-sm", 0)}
+# Equiformer-v2's eq_norm floors each l block's RMS at sqrt(1e-6): a node
+# with no in-edges keeps l > 0 blocks of 0 and each norm's backward scales
+# their gradient by 1e3, so at 12 layers the ln1/ln2 gradients of the first
+# layers overflow, and the clipped AdamW step (a NaN global norm) makes
+# every new param NaN. The reference's step does the same on these graphs
+# (the port keeps its semantics): a step's loss must be finite and only
+# ln1/ln2 gradients may be non-finite; comparisons match NaN for NaN, and
+# (a)'s step is not clipped, so that its other leaves stay finite.
+EQV2_NONFINITE_OK = ("ln1", "ln2")
+MODEL_CUTS = {
+    "equiformer-v2-ogbn-products": (
+        "not run: its node state (2,449,029 x 49 x 128 fp32) is 61.4 GB a "
+        "tensor, and a forward ~1.5e16 FLOPs"),
+    "dimenet-ogbn-products": (
+        "not run: ~8 x 61.9 M = 495 M triplets, whose (T, 42) fp32 basis "
+        "alone is 83 GB, built by a host pass over 61.9 M edges"),
+    "equiformer-v2-minibatch-lg": (
+        "forward only: a step keeps each layer's weighted messages "
+        "(168,960 x 6,272 fp32, 4.2 GB) and node states (169,984 x 6,275 "
+        "fp32, 4.3 GB each) for 12 layers, over 80 GB"),
+    "dimenet-minibatch-lg": "without triplets, as the reference's "
+                            "minibatch_loss runs it",
+}
 # the LM training cell: phi4-mini at full width and depth, train_4k's
 # sequence, micro-batch 1 x LM_ACCUM micro-batches, one warm-up and
 # LM_STEPS timed steps; its checks on 2-layer full-width copies (card vs
 # CPU at LM_CPU_SEQ in fp32; two runs bitwise in bf16; the Trainer's
-# restart at LM_CKPT_SEQ, which needs LM_CKPT_MIN_FREE of disk: two
-# ~8.2 GB checkpoints)
+# restart at LM_CKPT_SEQ with the vocabulary cut to LM_CKPT_VOCAB, which
+# needs LM_CKPT_MIN_FREE of disk: two ~3 GB checkpoints). LM_CPU_SEQ was
+# 128 and the Trainer ran the full 200,064 vocabulary (two 8.2 GB
+# checkpoints, 100 s) until the gnn_models phase needed the time.
 LM_SEQ, LM_ACCUM, LM_STEPS = 4096, 4, 3
 LM_CUT = ("lm_train: global batch 4 (micro-batch 1 x grad_accum 4), cut "
           "from train_4k's 256; seq 4,096, width, vocabulary and depth as "
           "published")
-LM_CPU_SEQ, LM_CKPT_SEQ = 128, 512
-LM_CKPT_MIN_FREE = 20e9
+LM_CPU_SEQ, LM_CKPT_SEQ, LM_CKPT_VOCAB = 64, 512, 32_768
+LM_CKPT_MIN_FREE = 8e9
 # card vs CPU in fp32 (TF32 off): PR 20's 1e-4, relative to each leaf's
 # largest |value| (to max(1, ...) for the params)
 LM_CPU_RTOL = 1e-4
@@ -373,11 +447,18 @@ def queued_ms(fn, calls: int) -> dict:
 
 
 def host_ms(fn, reps: int):
-    """(p50, p99) host-clock latency of ``fn`` (synchronised) in ms."""
+    """(p50, p99) host-clock latency of ``fn`` (synchronised) in ms, after
+    one warm-up call."""
     fn()
-    torch.cuda.synchronize()
+    return timed_ms(fn, reps)
+
+
+def timed_ms(fn, reps: int):
+    """(p50, p99) host-clock ms of ``reps`` synchronised calls of ``fn``,
+    which the caller has warmed up."""
     out = []
     for _ in range(reps):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -411,7 +492,9 @@ def profile_once(fn, top: int = 6, share_of="", ops_top: int = 0,
         out = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
+    # one aggregation of the events (it costs seconds on a long window)
+    avgs = prof.key_averages()
+    kern = [e for e in avgs
             if e.device_type == torch.autograd.DeviceType.CUDA]
     kern.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in kern) / 1e3
@@ -425,7 +508,7 @@ def profile_once(fn, top: int = 6, share_of="", ops_top: int = 0,
                       for e in kern[:top]],
            "busy_ms": busy, "wall_ms": wall,
            "idle_share": max(0.0, 1.0 - busy / wall)}
-    cpu_ops = [e for e in prof.key_averages()
+    cpu_ops = [e for e in avgs
                if e.device_type == torch.autograd.DeviceType.CPU
                and e.self_device_time_total > 0]
     cpu_ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
@@ -3471,6 +3554,59 @@ def train_run(cfg, kind, params, stream, total: int, ckpt_dir: str,
     return tr, seen, firsts
 
 
+def inplace_side(tag: str, cot, e: int, rowptr, perm, rows, seg_lo: int,
+                 idx, base, flush) -> dict:
+    """The in-place kernel at one gather transpose: ``cot``'s first ``e``
+    rows (its cotangents) added by the CSR (``rowptr``, ``perm``) into
+    ``base``'s listed ``rows`` (or those from ``seg_lo``), bit for bit
+    against its plain version into copies of the same buffer, timed beside
+    a bound that counts the cotangent once and each touched row read once
+    and written once, its plain version, and ``index_add_(0, idx, cot)``
+    into the same buffer in place. Prints the ``tag`` line; returns it."""
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.kernels.segment_reduce.ref import (
+        segment_sum_csr_accumulate_ref)
+    n, d = base.shape
+    r = rowptr.numel() - 1
+    kw = dict(rows=rows, seg_lo=seg_lo)
+    out = sops.segment_sum_csr_accumulate(cot, rowptr, perm,
+                                          out=base.clone(), **kw)
+    ref = segment_sum_csr_accumulate_ref(cot, rowptr, perm,
+                                         out=base.clone(), **kw)
+    torch.cuda.synchronize()
+    same = torch.equal(out, ref)
+    err = float((out - ref).abs().max())
+    check(same, f"{tag}: not bitwise equal to its plain version (max |d| "
+                f"{err})")
+    lib = base.clone().index_add_(0, idx, cot[:e])
+    torch.cuda.synchronize()
+    lib_err = float((lib - out).abs().max())
+    # the cotangent, perm, rowptr and rows read once; each touched row
+    # read once and written once
+    nbytes = (e * d * 4 + (0 if perm is None else e * 4) + (r + 1) * 4
+              + (0 if rows is None else r * 4) + 2 * r * d * 4)
+    bms, bby = bound(float(e * d + r * d), nbytes)
+    kms = cuda_ms(lambda: sops.segment_sum_csr_accumulate(
+        cot, rowptr, perm, out=out, **kw), 10, flush)
+    pms = cuda_ms(lambda: segment_sum_csr_accumulate_ref(
+        cot, rowptr, perm, out=ref, **kw), 3, flush)
+    lms = cuda_ms(lambda: lib.index_add_(0, idx, cot[:e]), 10, flush)
+    res = dict(shape=dict(E=e, d=d, rows=r, n=n, dtype="float32",
+                          perm=perm is not None),
+               group=sops.group_size(r, e if perm is not None
+                                     else cot.shape[0]),
+               max_abs_err=err, bitwise=same, ms=kms, plain_ms=pms,
+               library_ms=lms,
+               library="index_add_(0, idx, cot) into the same buffer, "
+                       "in place (atomics)",
+               library_max_abs_diff=lib_err, bound_ms=bms, bound_by=bby,
+               gbytes=nbytes / 1e9,
+               achieved_tb_s=nbytes / (kms * 1e-3) / 1e12)
+    line(tag, **res)
+    del out, ref, lib
+    return res
+
+
 def measure_transpose(ex) -> dict:
     """The backward's gather transposes at one message block (block 0:
     ``block`` cotangent rows of the payload's width, d = 67 fp32). PR 21's
@@ -3486,8 +3622,7 @@ def measure_transpose(ex) -> dict:
     transposes (ms, plain, bound and library summed), each side under
     ``sides``."""
     from repro_torch.kernels.segment_reduce import ops as sops
-    from repro_torch.kernels.segment_reduce.ref import (
-        segment_sum_csr_accumulate_ref, segment_sum_csr_ref)
+    from repro_torch.kernels.segment_reduce.ref import segment_sum_csr_ref
     d = 64 + 3                                  # EGNN's payload [h, x]
     e, n = min(ex.block, ex.n_edges), ex.n
     gen = torch.Generator(device="cuda").manual_seed(31)
@@ -3522,44 +3657,8 @@ def measure_transpose(ex) -> dict:
     base = torch.randn((n, d), device="cuda", generator=gen)
 
     def side(name, rowptr, perm, rows, seg_lo, idx):
-        r = rowptr.numel() - 1
-        kw = dict(rows=rows, seg_lo=seg_lo)
-        out = sops.segment_sum_csr_accumulate(cot, rowptr, perm,
-                                              out=base.clone(), **kw)
-        ref = segment_sum_csr_accumulate_ref(cot, rowptr, perm,
-                                             out=base.clone(), **kw)
-        torch.cuda.synchronize()
-        same = torch.equal(out, ref)
-        err = float((out - ref).abs().max())
-        check(same, f"in-place transpose, {name} side: not bitwise equal to "
-                    f"its plain version (max |d| {err})")
-        lib = base.clone().index_add_(0, idx, cot[:e])
-        torch.cuda.synchronize()
-        lib_err = float((lib - out).abs().max())
-        # the cotangent, perm, rowptr and rows read once; each touched row
-        # read once and written once
-        nbytes = (e * d * 4 + (0 if perm is None else e * 4) + (r + 1) * 4
-                  + (0 if rows is None else r * 4) + 2 * r * d * 4)
-        bms, bby = bound(float(e * d + r * d), nbytes)
-        kms = cuda_ms(lambda: sops.segment_sum_csr_accumulate(
-            cot, rowptr, perm, out=out, **kw), 10, flush)
-        pms = cuda_ms(lambda: segment_sum_csr_accumulate_ref(
-            cot, rowptr, perm, out=ref, **kw), 3, flush)
-        lms = cuda_ms(lambda: lib.index_add_(0, idx, cot[:e]), 10, flush)
-        res = dict(shape=dict(E=e, d=d, rows=r, n=n, dtype="float32",
-                              perm=perm is not None),
-                   group=sops.group_size(r, e if perm is not None
-                                         else cot.shape[0]),
-                   max_abs_err=err, bitwise=same, ms=kms, plain_ms=pms,
-                   library_ms=lms,
-                   library="index_add_(0, idx, cot) into the same buffer, "
-                           "in place (atomics)",
-                   library_max_abs_diff=lib_err, bound_ms=bms, bound_by=bby,
-                   gbytes=nbytes / 1e9,
-                   achieved_tb_s=nbytes / (kms * 1e-3) / 1e12)
-        line(f"kernel.segment_sum_accumulate.{name}", **res)
-        del out, ref, lib
-        return res
+        return inplace_side(f"kernel.segment_sum_accumulate.{name}", cot, e,
+                            rowptr, perm, rows, seg_lo, idx, base, flush)
 
     src_rp, src_perm, src_rows = ex._src_csr(0)
     dst_rp, dst_lo = ex._dst_csr(0)
@@ -3634,7 +3733,8 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
     minibatch_lg cell through the sampler, (d) one molecule step. Returns
     the summing and the in-place kernels' launches of the cells' runs (the
     two Trainer runs and the molecule step; the checks' extra steps not
-    counted) and the in-place kernel's kernels-line entry."""
+    counted), the in-place kernel's kernels-line entry and the last
+    minibatch batch on the card (for the gnn_models phase)."""
     from repro_torch.checkpoint import restore_checkpoint
     from repro_torch.common.tree import leaves, tree_finite
     from repro_torch.configs import get_config, get_shapes
@@ -3782,9 +3882,15 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
                                              1)
         torch.cuda.reset_peak_memory_stats()
         seg_zero()
+        kept = {}
+
+        def to_card(sampled):
+            kept["batch"] = minibatch_to_card(sampled)
+            return kept["batch"]
+
         mtr, mseen, _ = train_run(cfg, "minibatch", mparams, stream, MB_STEPS,
                                   os.path.join(root, "minibatch"), MB_STEPS,
-                                  to_device=minibatch_to_card)
+                                  to_device=to_card)
         mb_launches, mb_acc = seg_counts()
         mpeak = torch.cuda.max_memory_allocated()
         mlosses = [float(m["loss"]) for m in mseen]
@@ -3841,9 +3947,572 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
                            loss=float(mout[2]["loss"])),
              phase_s=time.perf_counter() - phase_t0)
         return (full_launches + mb_launches + mol_launches,
-                full_acc + mb_acc + mol_acc, acc_kern)
+                full_acc + mb_acc + mol_acc, acc_kern, kept["batch"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def model_launches(cfg, ex, triplets: bool) -> dict:
+    """The segment-sum (summing) launches of a forward, which are a train
+    step's too, and the in-place launches of a step's backward, of ``cfg``
+    on its engine ``ex``, with their formulas."""
+    layers, chunks = cfg.n_layers, len(ex.chunks)
+    blocks = -(-ex.n_edges // ex.block)
+    if cfg.model == "nequip":
+        # one push a layer: a sum per chunk; per block, the payload
+        # gathers' two transposes
+        return dict(forward=layers * chunks, step_in_place=layers * 2 * blocks,
+                    formula="layers x chunks; layers x 2 x blocks")
+    if cfg.model == "equiformer_v2":
+        # push_attn: per chunk the softmax denominators' sum and the
+        # messages' sum; per block the logits' two transposes and the
+        # messages' source transpose (their destination rows give only a
+        # position to the detached edge frame: no gradient), per chunk the
+        # denominators' gather transpose
+        return dict(forward=2 * layers * chunks,
+                    step_in_place=layers * (3 * blocks + chunks),
+                    formula="2 x layers x chunks; layers x (3 x blocks + "
+                            "chunks)")
+    t = int(triplets)
+    # per block the edge -> node sum (and the triplet -> edge sum); the h
+    # gathers' two transposes once, m's by the triplets per block
+    return dict(forward=layers * (1 + t), step_in_place=2 + layers * t,
+                formula="blocks x (1 + triplets); 2 + blocks x triplets")
+
+
+def model_cell(cfg, cell: str, kind: str, batch, params, ex, train: bool,
+               reason: str = "", reps: int = MODEL_FWD_REPS) -> dict:
+    """One cell of the gnn_models phase: forward p50/p99 (the loss under
+    no_grad), and with ``train`` a train step's, edges/s, peak memory,
+    the launches per forward and per step held to ``model_launches``,
+    one profiled step (a forward where no step runs, and for
+    Equiformer-v2, whose step's events take the profiler ~15 s to
+    aggregate). Prints a ``gnn_models`` line."""
+    from repro_torch.common.tree import tree_finite
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.train.optimizer import init_adamw
+    trip = batch.get("triplets")
+    want = model_launches(cfg, ex, trip is not None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cell_t0 = time.perf_counter()
+
+    def forward():
+        with torch.no_grad():
+            return gd.train_loss(cfg, kind, params, batch)
+
+    c0 = seg_counts()
+    loss, _ = forward()
+    torch.cuda.synchronize()
+    fl = tuple(b - a for a, b in zip(c0, seg_counts()))
+    check(fl == (want["forward"], 0) and bool(torch.isfinite(loss)),
+          f"gnn_models {cell}: a forward launched (summing, in-place) {fl}, "
+          f"the formula ({want['forward']}, 0); loss {float(loss)}")
+    f50, f99 = timed_ms(forward, reps)
+    res = dict(cell=cell, model=cfg.arch_id, layers=cfg.n_layers,
+               d_hidden=cfg.d_hidden, l_max=cfg.l_max, dtype=cfg.dtype,
+               kind=kind, nodes=ex.n, edges=ex.n_edges,
+               triplets=None if trip is None else int(trip.t_mask.sum()),
+               chunks=len(ex.chunks), chunk_edges=ex.chunk_edges,
+               block_edges=ex.block, loss=float(loss),
+               forward_ms=dict(p50=f50, p99=f99),
+               edges_per_s=ex.n_edges / (f50 * 1e-3),
+               launches_per_forward=dict(summing=fl[0], in_place=fl[1]),
+               launch_formula=want["formula"])
+    share = ("segment_sum_kernel", "segment_accumulate_kernel")
+    if train:
+        profile_step = cfg.model != "equiformer_v2"
+        step = gd.make_train_step(cfg, kind)
+        opt0 = init_adamw(params)
+        c0 = seg_counts()
+        out = step(params, opt0, batch)
+        torch.cuda.synchronize()
+        sl = tuple(b - a for a, b in zip(c0, seg_counts()))
+        finite = bool(tree_finite(out[0]))
+        check(sl == (want["forward"], want["step_in_place"])
+              and bool(torch.isfinite(out[2]["loss"]))
+              and (finite or cfg.model == "equiformer_v2"),
+              f"gnn_models {cell}: a step launched (summing, in-place) {sl}, "
+              f"the formula ({want['forward']}, {want['step_in_place']}); "
+              f"loss {float(out[2]['loss'])}, new params finite {finite}")
+        res["new_params_finite"] = finite
+        del out
+        s50, s99 = timed_ms(lambda: step(params, opt0, batch),
+                            min(reps, MODEL_STEP_REPS))
+        prof_t0 = time.perf_counter()
+        _, prof = profile_once((lambda: step(params, opt0, batch))
+                               if profile_step else forward, top=8,
+                               share_of=share)
+        res.update(step_ms=dict(p50=s50, p99=s99),
+                   launches_per_step=dict(summing=sl[0], in_place=sl[1]),
+                   profiled="one train step" if profile_step
+                   else "one forward")
+    else:
+        prof_t0 = time.perf_counter()
+        _, prof = profile_once(forward, top=8, share_of=share)
+        res.update(step_ms="not run", why_forward_only=reason,
+                   profiled="one forward")
+    res.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               cell_s=time.perf_counter() - cell_t0,
+               profile_s=time.perf_counter() - prof_t0, profile=prof)
+    line("gnn_models", **res)
+    return res
+
+
+def wigner_launches(l_max: int, rows: int) -> dict:
+    """The ATen ops one ``wigner_d_from_rotation`` call runs (views not
+    counted; each launches one kernel here), counted by the dispatcher,
+    and its device ms, at ``rows`` edge frames."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.equivariant.spherical import (rotation_to_align_z,
+                                                   wigner_d_from_rotation)
+
+    class OpCount(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not getattr(func, "is_view", False):
+                self.ops[str(func)] = self.ops.get(str(func), 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    R = rotation_to_align_z(torch.randn((rows, 3), device="cuda",
+                                        generator=gen))
+    wigner_d_from_rotation(R, l_max)
+    with OpCount() as count:
+        wigner_d_from_rotation(R, l_max)
+    return dict(rows=rows, launches_per_call=sum(count.ops.values()),
+                ops=count.ops,
+                ms_per_call=cuda_ms(lambda: wigner_d_from_rotation(R, l_max),
+                                    5))
+
+
+def summing_width(tag: str, msgs, rowptr, perm, flush) -> dict:
+    """The summing kernel at one call's shape of a new model: against its
+    plain version, timed beside its byte bound, the plain version and
+    ``index_add_`` of each message by its segment (a message no segment
+    reads goes to an extra row). Prints the ``tag`` line; returns it."""
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.kernels.segment_reduce.ref import segment_sum_csr_ref
+    e, d = msgs.shape
+    n = rowptr.numel() - 1
+    out = sops.segment_sum_csr(msgs, rowptr, perm)
+    want = segment_sum_csr_ref(msgs, rowptr, perm)
+    torch.cuda.synchronize()
+    err = float((out - want).abs().max())
+    check(err <= SEG_FP32_ATOL, f"{tag}: max |d| {err} > {SEG_FP32_ATOL}")
+    del want
+    deg = (rowptr[1:] - rowptr[:-1]).long()
+    pos = torch.repeat_interleave(torch.arange(n, device="cuda"), deg)
+    ids = torch.full((e,), n, dtype=torch.int64, device="cuda")
+    if perm is None:
+        ids[:pos.numel()] = pos
+    else:
+        ids[perm[:pos.numel()].long()] = pos
+    nbytes = (e * d * 4 + n * d * 4 + (n + 1) * 4
+              + (0 if perm is None else e * 4))
+    bms, bby = bound(float(e * d), nbytes)
+    kms = cuda_ms(lambda: sops.segment_sum_csr(msgs, rowptr, perm, out=out),
+                  10, flush)
+    pms = cuda_ms(lambda: segment_sum_csr_ref(msgs, rowptr, perm), 3, flush)
+    lib = torch.zeros((n + 1, d), device="cuda").index_add_(0, ids, msgs)
+    torch.cuda.synchronize()
+    lib_err = float((lib[:n] - out).abs().max())
+    lms = cuda_ms(lambda: lib.index_add_(0, ids, msgs), 10, flush)
+    res = dict(shape=dict(E=e, d=d, n=n, dtype="float32",
+                          perm=perm is not None),
+               max_abs_err=err, ms=kms, plain_ms=pms, library_ms=lms,
+               library="index_add_(0, ids, msgs) (atomics)",
+               library_max_abs_diff=lib_err, bound_ms=bms, bound_by=bby,
+               gbytes=nbytes / 1e9,
+               achieved_tb_s=nbytes / (kms * 1e-3) / 1e12)
+    line(tag, **res)
+    del out, lib
+    return res
+
+
+def block_transposes(tag: str, ex, d: int, flush) -> dict:
+    """The in-place kernel at block 0's two gather transposes of a sized
+    engine, at the payload's width ``d`` (random cotangents and buffer):
+    ``inplace_side`` for its sources and its destinations."""
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    e = min(ex.block, ex.n_edges)
+    cot = torch.randn((ex.block, d), device="cuda", generator=gen)
+    base = torch.randn((ex.n, d), device="cuda", generator=gen)
+    src_rp, src_perm, src_rows = ex._src_csr(0)
+    dst_rp, dst_lo = ex._dst_csr(0)
+    out = {"source": inplace_side(f"{tag}.source", cot, e, src_rp, src_perm,
+                                  src_rows, 0, ex.src[:e].long(), base,
+                                  flush),
+           "destination": inplace_side(f"{tag}.destination", cot, e, dst_rp,
+                                       None, None, dst_lo,
+                                       ex.dst[:e].long(), base, flush)}
+    del cot, base
+    torch.cuda.empty_cache()
+    return out
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """The leaves' paths of a params tree, in ``leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}.{k}" if prefix else k)]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def nan_rel_err(got, want, floor: float = 1.0) -> float:
+    """``rel_err`` that matches NaN for NaN: inf where the two leaves'
+    non-finite elements differ, else the largest |got - want| over the
+    finite ones, each relative to max(floor, max |want|) of its leaf."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        fa, fb = torch.isfinite(a), torch.isfinite(b)
+        if not torch.equal(fa, fb):
+            return float("inf")
+        if bool(fb.any()):
+            worst = max(worst, float((a[fb] - b[fb]).abs().max())
+                        / max(floor, float(b[fb].abs().max())))
+    return worst
+
+
+def leaf_floor(tensors) -> float:
+    """1e-6 of the largest finite |value| over all the leaves: the scale
+    below which a leaf is held relative to the whole tree, not itself."""
+    return 1e-6 * max(float(t[torch.isfinite(t)].abs().max())
+                      for t in tensors if bool(torch.isfinite(t).any()))
+
+
+def bits_equal(a, b) -> bool:
+    """Two trees with the same bits (NaN for NaN)."""
+    from repro_torch.common.tree import leaves
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    return all(x.dtype == y.dtype and torch.equal(bits(x), bits(y))
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def card_vs_cpu(cfg, mb, energy, params) -> dict:
+    """The molecule batch ``mb`` (one disjoint-union graph, DimeNet with
+    its triplets) at ``params``, card against CPU: the logits relative to
+    max(1, max |CPU logit|); the gradients and one AdamW step's first
+    moments relative to each leaf's max |CPU value| (``leaf_floor`` at
+    least); the step's new params relative to max(1, max |CPU param|); the
+    card's non-finite gradient leaves, none but Equiformer-v2's ln1/ln2
+    (``EQV2_NONFINITE_OK``), matched NaN for NaN (``nan_rel_err``). The
+    step has no warm-up and no clipping, and Adam's eps is 1e-3, so that
+    its first update is a smooth function of the gradient (at 1e-8 it is
+    near sign(g) where |g| is near eps)."""
+    from repro_torch.common.tree import leaves, tree_map
+    from repro_torch.models.gnn import dimenet
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.models.gnn.common import FlatGraph
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                             init_adamw)
+    cpu_p = _params_to(params, "cpu")
+    cpu_mb = FlatGraph(*(t.cpu() for t in mb))
+    trips = [None, None]
+    if cfg.model == "dimenet":
+        arrays = [t.numpy() for t in (cpu_mb.edge_src, cpu_mb.edge_dst,
+                                      cpu_mb.edge_mask)]
+        trips = [dimenet.build_batch_triplets(*arrays, device=dev)
+                 for dev in ("cuda", "cpu")]
+    logits = []
+    for p, g, t in ((params, mb, trips[0]), (cpu_p, cpu_mb, trips[1])):
+        u = gd.disjoint_union(g)
+        with torch.no_grad():
+            logits.append(gd.node_logits_local(
+                cfg, p, u, None if t is None
+                else gd.union_triplets(t, g.edge_src.shape[1])).cpu())
+    scale = float(logits[1].abs().max())
+    logit_err = float((logits[0] - logits[1]).abs().max()) / max(1.0, scale)
+    _, g_card, _, _ = grads_of(cfg, "molecule", params, {
+        "graph": mb, "energy": energy, "triplets": trips[0]})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, g_cpu, _, _ = grads_of(cfg, "molecule", cpu_p, {
+        "graph": cpu_mb, "energy": energy.cpu(), "triplets": trips[1]})
+    cpu_grad_s = time.perf_counter() - t0
+    bad = [n for n, g in zip(leaf_names(params), g_card)
+           if not bool(torch.isfinite(g).all())]
+    allowed = EQV2_NONFINITE_OK if cfg.model == "equiformer_v2" else ()
+    check(all(n.rsplit(".", 1)[-1] in allowed for n in bad),
+          f"gnn_models {cfg.arch_id}: non-finite gradients in {bad}")
+    g_cpu = [g.cpu() for g in g_cpu]
+    grad_err = nan_rel_err(g_card, g_cpu, leaf_floor(g_cpu))
+    opt = AdamWConfig(lr=1e-3, eps=1e-3, warmup_steps=0, clip_norm=0.0)
+    steps = []
+    for p, g in ((params, g_card), (cpu_p, g_cpu)):
+        it = iter(g)
+        new_p, st, _ = adamw_update(opt, tree_map(lambda _: next(it), p),
+                                    init_adamw(p), p)
+        steps.append((leaves(new_p), [m.cpu() for m in leaves(st.mu)]))
+    param_err = nan_rel_err(steps[0][0], steps[1][0])
+    mu_err = nan_rel_err(steps[0][1], steps[1][1], leaf_floor(steps[1][1]))
+    return dict(logit_rel_err=logit_err, logit_scale=scale,
+                grad_rel_err=grad_err, new_param_rel_err=param_err,
+                new_mu_rel_err=mu_err, non_finite_grad_leaves=bad,
+                cpu_grad_s=cpu_grad_s)
+
+
+def model_cpu_check(cfg, arch: str) -> dict:
+    """(a) ``card_vs_cpu`` on 8 molecules at full width and depth, held to
+    ``MODEL_CPU_RTOL``: DimeNet's on the molecules with their bonds
+    spread (``driver.spread_bonds``), with its unit-sphere readings beside
+    (not held)."""
+    from repro_torch.models.gnn import driver as gd
+    mb, energy = gd.make_molecule_batch(MODEL_CPU_MOLECULES, 30, 64, seed=7)
+    params = gd.init_model(cfg, 0, 4, n_out=1)
+    out = dict(molecules=MODEL_CPU_MOLECULES, tolerance_rel=MODEL_CPU_RTOL)
+    if cfg.model == "dimenet":
+        out["unit_sphere_not_held"] = card_vs_cpu(cfg, mb, energy, params)
+        mb = gd.spread_bonds(mb)
+        out["bonds"] = dict(spread=gd.SPREAD_SCALE, r_min=gd.SPREAD_R_MIN,
+                            kept=float(mb.edge_mask.float().mean()))
+    held = card_vs_cpu(cfg, mb, energy, params)
+    worst = max(held[k] for k in ("logit_rel_err", "grad_rel_err",
+                                  "new_param_rel_err", "new_mu_rel_err"))
+    check(worst <= MODEL_CPU_RTOL,
+          f"gnn_models {arch}: {MODEL_CPU_MOLECULES} molecules, card vs CPU: "
+          f"{held} (relative; tolerance {MODEL_CPU_RTOL})")
+    return dict(out, **held)
+
+
+def model_bitwise(cfg, params, g, trip, budget: int = 0) -> dict:
+    """(b) two forwards' logits (on the driver's engine, or at the chunk
+    budget ``budget``), and a forward's at half that engine's chunk budget,
+    bit for bit."""
+    from repro_torch.models.gnn import driver as gd
+    ex = gd.engine(cfg, g, *([budget] if budget else []))
+    half = gd.engine(cfg, g, max(1, ex.chunk_edges // 2))
+    with torch.no_grad():
+        outs = [gd.node_logits_local(cfg, params, g, trip, ex=e)
+                for e in (ex, ex, half)]
+    same = torch.equal(outs[0], outs[1])
+    half_same = torch.equal(outs[0], outs[2])
+    check(same and half_same,
+          f"gnn_models {cfg.arch_id}: forwards differ in their bits (twice: "
+          f"{same}, half the chunk budget: {half_same})")
+    return dict(nodes=g.n_nodes, two_forwards_bitwise=same,
+                half_budget_bitwise=half_same, chunk_edges=ex.chunk_edges,
+                chunks=len(ex.chunks), half_budget_chunks=len(half.chunks))
+
+
+def model_step_bitwise(cfg, kind, params, batch) -> dict:
+    """(c) two train steps from one state: new params, moments and loss bit
+    for bit; and two gradients' leaves bit for bit (NaN for NaN: where a
+    non-finite gradient makes the clipped step's every new value NaN, as
+    Equiformer-v2's does, the gradients still hold each finite leaf)."""
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.train.optimizer import init_adamw
+    step = gd.make_train_step(cfg, kind)
+    opt0 = init_adamw(params)
+    a, b = (step(params, opt0, batch) for _ in range(2))
+    same = bits_equal(a[:2] + (a[2]["loss"],), b[:2] + (b[2]["loss"],))
+    del a, b
+    ga, gb = (list(grads_of(cfg, kind, params, batch)[1]) for _ in range(2))
+    grads_same = bits_equal(ga, gb)
+    finite = sum(bool(torch.isfinite(g).all()) for g in ga)
+    check(same and grads_same,
+          f"gnn_models {cfg.arch_id}: two steps from one state differ in "
+          f"their bits (steps {same}, gradients {grads_same})")
+    return dict(steps=same, gradients=grads_same, leaves=len(ga),
+                finite_gradient_leaves=finite)
+
+
+def rotation_err(cfg, params, mb, device: str) -> float:
+    """The molecule batch's logits with rotated positions against without,
+    relative to the largest |logit|, on ``device`` (DimeNet with the
+    batch's triplets)."""
+    from repro_torch.models.gnn import dimenet
+    from repro_torch.models.gnn import driver as gd
+    q, _ = np.linalg.qr(np.random.default_rng(5).normal(size=(3, 3)))
+    if np.linalg.det(q) < 0:
+        q[:, 0] *= -1
+    rot = torch.from_numpy(q.astype(np.float32)).to(device)
+    p = _params_to(params, device)
+    u = gd.disjoint_union(type(mb)(*(x.to(device) for x in mb)))
+    t = None
+    if cfg.model == "dimenet":
+        t = gd.union_triplets(dimenet.build_batch_triplets(
+            *(x.cpu().numpy() for x in (mb.edge_src, mb.edge_dst,
+                                        mb.edge_mask)), device=device),
+            mb.edge_src.shape[1])
+    with torch.no_grad():
+        l1 = gd.node_logits_local(cfg, p, u, t)
+        l2 = gd.node_logits_local(
+            cfg, p, u._replace(positions=u.positions @ rot.T), t)
+    return float((l1 - l2).abs().max() / (l1.abs().max() + 1e-9))
+
+
+def model_rotation(cfg, arch, params, mb) -> dict:
+    """(d) the molecule cell's molecules rotated on the card, held to
+    ``MODEL_ROT_RTOL``; DimeNet's with their bonds spread, its unit-sphere
+    reading beside the CPU's (not held)."""
+    from repro_torch.models.gnn import driver as gd
+    out = dict(tolerance_rel=MODEL_ROT_RTOL)
+    if cfg.model == "dimenet":
+        out["unit_sphere_not_held"] = dict(
+            rel_err=rotation_err(cfg, params, mb, "cuda"),
+            cpu_rel_err=rotation_err(cfg, params, mb, "cpu"))
+        mb = gd.spread_bonds(mb)
+    rel = rotation_err(cfg, params, mb, "cuda")
+    check(rel <= MODEL_ROT_RTOL,
+          f"gnn_models {arch}: rotating the molecules moves the logits by "
+          f"{rel} (relative) > {MODEL_ROT_RTOL}")
+    return dict(out, rel_err=rel)
+
+
+def phase_gnn_models(g_ogb, ex_ogb, mb_batch) -> dict:
+    """NequIP, DimeNet and Equiformer-v2 at their published configs: the
+    molecule, full_graph_sm and minibatch_lg cells of each (gnn_train's
+    sampled batch), NequIP on phase 7's ogbn-products graph; checks (a)-(e)
+    of each. Returns the launches of the cells' runs (checks not counted)
+    and the kernel measurements at the new widths."""
+    from repro_torch.configs import get_config, get_shapes
+    from repro_torch.equivariant.spherical import sh_dim
+    from repro_torch.kernels.segment_reduce.ref import csr_from_ids
+    from repro_torch.models.gnn import dimenet, nequip
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.sparse.segment import csr_by_row
+    phase_t0 = time.perf_counter()
+    dims = {s.name: s.dims for s in get_shapes("nequip")}
+    sm, mo = dims["full_graph_sm"], dims["molecule"]
+    g_sm = gd.make_flat_graph(sm["n_nodes"], sm["n_edges"], sm["d_feat"],
+                              seed=3)
+    mol, energy = gd.make_molecule_batch(mo["batch"], mo["n_nodes"],
+                                         mo["n_edges"], seed=0)
+    mb_graph = mb_batch["graph"]
+    mb_union = gd.disjoint_union(mb_graph)
+    d_mb = mb_graph.feats.shape[-1]
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda").zero_
+    line("gnn_models.cut", cuts=MODEL_CUTS)
+    launches = [0, 0]
+    cells, checks, seg_w, acc_w = {}, {}, {}, {}
+
+    def counted(fn):
+        c0 = seg_counts()
+        out = fn()
+        c1 = seg_counts()
+        launches[0] += c1[0] - c0[0]
+        launches[1] += c1[1] - c0[1]
+        return out
+
+    for arch in MODEL_ARCHS:
+        cfg = get_config(arch)
+        is_dn = cfg.model == "dimenet"
+        t_sm = t_mol = None
+        if is_dn:
+            t_sm = dimenet.build_triplets(*(t.cpu().numpy() for t in (
+                g_sm.edge_src, g_sm.edge_dst, g_sm.edge_mask)))
+            t_mol = dimenet.build_batch_triplets(*(t.cpu().numpy() for t in (
+                mol.edge_src, mol.edge_dst, mol.edge_mask)))
+        # the cells
+        p_mol = gd.init_model(cfg, 0, 4, n_out=1)
+        cells[f"{arch}-molecule"] = counted(lambda: model_cell(
+            cfg, f"{arch}-molecule", "molecule",
+            {"graph": mol, "energy": energy, "triplets": t_mol}, p_mol,
+            gd.engine(cfg, gd.disjoint_union(mol)), True))
+        p_sm = gd.init_model(cfg, 0, sm["d_feat"])
+        ex_sm = gd.engine(cfg, g_sm)
+        b_sm = {"graph": g_sm, "triplets": t_sm, "exec": ex_sm}
+        cells[f"{arch}-full-graph-sm"] = counted(lambda: model_cell(
+            cfg, f"{arch}-full-graph-sm", "full_graph", b_sm, p_sm, ex_sm,
+            True))
+        p_mb = gd.init_model(cfg, 0, d_mb)
+        ex_mb = gd.engine(cfg, mb_union)
+        mb_train = cfg.model != "equiformer_v2"
+        cells[f"{arch}-minibatch-lg"] = counted(lambda: model_cell(
+            cfg, f"{arch}-minibatch-lg", "minibatch", mb_batch, p_mb, ex_mb,
+            mb_train, "" if mb_train else MODEL_CUTS[
+                "equiformer-v2-minibatch-lg"],
+            reps=MODEL_FWD_REPS if mb_train else MODEL_BIG_REPS))
+        if cfg.model == "nequip":
+            p_ogb = gd.init_model(cfg, 0, g_ogb.feats.shape[1])
+            ex_n = nequip.engine(cfg, ex_ogb)
+            cells["nequip-ogbn-products"] = counted(lambda: model_cell(
+                cfg, "nequip-ogbn-products", "full_graph",
+                {"graph": g_ogb, "exec": ex_ogb}, p_ogb, ex_n, False,
+                "an inference cell: forward p50/p99 at full size",
+                reps=MODEL_BIG_REPS))
+        torch.cuda.empty_cache()
+        # the checks (not counted)
+        checks_t0 = time.perf_counter()
+        ck = {"card_vs_cpu": model_cpu_check(cfg, arch)}
+        b_cell, b_budget = MODEL_BITWISE[arch]
+        ck["bitwise"] = dict(
+            model_bitwise(cfg, *((p_mb, mb_union, None)
+                                 if b_cell == "minibatch-lg"
+                                 else (p_sm, g_sm, t_sm)), b_budget),
+            cell=f"{arch}-{b_cell}")
+        ck["two_steps_bitwise"] = model_step_bitwise(cfg, "full_graph", p_sm,
+                                                     b_sm)
+        ck["rotation"] = model_rotation(cfg, arch, p_mol, mol)
+        # (e) the kernels at this model's widths
+        if cfg.model == "nequip":
+            lo, hi, e0, e1, rp = ex_n.chunks[0]
+            d = cfg.d_hidden * sh_dim(cfg.l_max)
+            gen = torch.Generator(device="cuda").manual_seed(41)
+            msgs = torch.randn((e1 - e0, d + 1), device="cuda", generator=gen)
+            seg_w[f"{arch}_{d + 1}"] = summing_width(
+                f"kernel.segment_sum.{arch}", msgs, rp, None, flush)
+            del msgs
+            acc_w[f"{arch}_{d + 3}"] = block_transposes(
+                f"kernel.segment_sum_accumulate.{arch}", ex_n, d + 3, flush)
+            del p_ogb, ex_n
+        elif cfg.model == "equiformer_v2":
+            lo, hi, e0, e1, rp = ex_mb.chunks[0]
+            d = cfg.d_hidden * sh_dim(cfg.l_max)
+            gen = torch.Generator(device="cuda").manual_seed(43)
+            msgs = torch.randn((e1 - e0, d), device="cuda", generator=gen)
+            seg_w[f"{arch}_{d}"] = summing_width(
+                f"kernel.segment_sum.{arch}", msgs, rp, None, flush)
+            del msgs
+            acc_w[f"{arch}_{d + 3}"] = block_transposes(
+                f"kernel.segment_sum_accumulate.{arch}", ex_mb, d + 3, flush)
+            ck["wigner_d"] = dict(
+                wigner_launches(cfg.l_max, ex_mb.block),
+                calls_per_forward="layers x 2 x blocks (the logits' and the "
+                                  "messages' edge message)",
+                calls_per_step="2 x that (the checkpointed blocks run "
+                               "again in the backward)",
+                calls={c: 2 * cfg.n_layers * -(-cells[c]["edges"]
+                                               // cells[c]["block_edges"])
+                       for c in cells if c.startswith(arch)})
+        else:
+            d = cfg.d_hidden
+            ts, td, tm = t_sm
+            gen = torch.Generator(device="cuda").manual_seed(47)
+            contrib = torch.randn((ts.numel(), d), device="cuda",
+                                  generator=gen)
+            rp, perm = csr_from_ids(torch.where(tm, td, -1),
+                                    g_sm.edge_src.numel())
+            seg_w[f"{arch}_{d}"] = summing_width(
+                f"kernel.segment_sum.{arch}", contrib, rp, perm, flush)
+            rp, perm, rows = csr_by_row(ts)
+            base = torch.randn((g_sm.edge_src.numel(), d), device="cuda",
+                               generator=gen)
+            acc_w[f"{arch}_{d}"] = {"triplet_source": inplace_side(
+                f"kernel.segment_sum_accumulate.{arch}.triplet_source",
+                contrib, ts.numel(), rp, perm, rows, 0, ts.long(), base,
+                flush)}
+            del contrib, base
+        line("gnn_models.checks", arch=arch,
+             checks_s=time.perf_counter() - checks_t0, **ck)
+        checks[arch] = ck
+        del p_mol, p_sm, p_mb, ex_sm, ex_mb, b_sm
+        torch.cuda.empty_cache()
+    line("gnn_models.launches", summing=launches[0], in_place=launches[1],
+         phase_s=time.perf_counter() - phase_t0)
+    return dict(launches=launches, segment_widths=seg_w,
+                accumulate_widths=acc_w)
 
 
 def lm_train_flops(cfg, seqs: int, seq: int) -> float:
@@ -4078,6 +4747,7 @@ def lm_trainer_restart(cfg, root: str) -> dict:
     shutil.rmtree(os.path.join(root, "faulty"), ignore_errors=True)
     return dict(steps=TRAIN_FAIL_AT + 1, restart_at_step=TRAIN_FAIL_AT,
                 restored_from_step=2, restart_bitwise=same, seq=LM_CKPT_SEQ,
+                vocab=cfg.vocab_size,
                 grad_accum=2, plain_run_s=plain_s, restarted_run_s=faulty_s,
                 checkpoint_dir_gb=ckpt_bytes / 1e9,
                 losses=[h["loss"] for h in plain.history],
@@ -4186,7 +4856,8 @@ def phase_lm_train() -> tuple:
         check(free >= LM_CKPT_MIN_FREE,
               f"lm_train: {free / 1e9:.1f} GB free under {root}, the "
               f"Trainer check needs {LM_CKPT_MIN_FREE / 1e9:.0f}")
-        restart = lm_trainer_restart(two, root)
+        restart = lm_trainer_restart(two.replace(vocab_size=LM_CKPT_VOCAB),
+                                     root)
         torch.cuda.empty_cache()
         # (e) the launcher, as a user runs it, in a child process
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -4209,7 +4880,8 @@ def phase_lm_train() -> tuple:
                      "phi4-mini-3.8b --steps 2", exit=child.returncode,
              final_loss=float(final[-1]), wall_s=launch_s),
          left_out="a full-depth checkpoint (46 GB of host copy and disk "
-                  "writes); the Trainer runs on the 2-layer copy",
+                  "writes); the Trainer runs on the 2-layer copy with the "
+                  f"vocabulary cut to {LM_CKPT_VOCAB:,}",
          phase_s=time.perf_counter() - phase_t0)
     return main_launches + restart["launches"], token_kern
 
@@ -4281,9 +4953,19 @@ def main():
         # size the serve_1m searches actually scanned
         kern["shared"] = measure_shared(delta_cap, delta_live)
     kern["segment"], gnn_launches, trained = phase_gnn(small_seg_err)
-    train_launches, train_acc, kern["accumulate"] = phase_gnn_train(*trained)
+    (train_launches, train_acc, kern["accumulate"],
+     mb_batch) = phase_gnn_train(*trained)
+    g_ogb, ex_ogb = trained[1], trained[2]
     del trained
     check(train_acc > 0, "the in-place kernel was not launched by training")
+    torch.cuda.empty_cache()
+    models = phase_gnn_models(g_ogb, ex_ogb, mb_batch)
+    check(min(models["launches"]) > 0,
+          f"a segment kernel was not launched by gnn_models: "
+          f"{models['launches']}")
+    kern["segment"]["widths"] = models["segment_widths"]
+    kern["accumulate"]["widths"] = models["accumulate_widths"]
+    del g_ogb, ex_ogb, mb_batch
     torch.cuda.empty_cache()
     lm_acc, kern["accumulate"]["sides"]["token"] = phase_lm_train()
     line("launches", vector=dict(zip(("probe", "shared"), after_vector)),
@@ -4303,6 +4985,8 @@ def main():
          gnn={"segment_sum": gnn_launches},
          gnn_train={"segment_sum": train_launches,
                     "segment_sum_accumulate": train_acc},
+         gnn_models={"segment_sum": models["launches"][0],
+                     "segment_sum_accumulate": models["launches"][1]},
          lm_train={"segment_sum_accumulate": lm_acc},
          index_path_segment_sum=dict(seg, total=index_seg))
     src = "src/repro_torch/kernels/ivf_topk/csrc/ivf_topk.cu"
@@ -4326,14 +5010,16 @@ def main():
                     "segment_reduce.cu",
              replaces="src/repro/kernels/segment_reduce/"
                       "segment_reduce.py:50",
-             launches=gnn_launches + train_launches + index_seg,
+             launches=(gnn_launches + train_launches + models["launches"][0]
+                       + index_seg),
              **kern["segment"]),
         dict(name="segment_sum_csr_accumulate", route="cuda",
              source="src/repro_torch/kernels/segment_reduce/csrc/"
                     "segment_reduce.cu",
              replaces="src/repro/kernels/segment_reduce/"
                       "segment_reduce.py:50",
-             launches=train_acc + lm_acc, **kern["accumulate"]),
+             launches=train_acc + models["launches"][1] + lm_acc,
+             **kern["accumulate"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Config registry of the port: the index's own config, the five LM
-configs of the RAG engine and the EGNN node classifier."""
+configs of the RAG engine and the four GNN configs (EGNN, NequIP, DimeNet,
+Equiformer-v2)."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +16,9 @@ _MODULES = {
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite",
     "egnn": "repro_torch.configs.egnn",
+    "nequip": "repro_torch.configs.nequip",
+    "dimenet": "repro_torch.configs.dimenet",
+    "equiformer-v2": "repro_torch.configs.equiformer_v2",
 }
 _Config = Union[HMGIConfig, LMConfig, GNNConfig]
 
@@ -22,8 +26,8 @@ _Config = Union[HMGIConfig, LMConfig, GNNConfig]
 def get_config(arch_id: str) -> _Config:
     if arch_id not in _MODULES:
         raise KeyError(f"unknown or unported arch {arch_id!r}; known: "
-                       f"{sorted(_MODULES)} (the other GNN and recsys configs "
-                       "arrive with ROADMAP Queue 1 item 17)")
+                       f"{sorted(_MODULES)} (the recsys config arrives with "
+                       "ROADMAP Queue 1 Step 10)")
     return importlib.import_module(_MODULES[arch_id]).CONFIG
 
 

@@ -191,8 +191,8 @@ class LMConfig:
 
 @dataclass(frozen=True)
 class GNNConfig:
-    """A message-passing GNN. The port runs ``model="egnn"``; the DimeNet,
-    NequIP and Equiformer-v2 fields are kept for the round trip."""
+    """A message-passing GNN: ``model`` is "egnn", "nequip", "dimenet" or
+    "equiformer_v2"."""
     arch_id: str = ""
     family: str = "gnn"
     source: str = ""

@@ -5,9 +5,10 @@ The smoke-config model by default (``--full`` for the full config),
 synthetic data, on the card unless ``--device`` says otherwise. Fault
 tolerance is on: checkpoint/restart, the straggler monitor, deterministic
 data skipping (``train/trainer.py``). The LM archs train through
-``models.lm.make_train_step`` (its step updates in place), EGNN through
-the GNN driver's full-graph step. The recsys arch waits for ROADMAP.md
-Queue 1 Step 10; the other GNN archs are not registered yet (item 17).
+``models.lm.make_train_step`` (its step updates in place), the four GNN
+archs (EGNN, NequIP, DimeNet with its triplets, Equiformer-v2) through the
+GNN driver's full-graph step. The recsys arch waits for ROADMAP.md Queue 1
+Step 10.
 """
 from __future__ import annotations
 
@@ -47,14 +48,19 @@ def build(args, device: torch.device):
             return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
     elif isinstance(cfg, GNNConfig):
         from repro_torch.models.gnn import driver as gd
+        from repro_torch.models.gnn.dimenet import build_triplets
         g = gd.make_flat_graph(128, 512, 16, seed=0, device=device)
+        trip = (build_triplets(g.edge_src.cpu().numpy(),
+                               g.edge_dst.cpu().numpy(),
+                               g.edge_mask.cpu().numpy(), device=device)
+                if cfg.model == "dimenet" else None)
         params = gd.init_model(cfg, 0, 16, device=device)
         step = gd.make_train_step(cfg, "full_graph",
                                   opt_cfg=AdamWConfig(lr=args.lr))
 
         class _GraphStream:
             def batch_at(self, step):
-                return {"graph": g}
+                return {"graph": g, "triplets": trip}
         stream = _GraphStream()
         to_device = None
     else:

@@ -17,15 +17,16 @@ one launch in one fixed order.
 
 ``msg_fn`` is not called per chunk but per block: the sorted edges are
 cut into fixed blocks ``[k·block, (k+1)·block)`` (the last one padded with
-copies of node 0), with ``block`` set by the graph alone, and a chunk takes
-its messages from the blocks it overlaps (a block that two chunks share is
-computed once). A library GEMM picks its kernel, and with it the order of
-its sums (a tile shape, a split of K), from the shape of the product, so
-the same row can come out with other bits in a product of another row
-count; the CPU's BLAS and vectorised activations change path with the row
-count too. With every edge computed in the same block at the same place
-whatever the chunks, its message, and so the whole forward, has the same
-bits for every chunk budget, on the card and on the CPU.
+copies of node 0), with ``block`` set by the graph alone (and a model's
+declared widths, below), and a chunk takes its messages from the blocks it
+overlaps (a block that two chunks share is computed once). A library GEMM
+picks its kernel, and with it the order of its sums (a tile shape, a split
+of K), from the shape of the product, so the same row can come out with
+other bits in a product of another row count; the CPU's BLAS and
+vectorised activations change path with the row count too. With every
+edge computed in the same block at the same place whatever the chunks, its
+message, and so the whole forward, has the same bits for every chunk
+budget, on the card and on the CPU.
 
 Under grad (training), ``push`` and ``push_attn`` are differentiable with
 memory bounded by one message block: each block runs inside
@@ -52,11 +53,22 @@ bits for every chunk budget. Under ``no_grad`` (or when the payload takes
 no gradient) the forward and its launches (one per chunk) are what they
 were.
 
+The sizes above are EGNN's. A model with wider rows declares its widths
+with ``LocalExec.sized(edge_bytes, row_bytes)``, which returns the engine
+with a block of at most ``MSG_BLOCK_BYTES`` of msg_fn temporaries (a power
+of two: still set by the graph and the model alone, whatever the chunk
+budget) and chunks of at most ``CHUNK_MSG_BYTES`` of messages, over the
+same sort. A model's own row lookups (DimeNet's) go through
+``sparse.segment.gather_rows``, whose transpose adds the cotangents into
+the rows it touches with the in-place kernel too, so a step repeats bit
+for bit.
+
 The ring engine (``RingGraph``, ``RingExec``, ``to_ring``) and ``run_flat``
 over a mesh wait for sharding (ROADMAP Queue 1 item 15).
 """
 from __future__ import annotations
 
+import copy
 from typing import Callable, List, NamedTuple, Tuple
 
 import numpy as np
@@ -73,6 +85,10 @@ DEFAULT_CHUNK_EDGES = 1 << 22
 # rows of one msg_fn call at most: EGNN at d_hidden 64 holds ~2.7 KB of
 # fp32 temporaries per row, ~2.8 GB for 1 Mi rows
 MSG_BLOCK_EDGES = 1 << 20
+# a model that declares its widths (``LocalExec.sized``): msg_fn
+# temporaries of one block, and messages of one chunk, at most
+MSG_BLOCK_BYTES = 16 << 30
+CHUNK_MSG_BYTES = 1 << 30
 
 
 class FlatGraph(NamedTuple):
@@ -171,7 +187,7 @@ class LocalExec:
     (see the module docstring). ``chunks`` lists ``(seg_lo, seg_hi, e0, e1,
     rowptr)`` with ``rowptr`` rebased to the chunk's first edge; ``block``
     is the row count of every ``msg_fn`` call: the valid edges rounded up
-    to a power of two, at most ``MSG_BLOCK_EDGES``."""
+    to a power of two, at most ``MSG_BLOCK_EDGES`` (or ``sized``'s)."""
 
     def __init__(self, g: FlatGraph, chunk_edges: int = DEFAULT_CHUNK_EDGES):
         if chunk_edges < 1:
@@ -188,16 +204,38 @@ class LocalExec:
         bounds = torch.arange(self.n + 1, device=dst.device)
         self.rowptr = torch.searchsorted(sorted_dst, bounds).to(torch.int32)
         del sorted_dst, order, dst_ok
-        self.block = min(MSG_BLOCK_EDGES,
-                         1 << max(0, self.n_edges - 1).bit_length())
-        rp_host = self.rowptr.cpu().numpy().astype(np.int64)
-        self._rp_host = rp_host
-        self.chunks: List[Tuple[int, int, int, int, torch.Tensor]] = []
-        seg_b = chunk_bounds(rp_host, chunk_edges)
-        for lo, hi in zip(seg_b[:-1], seg_b[1:]):
-            e0, e1 = int(rp_host[lo]), int(rp_host[hi])
-            self.chunks.append((lo, hi, e0, e1,
-                                (self.rowptr[lo:hi + 1] - e0).contiguous()))
+        self.block = self._max_block = min(
+            MSG_BLOCK_EDGES, 1 << max(0, self.n_edges - 1).bit_length())
+        self._rp_host = self.rowptr.cpu().numpy().astype(np.int64)
+        self._chunk_lists = {}          # chunk_edges -> chunks, shared
+        self.chunks = self._chunks(chunk_edges)
+
+    def _chunks(self, chunk_edges: int
+                ) -> List[Tuple[int, int, int, int, torch.Tensor]]:
+        if chunk_edges not in self._chunk_lists:
+            rp, out = self._rp_host, []
+            seg_b = chunk_bounds(rp, chunk_edges)
+            for lo, hi in zip(seg_b[:-1], seg_b[1:]):
+                e0, e1 = int(rp[lo]), int(rp[hi])
+                out.append((lo, hi, e0, e1,
+                            (self.rowptr[lo:hi + 1] - e0).contiguous()))
+            self._chunk_lists[chunk_edges] = out
+        return self._chunk_lists[chunk_edges]
+
+    def sized(self, edge_bytes: int, row_bytes: int) -> "LocalExec":
+        """This engine for a model whose msg_fn holds ``edge_bytes`` of
+        temporaries per edge and whose messages are ``row_bytes`` wide: its
+        block the largest power of two that keeps a block's temporaries
+        within ``MSG_BLOCK_BYTES`` (at most the default block), its chunk
+        budget cut to ``CHUNK_MSG_BYTES`` of messages. It shares the sort
+        and the graph."""
+        ex = copy.copy(self)
+        cap = max(1, MSG_BLOCK_BYTES // max(1, edge_bytes))
+        ex.block = min(self._max_block, 1 << (cap.bit_length() - 1))
+        ex.chunk_edges = min(self.chunk_edges,
+                             max(1, CHUNK_MSG_BYTES // max(1, row_bytes)))
+        ex.chunks = self._chunks(ex.chunk_edges)
+        return ex
 
     @property
     def n_edges(self) -> int:

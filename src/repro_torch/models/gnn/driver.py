@@ -1,14 +1,17 @@
 """GNN driver of the port (``repro.models.gnn.driver``): synthetic graph
-builders, model dispatch (EGNN), the losses of the three layouts
-(full_graph / minibatch / molecule) and their train steps.
+builders, model dispatch (EGNN, NequIP, DimeNet, Equiformer-v2), the losses
+of the three layouts (full_graph / minibatch / molecule) and their train
+steps. DimeNet takes its triplets (``dimenet.build_triplets``) where the
+reference does: full graph and molecule, not minibatch.
 
 The graph builders draw from numpy exactly as the reference does, so the
 same seed gives the same arrays, placed on ``device`` (None = the CUDA
 device). ``molecule_loss`` and ``minibatch_loss`` run a batch of small
 graphs (molecules, or the sampler's fanout trees) as one disjoint-union
-graph (node ids of graph b offset by b·n), so one kernel launch per chunk
-and layer serves the whole batch where the reference ``vmap``s over
-graphs; the sums agree.
+graph (node ids of graph b offset by b·n; a molecule batch's triplets,
+(B, T) per graph, by b·E edges, the padded ones dropped), so one kernel
+launch per chunk and layer serves the whole batch where the reference
+``vmap``s over graphs; the sums agree.
 
 ``make_train_step`` returns ``step(params, opt_state, batch) -> (new
 params, new opt state, metrics)``: the gradient of ``train_loss`` through
@@ -27,20 +30,28 @@ import torch
 
 from repro_torch.common.params import resolve_device
 from repro_torch.common.tree import leaves, tree_map
+from repro_torch.models.gnn import dimenet as dimenet_mod
 from repro_torch.models.gnn import egnn as egnn_mod
-from repro_torch.models.gnn.common import FlatGraph, LocalExec, run_flat
+from repro_torch.models.gnn import equiformer_v2 as eqv2_mod
+from repro_torch.models.gnn import nequip as nequip_mod
+from repro_torch.models.gnn.common import (DEFAULT_CHUNK_EDGES, FlatGraph,
+                                           LocalExec, run_flat)
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
 N_CLASSES = 16
 
-_MODELS = {"egnn": egnn_mod}
+_MODELS = {
+    "egnn": egnn_mod,
+    "dimenet": dimenet_mod,
+    "nequip": nequip_mod,
+    "equiformer_v2": eqv2_mod,
+}
 
 
 def _module(cfg):
     if cfg.model not in _MODELS:
-        raise NotImplementedError(
-            f"GNN model {cfg.model!r} is not ported to repro_torch yet "
-            "(ROADMAP.md Queue 1 item 17; EGNN is)")
+        raise ValueError(f"unknown GNN model {cfg.model!r}; known: "
+                         f"{sorted(_MODELS)}")
     return _MODELS[cfg.model]
 
 
@@ -80,6 +91,29 @@ def make_molecule_batch(batch: int, n_nodes: int, n_edges: int,
     return stacked, energy.to(device)
 
 
+# DimeNet's spherical Bessel j_l (l <= 6) comes from an upward recurrence
+# that loses fp32's digits where z_l·r/c < l/2 (r < 1.61 at cutoff 5, for
+# the smallest zero z_6 = 9.36): ``spread_bonds`` keeps every bond longer
+SPREAD_SCALE, SPREAD_R_MIN = 2.4, 1.7
+
+
+def spread_bonds(g: FlatGraph, scale: float = SPREAD_SCALE,
+                 r_min: float = SPREAD_R_MIN) -> FlatGraph:
+    """``g`` (one graph, or a (B, ...) batch) with its positions scaled by
+    ``scale`` and its edges shorter than ``r_min`` masked: unit-sphere
+    graphs get bonds between ``r_min`` and 2·``scale`` (1.7 to 4.8, inside
+    the cutoff 5), where DimeNet's basis is evaluated in its stable range."""
+    pos = g.positions * scale
+
+    def ends(e):
+        return torch.take_along_dim(pos, e.clamp(min=0).long()[..., None],
+                                    dim=-2)
+
+    bond = torch.linalg.vector_norm(ends(g.edge_src) - ends(g.edge_dst),
+                                    dim=-1)
+    return g._replace(positions=pos, edge_mask=g.edge_mask & (bond >= r_min))
+
+
 def disjoint_union(batched_g: FlatGraph) -> FlatGraph:
     """(B, n, ...) graphs -> one graph of B·n nodes whose edges keep to
     their own graph (ids offset by b·n; padded ids stay negative)."""
@@ -106,17 +140,33 @@ def init_model(cfg, seed: int, d_feat_in: int, n_out: int = N_CLASSES, *,
     return _module(cfg).init(cfg, seed, d_feat_in, n_out, device=device)
 
 
+def engine(cfg, g: FlatGraph, chunk_edges: int = DEFAULT_CHUNK_EDGES):
+    """The engine ``cfg``'s model runs on over ``g``: a ``LocalExec`` at
+    the chunk budget ``chunk_edges``, sized by the model."""
+    return _module(cfg).engine(cfg, LocalExec(g, chunk_edges))
+
+
 def node_logits_local(cfg, params, g: FlatGraph, triplets=None,
                       ex: Optional[LocalExec] = None) -> torch.Tensor:
     """(N, n_out) logits. ``ex``: a ``LocalExec`` built on ``g`` once and
     reused across forwards (the destination sort is set-up); None builds
-    one."""
-    mod = _module(cfg)
-    if triplets is not None:
-        raise NotImplementedError("triplets (DimeNet) are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 17)")
+    one. ``triplets``: DimeNet's; the other models take none."""
     ex = LocalExec(g) if ex is None else ex
-    return mod.node_logits(cfg, params, g.feats, g.positions, g.node_mask, ex)
+    return _module(cfg).node_logits(cfg, params, g.feats, g.positions,
+                                    g.node_mask, ex, triplets)
+
+
+def union_triplets(triplets, n_edges: int):
+    """(B, T) per-graph triplets -> one ``TripletIndex`` of the disjoint
+    union: graph b's edge ids offset by b·``n_edges``, padded triplets
+    dropped."""
+    ts, td, tm = triplets
+    off = (torch.arange(ts.shape[0], device=ts.device,
+                        dtype=ts.dtype) * n_edges)[:, None]
+    keep = tm.reshape(-1)
+    return dimenet_mod.TripletIndex((ts + off).reshape(-1)[keep],
+                                    (td + off).reshape(-1)[keep],
+                                    keep[keep])
 
 
 # ---------------------------------------------------------------------------
@@ -143,8 +193,10 @@ def full_graph_loss(cfg, params, g: FlatGraph, mesh=None, triplets=None,
 
 def molecule_loss(cfg, params, batched_g: FlatGraph, energy, triplets=None):
     """MSE sums on per-graph energies (masked scalar sum-pool), the batch run
-    as one disjoint-union graph."""
+    as one disjoint-union graph. ``triplets``: (B, T) per graph."""
     b, n = batched_g.feats.shape[:2]
+    if triplets is not None:
+        triplets = union_triplets(triplets, batched_g.edge_src.shape[1])
     logits = node_logits_local(cfg, params, disjoint_union(batched_g),
                                triplets)
     pred = (logits[:, 0] * batched_g.node_mask.reshape(-1)).reshape(b, n)
@@ -156,7 +208,8 @@ def molecule_loss(cfg, params, batched_g: FlatGraph, energy, triplets=None):
 
 def minibatch_loss(cfg, params, batched_g: FlatGraph, root_labels):
     """CE on each sampled tree's root node (local index 0), the trees run
-    as one disjoint-union graph: tree b's root is node b·n_sub."""
+    as one disjoint-union graph: tree b's root is node b·n_sub. DimeNet
+    runs without triplets, as in the reference."""
     b, n = batched_g.feats.shape[:2]
     logits = node_logits_local(cfg, params, disjoint_union(batched_g))
     roots = logits.reshape(b, n, -1)[:, 0]                   # (B, n_classes)
@@ -186,6 +239,15 @@ def train_loss(cfg, kind: str, params, batch):
     return loss, sums
 
 
+def _unreached(cfg, params, triplets) -> set:
+    """The ids of the leaves a loss cannot reach: DimeNet's triplet
+    weights in a batch without triplets (the minibatch layout's)."""
+    if cfg.model != "dimenet" or triplets is not None:
+        return set()
+    return {id(t) for bp in params["blocks"]
+            for k in dimenet_mod.TRIPLET_KEYS for t in leaves(bp[k])}
+
+
 def make_train_step(cfg, kind: str, mesh=None,
                     opt_cfg: AdamWConfig = AdamWConfig(lr=1e-3)):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
@@ -199,7 +261,15 @@ def make_train_step(cfg, kind: str, mesh=None,
         with torch.enable_grad():
             live = tree_map(lambda p: p.detach().requires_grad_(True), params)
             loss, sums = train_loss(cfg, kind, live, batch)
-            grads = torch.autograd.grad(loss, leaves(live))
+            # the leaves the loss cannot reach get zeros, as jax.grad gives
+            # them; any other leaf cut off from the loss raises
+            off = _unreached(cfg, live, None if kind == "minibatch"
+                             else batch.get("triplets"))
+            ls = leaves(live)
+            got = iter(torch.autograd.grad(
+                loss, [t for t in ls if id(t) not in off]))
+            grads = [torch.zeros_like(t) if id(t) in off else next(got)
+                     for t in ls]
         it = iter(grads)
         grads = tree_map(lambda _: next(it), params)
         params, opt_state, om = adamw_update(opt_cfg, grads, opt_state,

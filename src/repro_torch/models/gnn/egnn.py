@@ -86,6 +86,14 @@ def apply(cfg, params, feats, positions, node_mask, ex):
     return h, x
 
 
-def node_logits(cfg, params, feats, positions, node_mask, ex):
+def engine(cfg, ex):
+    """The engine ``apply`` runs on: ``ex`` as it is (EGNN's widths are
+    the ones ``LocalExec``'s defaults were set for)."""
+    return ex
+
+
+def node_logits(cfg, params, feats, positions, node_mask, ex,
+                triplets=None):
+    """(N, n_out) logits; ``triplets`` is DimeNet's alone (unused)."""
     h, _ = apply(cfg, params, feats, positions, node_mask, ex)
     return h @ params["head"]

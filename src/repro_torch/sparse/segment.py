@@ -12,7 +12,11 @@ reference's masking: ids < 0 or >= num_segments contribute nothing, an
 empty segment's max is -inf, and softmax denominators are floored at 1e-20.
 ``csr_by_row`` groups the positions of a gather by the row they read: the
 CSR that a gather's transpose (``ops.segment_sum_csr_accumulate``) adds
-with, in the GNN engine and in the LM's token lookup.
+with, in the GNN engine, in the LM's token lookup and in ``gather_rows``,
+a row gather whose transpose is that addition (no atomics: the same bits
+on every run). ``segment_softmax`` reads its denominators through it, and
+its shift (each segment's max) takes no gradient: the softmax does not
+depend on it.
 """
 from __future__ import annotations
 
@@ -41,10 +45,41 @@ def csr_by_row(idx: torch.Tensor):
     return rowptr, perm.to(torch.int32), rows.to(torch.int32)
 
 
+class _GatherAdd(torch.autograd.Function):
+    """``table.index_select(0, idx)`` whose transpose adds the cotangents
+    into a zeroed gradient of ``table``'s shape with the in-place kernel,
+    over the distinct rows ``idx`` reads (``csr_by_row``)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = table.shape
+        return table.index_select(0, idx)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        out = grad.new_zeros(ctx.shape)
+        if idx.numel():
+            rowptr, perm, rows = csr_by_row(idx)
+            ops.segment_sum_csr_accumulate(grad.contiguous(), rowptr, perm,
+                                           out=out, rows=rows)
+        return out, None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` for a 2-D ``table`` and ids in range; under grad its
+    transpose adds with the in-place kernel (``_GatherAdd``)."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _GatherAdd.apply(table, idx)
+    return table.index_select(0, idx)
+
+
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """data (E, ...) -> (num_segments, ...) in data's dtype."""
-    flat = data.reshape(data.shape[0], -1).contiguous()
+    flat = (data[:, None] if data.dim() == 1 else data.flatten(1)).contiguous()
     out = ops.segment_sum(flat, segment_ids, num_segments)
     return out.reshape((num_segments,) + tuple(data.shape[1:]))
 
@@ -71,10 +106,12 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
 def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
                     num_segments: int) -> torch.Tensor:
     """Per-segment softmax over edge logits (GAT-style attention weights)."""
-    m = segment_max(logits, segment_ids, num_segments)
+    m = segment_max(logits.detach(), segment_ids, num_segments)
     m = torch.where(torch.isfinite(m), m, 0.0)
     at = torch.clamp(segment_ids, 0, num_segments - 1).to(torch.int64)
     e = torch.exp(logits - m[at])
     e = torch.where(_expand(_ok(segment_ids, num_segments), e.dim()), e, 0.0)
     z = segment_sum(e, segment_ids, num_segments)
-    return e / torch.clamp(z[at], min=1e-20)
+    z2 = z[:, None] if z.dim() == 1 else z.flatten(1)
+    denom = gather_rows(z2, at).reshape(e.shape)
+    return e / torch.clamp(denom, min=1e-20)

@@ -37,6 +37,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.runtime.fault\n"
         "import repro_torch.data.pipeline, repro_torch.train.compression\n"
         "import repro_torch.launch.train\n"
+        "import repro_torch.equivariant.spherical, repro_torch.equivariant.cg\n"
+        "import repro_torch.equivariant.bessel\n"
+        "import repro_torch.models.gnn.dimenet, repro_torch.models.gnn.nequip\n"
+        "import repro_torch.models.gnn.equiformer_v2\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib')) or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n")
@@ -72,7 +76,7 @@ def _small_index(maint_auto=False):
 def test_unported_parts_raise():
     """The index takes a mesh (its row-sharded scan is ported); only the
     GNN ring over a mesh is still refused (item 15). The NSW lane, the
-    rerank lane and traces run; unported configs are unknown."""
+    rerank lane and traces run; the unported recsys config is unknown."""
     from repro_torch.configs import get_config as pget
     from repro_torch.models.gnn.common import run_flat
     from repro_torch.models.gnn.driver import full_graph_loss
@@ -96,12 +100,12 @@ def test_unported_parts_raise():
                     device="cpu")
     nsw.ingest({"text": (np.arange(64), v)}, 64)
     assert nsw.modalities["text"].nsw.neighbors.shape == (64, 4)
-    # every LM config is registered; the other GNN and recsys
-    # configs wait for item 17
+    # every LM and GNN config is registered; the recsys config waits for
+    # Queue 1 Step 10
     assert get_config("qwen2-72b").qkv_bias
-    for arch in ("dimenet", "xdeepfm"):
-        with pytest.raises(KeyError, match="item 17"):
-            get_config(arch)
+    assert get_config("dimenet").model == "dimenet"
+    with pytest.raises(KeyError, match="Step 10"):
+        get_config("xdeepfm")
 
 
 def test_converter_refuses_nsw_and_sparse_state():

@@ -20,7 +20,12 @@ against the same tick on the CPU; and LM training: the token lookup's
 transpose (the in-place kernel over a micro-batch's distinct tokens, at
 phi4-mini's 4,096 × 3,072 bf16 into 200,064 rows and at small odd shapes)
 against its plain version bit for bit, a smoke-width train step on the
-card against the CPU, and two card runs of a bf16 step bitwise.
+card against the CPU, and two card runs of a bf16 step bitwise; and the
+three equivariant GNNs (NequIP, DimeNet with its triplets, Equiformer-v2)
+at smoke widths: ``gather_rows``' transpose (the in-place kernel over the
+rows a gather reads) against ``index_add_``, logits and one train step on
+the card against the CPU (1e-4 of max(1, |value|)), a step's launches and
+two card steps bitwise.
 
 Every test carries the ``gpu`` marker and skips itself when
 ``torch.cuda.is_available()`` is false (decided inside the test, so every
@@ -1415,3 +1420,122 @@ def test_lm_train_step_on_the_card_repeats_bitwise(arch):
     assert torch.equal(a[2]["loss"], b[2]["loss"])
     assert all(torch.equal(x, y) for x, y in zip(leaves(a[:2]),
                                                   leaves(b[:2])))
+
+
+# ------------------------------------------------ NequIP, DimeNet, Equiformer
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,e,d", [(50, 300, 128), (7, 1000, 6275),
+                                   (900, 64, 291)])
+def test_gather_rows_transpose_on_the_card(n, e, d):
+    """The in-place kernel over the distinct rows the gather reads: within
+    fp32 rounding of ``index_add_`` (another order), and bitwise against
+    the plain version on the card's own input."""
+    _need_card()
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.sparse.segment import csr_by_row, gather_rows
+    g = torch.Generator(device="cuda").manual_seed(n + e)
+    table = torch.randn((n, d), device="cuda", generator=g,
+                        requires_grad=True)
+    idx = torch.randint(0, n, (e,), device="cuda", generator=g,
+                        dtype=torch.int32)
+    cot = torch.randn((e, d), device="cuda", generator=g)
+    before = sops.segment_sum_csr_accumulate.launches
+    (grad,) = torch.autograd.grad(gather_rows(table, idx), table, cot)
+    assert sops.segment_sum_csr_accumulate.launches == before + 1
+    lib = torch.zeros((n, d), device="cuda").index_add_(0, idx.long(), cot)
+    torch.testing.assert_close(grad, lib, rtol=1e-5, atol=1e-5)
+    rowptr, perm, rows = csr_by_row(idx)
+    plain = sops.segment_sum_csr_accumulate_ref(
+        cot, rowptr, perm, out=torch.zeros((n, d), device="cuda"), rows=rows)
+    assert torch.equal(grad, plain)
+
+
+def _smoke_model(arch):
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.gnn import dimenet
+    from repro_torch.models.gnn import driver as gd
+    cfg = smoke_config(arch)
+    g = gd.make_flat_graph(60, 300, 8, seed=0, device="cpu")
+    trip = None
+    if cfg.model == "dimenet":
+        # bonds where the spherical Bessel recurrence keeps fp32's digits
+        g = gd.spread_bonds(g)
+        trip = dimenet.build_triplets(g.edge_src.numpy(), g.edge_dst.numpy(),
+                                      g.edge_mask.numpy(), device="cpu")
+    params = gd.init_model(cfg, 0, 8, device="cpu")
+    return cfg, g, trip, params
+
+
+def _on(tree, device):
+    from repro_torch.common.tree import tree_map
+    return None if tree is None else tree_map(lambda t: t.to(device), tree)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["nequip", "dimenet", "equiformer-v2"])
+def test_gnn_model_on_the_card_matches_the_cpu(arch):
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.common.tree import leaves, tree_map
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.models.gnn.common import FlatGraph
+    from repro_torch.train.optimizer import init_adamw
+    cfg, g, trip, params = _smoke_model(arch)
+    gc_ = FlatGraph(*(t.cuda() for t in g))
+    want = gd.node_logits_local(cfg, params, g, trip)
+    got = gd.node_logits_local(cfg, _on(params, "cuda"), gc_,
+                               _on(trip, "cuda"))
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    assert float((got.cpu() - want).abs().max()) <= tol
+    # the gradients, each leaf within 1e-4 of its largest |want| (of
+    # 1e-6 of the tree's largest, at least)
+    cp = _on(params, "cuda")
+    batches = ({"graph": g, "triplets": trip},
+               {"graph": gc_, "triplets": _on(trip, "cuda")})
+    grads = []
+    for p, b in zip((params, cp), batches):
+        live = [t.detach().requires_grad_(True) for t in leaves(p)]
+        it = iter(live)
+        loss, _ = gd.train_loss(cfg, "full_graph",
+                                tree_map(lambda _: next(it), p), b)
+        grads.append(torch.autograd.grad(loss, live))
+    floor = 1e-6 * max(float(w.abs().max()) for w in grads[0])
+    for a, w in zip(grads[1], grads[0]):
+        assert float((a.cpu() - w).abs().max()) <= 1e-4 * max(
+            floor, float(w.abs().max()))
+    # one step's new params and first moments, within 1e-4 ·
+    # max(1, max |want|) per leaf
+    step = gd.make_train_step(cfg, "full_graph")
+    hp, hs, _ = step(params, init_adamw(params), batches[0])
+    dp, ds, _ = step(cp, init_adamw(cp), batches[1])
+    for a, b in zip(leaves(dp) + leaves(ds.mu), leaves(hp) + leaves(hs.mu)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * max(
+            1.0, float(b.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["nequip", "dimenet", "equiformer-v2"])
+def test_gnn_model_step_on_the_card_repeats_bitwise(arch):
+    """Two steps from one state give the same bits, and a step launches
+    both segment kernels (the summing one in the forward, the in-place one
+    in the gather transposes)."""
+    _need_card()
+    from repro_torch.common.tree import leaves
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.models.gnn.common import FlatGraph
+    from repro_torch.train.optimizer import init_adamw
+    cfg, g, trip, params = _smoke_model(arch)
+    batch = {"graph": FlatGraph(*(t.cuda() for t in g)),
+             "triplets": _on(trip, "cuda")}
+    params = _on(params, "cuda")
+    step = gd.make_train_step(cfg, "full_graph")
+    before = (sops.segment_sum_csr.launches,
+              sops.segment_sum_csr_accumulate.launches)
+    a = step(params, init_adamw(params), batch)
+    assert sops.segment_sum_csr.launches > before[0]
+    assert sops.segment_sum_csr_accumulate.launches > before[1]
+    b = step(params, init_adamw(params), batch)
+    assert all(torch.equal(x, y) for x, y in zip(leaves(a[:2]),
+                                                 leaves(b[:2])))
+    assert torch.equal(a[2]["loss"], b[2]["loss"])
