@@ -3,8 +3,9 @@ on one NVIDIA GPU (written for an H100): hybrid retrieval, RAG serving
 over the retrieval index with phi4-mini and with DeepSeek-V2-Lite at full
 width and depth, EGNN full-graph inference at the ogbn-products shape,
 EGNN training (full graph, minibatch, molecule), NequIP, DimeNet and
-Equiformer-v2 inference and training at their published configs, and
-phi4-mini training at full width and depth.
+Equiformer-v2 inference and training at their published configs,
+phi4-mini training at full width and depth, xDeepFM training, serving
+and retrieval at its published config, and the serving launcher.
 
     python3 chip_smoke.py
 
@@ -206,13 +207,40 @@ Phases (each prints one line; any failure exits non-zero):
                 phi4-mini with its vocabulary cut to 32,768 (~3 GB each), a
                 failure at step 3 restored bitwise; (e) python -m repro_torch.launch.train --arch
                 phi4-mini-3.8b --steps 2 as a child process.
+     recsys   — xDeepFM at its published config (get_config("xdeepfm"):
+                39 fields of 100,000 ids, D 10, CIN 3 x 200, MLP 2 x 400,
+                fp32, TF32 off, seeded random weights, SyntheticRecsysStream
+                data) on the reference's four shapes: (a) the forward and
+                one AdamW step on 256 rows, card against a CPU copy
+                (logits, loss, each gradient and new param within 1e-4 of
+                its leaf's largest); (b) two train_batch steps from one
+                state bit for bit; (c) train_batch (65,536 rows): step
+                p50/p99 after a warm-up, examples/s, the FLOP share of 67
+                TFLOP/s fp32 (the dry run's formula), peak memory, one
+                profiled step, two in-place launches a step; (d)
+                serve_p99 (512) and serve_bulk (262,144) forwards
+                p50/p99 and peak memory, the 512 rows against the same
+                rows inside the bulk batch (1e-5); (e) retrieval_cand
+                (1 x 1,000,000): p50, a planted copy of the user ranked
+                first; (f) the in-place kernel at the tables' and
+                linear_w's transposes (2,555,904 x 10 and x 1 fp32) and
+                the summing kernel through embedding_bag(mode="sum")
+                (65,536 bags of 1-40 ids), each against its plain version
+                bit for bit, timed beside its bound and index_add_.
+     launch_serve — python -m repro_torch.launch.serve as child processes
+                on the card: --n-nodes 32768 --queries 256 --data-dir D,
+                then --recover on D, then --rag at the default size, each
+                exiting 0 with the reference's lines; recall@10 within
+                0.05 of a --device cpu child at the first run's arguments
+                (run beside them).
   8. the kernels line, then the contract line. The segment sum's launches
      there count the index path's too (k-means cluster sums, hop
      out-weights), read phase by phase, and the training runs' forwards;
      the in-place kernel's (segment_sum_csr_accumulate) the GNN training
      runs' gather transposes and the LM runs' token transposes ((a)'s
      steps and (d)'s Trainer runs); both also count the gnn_models cells'
-     forwards and steps (not their checks); the
+     forwards and steps (not their checks), and the recsys phase's: its
+     train_batch steps' table transposes and its embedding_bag call; the
      scans' count the index phases' and both RAG cells' retrievals, the
      decode kernel's the phi4-mini cell and the mixtral check.
 
@@ -386,6 +414,21 @@ LM_CKPT_MIN_FREE = 8e9
 # card vs CPU in fp32 (TF32 off): PR 20's 1e-4, relative to each leaf's
 # largest |value| (to max(1, ...) for the params)
 LM_CPU_RTOL = 1e-4
+# the recsys cells: xDeepFM at its published config (fp32, TF32 off) on
+# the reference's four shapes; card vs CPU on RECSYS_CPU_ROWS rows at
+# RECSYS_CPU_RTOL of each leaf's largest |value| (to max(1, ...) for the
+# new params); RECSYS_STEPS timed train steps after one warm-up; the
+# serve_p99 rows against the same rows inside the serve_bulk batch at
+# RECSYS_BULK_RTOL; the summing kernel's reading through embedding_bag at
+# RECSYS_BAGS bags of 1-40 ids over field 0
+RECSYS_CPU_ROWS, RECSYS_CPU_RTOL = 256, 1e-4
+RECSYS_STEPS, RECSYS_BULK_RTOL, RECSYS_BAGS = 3, 1e-5, 65_536
+RECSYS_SERVE_REPS = {"serve_p99": 20, "serve_bulk": 4, "retrieval_cand": 5}
+# the launch_serve phase: the serving launcher as a child process on the
+# card at SERVE_NODES nodes and SERVE_QUERIES queries (durable, then
+# --recover, then --rag at the launcher's default size), its recall@10
+# within SERVE_RECALL_TOL of a --device cpu child at the same arguments
+SERVE_NODES, SERVE_QUERIES, SERVE_RECALL_TOL = 32_768, 256, 0.05
 
 
 def line(tag: str, **kw) -> None:
@@ -4560,24 +4603,25 @@ def leaf_rel_errs(got, want, floor_one: bool) -> float:
     return worst
 
 
-def measure_token_transpose(tokens: torch.Tensor, d: int, n_rows: int):
-    """The token lookup's transpose at the train step's shape: one
-    micro-batch's cotangent (tokens × d, bf16) added in place into an
-    (n_rows, d) bf16 gradient over its distinct tokens, the in-place kernel
-    against its plain version (bit for bit, into the same random buffer),
-    timed beside a bound that counts the cotangent, perm, offsets and rows
-    once and each touched row read once and written once, its plain version
-    and ``index_put_(accumulate=True)`` into the same buffer in place."""
+def inplace_reading(tag: str, flat: torch.Tensor, d: int, n_rows: int,
+                    dtype: torch.dtype, seed: int, library: str) -> dict:
+    """The in-place kernel at a row gather's transpose: the gather of
+    ``flat``'s rows gets a random cotangent (flat.numel() × d, ``dtype``),
+    added in place into a random (n_rows, d) buffer over its distinct rows;
+    against its plain version bit for bit (into the same buffer), timed
+    beside a bound that counts the cotangent, perm, offsets and rows once
+    and each touched row read once and written once, its plain version and
+    ``library`` ("index_put_" with accumulate, or "index_add_") into the
+    same buffer in place. Prints the ``tag`` line; returns it. The kernel's
+    launch count is left as it was."""
     from repro_torch.kernels.segment_reduce import ops as sops
     from repro_torch.kernels.segment_reduce.ref import (
         segment_sum_csr_accumulate_ref)
     from repro_torch.sparse.segment import csr_by_row
-    gen = torch.Generator(device="cuda").manual_seed(41)
-    flat = tokens.reshape(-1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     e = flat.numel()
-    cot = torch.randn((e, d), device="cuda", generator=gen).to(torch.bfloat16)
-    base = torch.randn((n_rows, d), device="cuda",
-                       generator=gen).to(torch.bfloat16)
+    cot = torch.randn((e, d), device="cuda", generator=gen).to(dtype)
+    base = torch.randn((n_rows, d), device="cuda", generator=gen).to(dtype)
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda").zero_
     rowptr, perm, rows = csr_by_row(flat)
     r = rows.numel()
@@ -4587,35 +4631,53 @@ def measure_token_transpose(tokens: torch.Tensor, d: int, n_rows: int):
     ref = segment_sum_csr_accumulate_ref(cot, rowptr, perm, out=base.clone(),
                                          rows=rows)
     idx = flat.long()
-    lib = base.clone().index_put_((idx,), cot, accumulate=True)
+    if library == "index_put_":
+        lib_fn = lambda buf: buf.index_put_((idx,), cot,      # noqa: E731
+                                            accumulate=True)
+        lib_name = ("index_put_((ids,), cot, accumulate=True) into the same "
+                    "buffer, in place")
+    else:
+        lib_fn = lambda buf: buf.index_add_(0, idx, cot)       # noqa: E731
+        lib_name = ("index_add_(0, ids, cot) into the same buffer, in place "
+                    "(atomics)")
+    lib = lib_fn(base.clone())
     torch.cuda.synchronize()
     same = torch.equal(out, ref)
     err = float((out.float() - ref.float()).abs().max())
-    check(same, f"token transpose: the in-place kernel is not bitwise equal "
-                f"to its plain version (max |d| {err})")
+    check(same, f"{tag}: the in-place kernel is not bitwise equal to its "
+                f"plain version (max |d| {err})")
     lib_err = float((lib.float() - out.float()).abs().max())
-    nbytes = e * d * 2 + e * 4 + (r + 1) * 4 + r * 4 + 2 * r * d * 2
+    es = cot.element_size()
+    nbytes = e * d * es + e * 4 + (r + 1) * 4 + r * 4 + 2 * r * d * es
     bms, bby = bound(float(e * d + r * d), nbytes)
     kms = cuda_ms(lambda: sops.segment_sum_csr_accumulate(
         cot, rowptr, perm, out=out, rows=rows), 20, flush)
     pms = cuda_ms(lambda: segment_sum_csr_accumulate_ref(
         cot, rowptr, perm, out=ref, rows=rows), 5, flush)
-    lms = cuda_ms(lambda: lib.index_put_((idx,), cot, accumulate=True), 20,
-                  flush)
+    lms = cuda_ms(lambda: lib_fn(lib), 20, flush)
     sops.segment_sum_csr_accumulate.launches = saved
-    res = dict(shape=dict(E=e, d=d, rows=r, n=n_rows, dtype="bfloat16",
+    res = dict(shape=dict(E=e, d=d, rows=r, n=n_rows,
+                          dtype=str(dtype).removeprefix("torch."),
                           perm=True),
                group=sops.group_size(r, e), max_abs_err=err, bitwise=same,
-               ms=kms, plain_ms=pms, library_ms=lms,
-               library="index_put_((tokens,), cot, accumulate=True) into "
-                       "the same buffer, in place",
+               ms=kms, plain_ms=pms, library_ms=lms, library=lib_name,
                library_max_abs_diff=lib_err, bound_ms=bms, bound_by=bby,
                gbytes=nbytes / 1e9,
                achieved_tb_s=nbytes / (kms * 1e-3) / 1e12)
-    line("kernel.segment_sum_accumulate.token", **res)
+    line(tag, **res)
     del out, ref, lib, base, cot
     torch.cuda.empty_cache()
     return res
+
+
+def measure_token_transpose(tokens: torch.Tensor, d: int, n_rows: int):
+    """The token lookup's transpose at the train step's shape: one
+    micro-batch's cotangent (tokens × d, bf16) added in place into an
+    (n_rows, d) bf16 gradient over its distinct tokens
+    (``inplace_reading``, beside ``index_put_(accumulate=True)``)."""
+    return inplace_reading("kernel.segment_sum_accumulate.token",
+                           tokens.reshape(-1), d, n_rows, torch.bfloat16, 41,
+                           "index_put_")
 
 
 def lm_cpu_check(name: str, cfg, seed: int, accum: int, micro: int):
@@ -4886,6 +4948,374 @@ def phase_lm_train() -> tuple:
     return main_launches + restart["launches"], token_kern
 
 
+def recsys_flops(cfg, rows: int, kind: str) -> dict:
+    """FLOPs of ``rows`` examples by the reference dry run's formula
+    (src/repro/launch/dryrun.py:363): per example 2·p·m·D·H for each CIN
+    layer and 2·d_in·h for each MLP layer, times 3 for a train step
+    (forward and backward); 2·F·D a retrieval candidate. ``executed`` adds
+    what a port train step also runs: the checkpointed CIN forward
+    again."""
+    m, d = cfg.n_sparse, cfg.embed_dim
+    prev, cin = m, 0
+    for h in cfg.cin_layers:
+        cin += 2 * prev * m * d * h
+        prev = h
+    d_in, mlp = m * d, 0
+    for h in cfg.mlp_layers:
+        mlp += 2 * d_in * h
+        d_in = h
+    if kind == "retrieval":
+        return {"model": 2.0 * m * d * rows, "executed": 2.0 * m * d * rows}
+    model = float((cin + mlp) * rows * (3 if kind == "train" else 1))
+    return {"model": model,
+            "executed": model + (cin * rows if kind == "train" else 0)}
+
+
+def recsys_batch(cfg, rows: int, step: int = 0) -> dict:
+    """Batch ``step`` of the port's ``SyntheticRecsysStream(seed=0)`` on
+    the card."""
+    from repro_torch.data.pipeline import SyntheticRecsysStream
+    b = SyntheticRecsysStream(cfg.n_sparse, cfg.vocab_per_field, rows,
+                              seed=0).batch_at(step)
+    return {k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+
+
+def leaf_errs(names, got, want, floor: float = 0.0) -> dict:
+    """Per leaf: [max |got - want|, that over max(floor, max |want|)]."""
+    out = {}
+    for n, a, b in zip(names, got, want):
+        d = float((a.detach().cpu() - b.detach()).abs().max())
+        out[n] = [d, d / max(floor, float(b.abs().max()), 1e-30)]
+    return out
+
+
+def recsys_cpu_check(cfg, params, ocfg) -> dict:
+    """(a): the forward and one AdamW train step on RECSYS_CPU_ROWS rows
+    of the stream, on the card and on a CPU copy of the same params:
+    logits, loss, every gradient leaf and every new param, each within
+    RECSYS_CPU_RTOL of its leaf's largest |value| (max(1, ...) for the
+    params)."""
+    from repro_torch.common.tree import leaves, tree_map
+    from repro_torch.models.recsys import xdeepfm
+    from repro_torch.train.optimizer import init_adamw
+    t0 = time.perf_counter()
+    batch = recsys_batch(cfg, RECSYS_CPU_ROWS, step=0)
+    hp = tree_map(lambda t: t.cpu(), params)
+    hb = {k: v.cpu() for k, v in batch.items()}
+    names = sorted(params)
+    with torch.no_grad():
+        logits = leaf_errs(["logits"], [xdeepfm.forward(cfg, params,
+                                                        batch["ids"])],
+                           [xdeepfm.forward(cfg, hp, hb["ids"])])["logits"]
+    losses, grads = [], []
+    for p, b in ((params, batch), (hp, hb)):
+        live = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        loss, _ = xdeepfm.loss_fn(cfg, live, b)
+        grads.append(torch.autograd.grad(loss, leaves(live)))
+        losses.append(loss.detach())
+    loss = leaf_errs(["loss"], losses[:1], losses[1:])["loss"]
+    grad = leaf_errs(names, *grads)
+    step = xdeepfm.make_train_step(cfg, ocfg)
+    dp = step(params, init_adamw(params), batch)[0]
+    new = leaf_errs(names, leaves(dp), leaves(step(hp, init_adamw(hp),
+                                                   hb)[0]), floor=1.0)
+    worst = max([logits[1], loss[1]] + [v[1] for v in grad.values()]
+                + [v[1] for v in new.values()])
+    check(worst <= RECSYS_CPU_RTOL,
+          f"recsys: card against CPU {worst} > {RECSYS_CPU_RTOL} (logits "
+          f"{logits}, loss {loss}, grads {grad}, new params {new})")
+    return dict(rows=RECSYS_CPU_ROWS, tolerance_rel=RECSYS_CPU_RTOL,
+                logits=logits, loss=loss, grad=grad, new_params=new,
+                worst_rel=worst, s=time.perf_counter() - t0)
+
+
+def recsys_bag_reading(tables: torch.Tensor) -> tuple:
+    """(f)'s summing kernel through ``embedding_bag(mode="sum")``: bags of
+    1-40 ids (sorted bag ids, as EmbeddingBag's offsets give them) over
+    field 0, the path's call against the same call on the CPU (the plain
+    versions) bit for bit, the call timed; then ``summing_width`` at its
+    shape. Returns (the path call's summing launches, the reading)."""
+    from repro_torch.kernels.segment_reduce.ref import csr_from_ids
+    from repro_torch.models.recsys.embedding_bag import embedding_bag
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    n = RECSYS_BAGS
+    sizes = torch.randint(1, 41, (n,), device="cuda", generator=gen)
+    bags = torch.repeat_interleave(torch.arange(n, device="cuda"),
+                                   sizes).to(torch.int32)
+    flat = torch.randint(0, tables.shape[1], (bags.numel(),), device="cuda",
+                         generator=gen, dtype=torch.int32)
+    before = seg_counts()[0]
+    out = embedding_bag(tables, flat, bags, n, 0, "sum")
+    launches = seg_counts()[0] - before
+    check(launches == 1, f"recsys: embedding_bag(mode='sum') launched the "
+                         f"summing kernel {launches} times, not once")
+    want = embedding_bag(tables[:1].cpu(), flat.cpu(), bags.cpu(), n, 0,
+                         "sum")
+    same = torch.equal(out.cpu(), want)
+    check(same, f"recsys: embedding_bag on the card differs from the CPU "
+                f"(max |d| {float((out.cpu() - want).abs().max())})")
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda").zero_
+    call_ms = cuda_ms(lambda: embedding_bag(tables, flat, bags, n, 0, "sum"),
+                      10, flush)
+    rows = tables[0].index_select(0, flat.long())
+    rowptr, perm = csr_from_ids(bags, n)
+    res = summing_width("kernel.segment_sum.recsys_bag", rows, rowptr, perm,
+                        flush)
+    res.update(bags=n, ids=int(flat.numel()), bag_sizes="1-40 uniform",
+               embedding_bag_ms=call_ms, embedding_bag_bitwise_cpu=same)
+    del out, rows
+    return launches, res
+
+
+def phase_recsys() -> tuple:
+    """xDeepFM at its published config (F 39, V 100,000, D 10, CIN 3 x
+    200, MLP 2 x 400, fp32, seeded random weights, data from
+    ``SyntheticRecsysStream(seed=0)``) on the reference's four shapes:
+    (a) card against CPU; (b) two train steps from one state bit for bit;
+    (c) train_batch: step p50/p99 after a warm-up, examples/s, FLOP share,
+    peak memory, one profiled step, in-place launches a step; (d)
+    serve_p99 and serve_bulk forwards, the 512 rows against the same rows
+    inside the bulk batch; (e) retrieval_cand with a planted copy of the
+    user; (f) the in-place kernel at the tables' and linear_w's
+    transposes, the summing kernel through embedding_bag. Returns (the
+    summing kernel's launches, the in-place kernel's, the readings)."""
+    from repro_torch.common.tree import leaves, tree_finite
+    from repro_torch.configs import get_config, get_shapes
+    from repro_torch.models.recsys import xdeepfm
+    from repro_torch.models.recsys.embedding_bag import flat_ids
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    phase_t0 = time.perf_counter()
+    cfg = get_config("xdeepfm")
+    shapes = {s.name: s for s in get_shapes("xdeepfm")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = xdeepfm.init(cfg, 0, device="cuda")
+    state = init_adamw(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=1000)
+    step = xdeepfm.make_train_step(cfg, ocfg)
+    cpu = recsys_cpu_check(cfg, params, ocfg)
+    torch.cuda.empty_cache()
+
+    # (c) train_batch: one warm-up and RECSYS_STEPS timed steps
+    rows = shapes["train_batch"]["batch"]
+    batches = [recsys_batch(cfg, rows, s) for s in range(1 + RECSYS_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seg_zero()
+    steps_ms, metrics = [], []
+    for s in range(1 + RECSYS_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[s])
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    sum_launches, acc_launches = seg_counts()
+    check(sum_launches == 0 and acc_launches == 2 * (1 + RECSYS_STEPS),
+          f"recsys: {1 + RECSYS_STEPS} train steps launched the summing "
+          f"kernel {sum_launches} times and the in-place one {acc_launches} "
+          f"(2 a step: the tables' and linear_w's transposes)")
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in metrics]
+    check(bool(np.isfinite(losses).all()) and bool(tree_finite(params)),
+          f"recsys: a loss or param is not finite ({losses})")
+    # (b) two steps from one state
+    a = step(params, state, batches[0])
+    b = step(params, state, batches[0])
+    bitwise = bits_equal(a[:2], b[:2]) and torch.equal(a[2]["loss"],
+                                                       b[2]["loss"])
+    check(bitwise, "recsys: two train steps from one state differ in their "
+                   "bits")
+    del a, b
+    _, prof = profile_once(lambda: step(params, state, batches[-1]), top=8,
+                           share_of=("segment_accumulate_kernel",),
+                           ops_top=8)
+    timed = steps_ms[1:]
+    p50 = float(np.percentile(timed, 50))
+    flops = recsys_flops(cfg, rows, "train")
+    train = dict(
+        rows=rows, warmup_steps=1, step_ms=dict(
+            p50=p50, p99=float(np.percentile(timed, 99)), all=steps_ms),
+        examples_per_s=rows / (p50 * 1e-3),
+        tflops_per_step=flops["model"] / 1e12,
+        tflops_executed_per_step=flops["executed"] / 1e12,
+        flop_share=flops["model"] / (p50 * 1e-3) / PEAK_FP32_FLOPS,
+        executed_flop_share=flops["executed"] / (p50 * 1e-3)
+        / PEAK_FP32_FLOPS,
+        flops_formula="src/repro/launch/dryrun.py:363: per example "
+                      "sum 2*p*m*D*H (CIN) + sum 2*d_in*h (MLP), x3 a train "
+                      "step; executed adds the checkpointed CIN forward",
+        flop_share_of="67 TFLOP/s fp32 (H100 SXM data sheet; TF32 off)",
+        peak_mem_gib=peak / 2 ** 30, loss=losses,
+        acc=[float(m["acc"]) for m in metrics],
+        grad_norm=[float(m["grad_norm"]) for m in metrics],
+        inplace_launches_per_step=acc_launches / (1 + RECSYS_STEPS),
+        inplace_formula="2 a step: one gather for the tables, one for "
+                        "linear_w, each transposed by one launch",
+        step_profile=prof)
+    flat = flat_ids(batches[0]["ids"], cfg.vocab_per_field)
+    del batches, metrics
+    torch.cuda.empty_cache()
+
+    # (d) serve_p99 and serve_bulk forwards; (e) retrieval_cand
+    bulk_rows = shapes["serve_bulk"]["batch"]
+    small_rows = shapes["serve_p99"]["batch"]
+    bulk = recsys_batch(cfg, bulk_rows, step=100)["ids"]
+    small = bulk[:small_rows].clone()
+    serve = {}
+    with torch.no_grad():
+        for name, ids in (("serve_p99", small), ("serve_bulk", bulk)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            f50, f99 = host_ms(lambda: xdeepfm.forward(cfg, params, ids),
+                               RECSYS_SERVE_REPS[name])
+            fl = recsys_flops(cfg, ids.shape[0], "serve")["model"]
+            peak = torch.cuda.max_memory_allocated()
+            serve[name] = dict(
+                rows=ids.shape[0], forward_ms=dict(p50=f50, p99=f99),
+                examples_per_s=ids.shape[0] / (f50 * 1e-3),
+                flop_share=fl / (f50 * 1e-3) / PEAK_FP32_FLOPS,
+                peak_mem_gib=peak / 2 ** 30,
+                peak_above_held_gib=(peak - held) / 2 ** 30)
+        got = xdeepfm.forward(cfg, params, small)
+        want = xdeepfm.forward(cfg, params, bulk)[:small_rows]
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        serve["p99_rows_in_bulk"] = dict(max_rel_err=rel,
+                                         tolerance_rel=RECSYS_BULK_RTOL,
+                                         bitwise=torch.equal(got, want))
+        check(rel <= RECSYS_BULK_RTOL,
+              f"recsys: serve_p99's rows differ from the same rows in "
+              f"serve_bulk by {rel} > {RECSYS_BULK_RTOL}")
+        del bulk, small, got, want
+        torch.cuda.empty_cache()
+        n_cand = shapes["retrieval_cand"]["n_candidates"]
+        gen = torch.Generator(device="cuda").manual_seed(47)
+        cands = torch.randint(0, cfg.vocab_per_field, (n_cand, cfg.n_sparse),
+                              device="cuda", generator=gen,
+                              dtype=torch.int32)
+        user = torch.randint(0, cfg.vocab_per_field, (cfg.n_sparse,),
+                             device="cuda", generator=gen, dtype=torch.int32)
+        planted = n_cand // 2 + 17
+        cands[planted] = user
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r50, r99 = host_ms(lambda: xdeepfm.retrieval_score(cfg, params, user,
+                                                           cands),
+                           RECSYS_SERVE_REPS["retrieval_cand"])
+        scores = xdeepfm.retrieval_score(cfg, params, user, cands)
+        top2 = torch.topk(scores, 2)
+        first = int(top2.indices[0])
+        check(first == planted, f"recsys: the planted candidate {planted} "
+                                f"ranks below {first}")
+        serve["retrieval_cand"] = dict(
+            candidates=n_cand, score_ms=dict(p50=r50, p99=r99),
+            candidates_per_s=n_cand / (r50 * 1e-3),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            planted=planted, ranked_first=first,
+            margin=float(top2.values[0] - top2.values[1]))
+        del cands, scores
+        torch.cuda.empty_cache()
+
+    # (f) the kernels at these shapes
+    n_rows = cfg.n_sparse * cfg.vocab_per_field
+    readings = {
+        "tables": inplace_reading("kernel.segment_sum_accumulate.recsys_tables",
+                                  flat, cfg.embed_dim, n_rows, torch.float32,
+                                  53, "index_add_"),
+        "linear_w": inplace_reading(
+            "kernel.segment_sum_accumulate.recsys_linear_w", flat, 1, n_rows,
+            torch.float32, 59, "index_add_")}
+    bag_launches, readings["bag_sum"] = recsys_bag_reading(params["tables"])
+    line("recsys", model=cfg.arch_id, n_sparse=cfg.n_sparse,
+         vocab_per_field=cfg.vocab_per_field, embed_dim=cfg.embed_dim,
+         cin_layers=cfg.cin_layers, mlp_layers=cfg.mlp_layers,
+         dtype=cfg.dtype, param_count_reference_formula=cfg.param_count(),
+         params_in_tree=n_params, cin_chunk_rows=xdeepfm.CIN_CHUNK_ROWS,
+         init_s=init_s, card_vs_cpu=cpu, two_steps_bitwise=bitwise,
+         train_batch=train, **serve,
+         launches=dict(segment_sum=bag_launches,
+                       segment_sum_accumulate=acc_launches),
+         phase_s=time.perf_counter() - phase_t0)
+    del params, state, flat
+    torch.cuda.empty_cache()
+    return bag_launches, acc_launches, readings
+
+
+def serve_recall(stdout: str) -> float:
+    m = re.search(r"recall@10=(\S+)", stdout)
+    check(m is not None, f"launch_serve: no recall@10 in {stdout[-500:]!r}")
+    return float(m.group(1))
+
+
+def phase_launch_serve() -> dict:
+    """The serving launcher as a user runs it, as child processes on the
+    card: ``--n-nodes SERVE_NODES --queries SERVE_QUERIES --data-dir D``,
+    then ``--recover`` on D, then ``--rag`` at the default size; each must
+    exit 0 and print the reference's lines. A ``--device cpu`` child at the
+    first run's arguments runs beside them; the card's recall@10 must be
+    within SERVE_RECALL_TOL of it."""
+    phase_t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve"]
+    size = ["--n-nodes", str(SERVE_NODES), "--queries", str(SERVE_QUERIES)]
+    root = tempfile.mkdtemp(prefix="launch_serve_")
+    data = os.path.join(root, "data")
+    runs = (("durable", size + ["--data-dir", data],
+             ("ingest+build:", "vector search:", "hybrid search (2 hops):",
+              "ingest-while-search:", "snapshot:")),
+            ("recover", size + ["--data-dir", data, "--recover"],
+             ("recover:", "vector search:", "ingest-while-search:",
+              "snapshot:")),
+            ("rag", ["--rag"], ("ingest+build:", "vector search:",
+                                "RAG generated:")))
+    out = {}
+    cpu = subprocess.Popen(cmd + size + ["--device", "cpu"], env=env,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True)
+    try:
+        for name, args, want in runs:
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd + args, env=env, capture_output=True,
+                               text=True, timeout=300)
+            lines = r.stdout.splitlines()
+            missing = [w for w in want
+                       if not any(ln.startswith(w) for ln in lines)]
+            check(r.returncode == 0 and not missing,
+                  f"launch_serve {name}: exit {r.returncode}, missing lines "
+                  f"{missing}, stdout {r.stdout[-800:]!r}, stderr "
+                  f"{r.stderr[-1500:]!r}")
+            out[name] = dict(args=" ".join(args), exit=r.returncode,
+                             wall_s=time.perf_counter() - t0,
+                             recall=serve_recall(r.stdout), lines=lines)
+        t0 = time.perf_counter()
+        cpu_stdout, cpu_stderr = cpu.communicate(timeout=600)
+        check(cpu.returncode == 0, f"launch_serve: the --device cpu child "
+                                   f"exited {cpu.returncode}: "
+                                   f"{cpu_stderr[-1500:]!r}")
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    cpu_recall = serve_recall(cpu_stdout)
+    gap = abs(out["durable"]["recall"] - cpu_recall)
+    check(gap <= SERVE_RECALL_TOL,
+          f"launch_serve: recall@10 {out['durable']['recall']} on the card, "
+          f"{cpu_recall} on the CPU (gap {gap} > {SERVE_RECALL_TOL})")
+    res = dict(command="python -m repro_torch.launch.serve", runs=out,
+               cpu=dict(args=" ".join(size + ["--device", "cpu"]),
+                        recall=cpu_recall, waited_s=time.perf_counter() - t0,
+                        lines=cpu_stdout.splitlines()),
+               recall_gap=gap, recall_tolerance=SERVE_RECALL_TOL,
+               phase_s=time.perf_counter() - phase_t0)
+    line("launch_serve", **res)
+    return res
+
+
 def main():
     # the port must import before anything is printed: a copy of this
     # script without the repository fails here, with nothing on stdout
@@ -4968,6 +5398,14 @@ def main():
     del g_ogb, ex_ogb, mb_batch
     torch.cuda.empty_cache()
     lm_acc, kern["accumulate"]["sides"]["token"] = phase_lm_train()
+    torch.cuda.empty_cache()
+    rec_sum, rec_acc, rec_kern = phase_recsys()
+    kern["segment"]["widths"]["xdeepfm_bag_10"] = rec_kern["bag_sum"]
+    kern["accumulate"]["widths"]["xdeepfm_10"] = {"tables":
+                                                  rec_kern["tables"]}
+    kern["accumulate"]["widths"]["xdeepfm_1"] = {"linear_w":
+                                                 rec_kern["linear_w"]}
+    phase_launch_serve()
     line("launches", vector=dict(zip(("probe", "shared"), after_vector)),
          maint={"probe": after_maint[0] - after_vector[0],
                 "shared": after_maint[1] - after_vector[1]},
@@ -4988,6 +5426,7 @@ def main():
          gnn_models={"segment_sum": models["launches"][0],
                      "segment_sum_accumulate": models["launches"][1]},
          lm_train={"segment_sum_accumulate": lm_acc},
+         recsys={"segment_sum": rec_sum, "segment_sum_accumulate": rec_acc},
          index_path_segment_sum=dict(seg, total=index_seg))
     src = "src/repro_torch/kernels/ivf_topk/csrc/ivf_topk.cu"
     kernels = [
@@ -5011,14 +5450,14 @@ def main():
              replaces="src/repro/kernels/segment_reduce/"
                       "segment_reduce.py:50",
              launches=(gnn_launches + train_launches + models["launches"][0]
-                       + index_seg),
+                       + index_seg + rec_sum),
              **kern["segment"]),
         dict(name="segment_sum_csr_accumulate", route="cuda",
              source="src/repro_torch/kernels/segment_reduce/csrc/"
                     "segment_reduce.cu",
              replaces="src/repro/kernels/segment_reduce/"
                       "segment_reduce.py:50",
-             launches=train_acc + models["launches"][1] + lm_acc,
+             launches=train_acc + models["launches"][1] + lm_acc + rec_acc,
              **kern["accumulate"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,11 +1,12 @@
 """Configurations of the port: the reference's ``HMGIConfig``, ``LMConfig``,
-``GNNConfig`` and ``ShapeSpec``.
+``GNNConfig``, ``RecsysConfig`` and ``ShapeSpec``.
 
 Same field names and defaults as the JAX package (its ``ArchConfig`` base
 fields are folded into each class), so a reference config converts with
 ``HMGIConfig(**dataclasses.asdict(ref_cfg))``,
-``LMConfig(**dataclasses.asdict(ref_cfg))`` or
-``GNNConfig(**dataclasses.asdict(ref_cfg))``, and a snapshot's config
+``LMConfig(**dataclasses.asdict(ref_cfg))``,
+``GNNConfig(**dataclasses.asdict(ref_cfg))`` or
+``RecsysConfig(**dataclasses.asdict(ref_cfg))``, and a snapshot's config
 fingerprint (``persistence.snapshot.config_fingerprint``) is the same in
 both packages. Fields the port does not act on yet (the LM's training
 knobs) are kept for that round trip.
@@ -216,3 +217,41 @@ class GNNConfig:
 
     def replace(self, **kw) -> "GNNConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class RecsysConfig:
+    """A sparse-feature recommender (xDeepFM): ``n_sparse`` fields of
+    ``vocab_per_field`` ids each, embedded at ``embed_dim``."""
+    arch_id: str = ""
+    family: str = "recsys"
+    source: str = ""
+    sharding_overrides: Dict[str, Any] = field(default_factory=dict)
+    n_sparse: int = 39
+    n_dense: int = 0
+    embed_dim: int = 10
+    vocab_per_field: int = 100_000
+    cin_layers: Tuple[int, ...] = (200, 200, 200)
+    mlp_layers: Tuple[int, ...] = (400, 400)
+    dtype: str = "float32"
+
+    def replace(self, **kw) -> "RecsysConfig":
+        return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        """The reference's count: the tables, CIN, MLP and bias, without
+        the first-order ``linear_w`` (n_sparse x vocab_per_field more
+        parameters in the model's tree)."""
+        p = self.n_sparse * self.vocab_per_field * self.embed_dim
+        m = self.n_sparse
+        prev = m
+        d_in = self.n_sparse * self.embed_dim + self.n_dense
+        for h in self.cin_layers:
+            p += h * prev * m
+            prev = h
+        p += sum(self.cin_layers)  # cin -> logit
+        for h in self.mlp_layers:
+            p += d_in * h + h
+            d_in = h
+        p += d_in + 1  # mlp logit + linear part bias
+        return p

@@ -1,4 +1,4 @@
-"""Carries a reference index's state, and a reference LM's parameters,
+"""Carries a reference index's state, and a reference model's parameters,
 into the port.
 
 ``index_from_jax_state(tree, meta, device)`` takes the JAX package's
@@ -28,6 +28,9 @@ same function.
 ``gnn_params_from_jax(tree, device)`` takes the reference ``init_model``'s
 GNN params with numpy leaves and returns the port's, in the same layout
 (EGNN: ``enc``, ``layers[i].{phi_e,phi_x,phi_h}.{w0,b0,w1,b1}``, ``head``).
+``recsys_params_from_jax(tree, device)`` does the same for the reference's
+xDeepFM params (one flat dict: ``tables``, ``linear_w``, ``bias``,
+``cin_w{k}``, ``cin_out``, ``mlp_{w,b}{k}``, ``mlp_out``).
 
 ``adamw_state_from_jax(state, device)`` takes a reference ``AdamWState``
 (``step``, ``mu``, ``nu``; numpy leaves) and returns the port's
@@ -105,6 +108,15 @@ def gnn_params_from_jax(tree: Dict[str, object], device=None) -> Dict[str, objec
     device."""
     device = resolve_device(device, "gnn_params_from_jax")
     return _map(tree, lambda a: _leaf(a, device))
+
+
+def recsys_params_from_jax(tree: Dict[str, object],
+                           device=None) -> Dict[str, torch.Tensor]:
+    """tree: a reference ``xdeepfm.init`` params dict with numpy leaves
+    (e.g. ``jax.tree.map(np.asarray, params)``), returned as the port's
+    tree (the same keys). device: None = the CUDA device."""
+    device = resolve_device(device, "recsys_params_from_jax")
+    return {k: _leaf(v, device) for k, v in tree.items()}
 
 
 def adamw_state_from_jax(state, device=None):

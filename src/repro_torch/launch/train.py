@@ -7,8 +7,10 @@ tolerance is on: checkpoint/restart, the straggler monitor, deterministic
 data skipping (``train/trainer.py``). The LM archs train through
 ``models.lm.make_train_step`` (its step updates in place), the four GNN
 archs (EGNN, NequIP, DimeNet with its triplets, Equiformer-v2) through the
-GNN driver's full-graph step. The recsys arch waits for ROADMAP.md Queue 1
-Step 10.
+GNN driver's full-graph step, and xDeepFM through
+``models.recsys.xdeepfm.make_train_step`` on ``SyntheticRecsysStream``
+(``--batch`` rows a step; AdamW with 10 warm-up steps, cosine to
+``--steps``).
 """
 from __future__ import annotations
 
@@ -21,21 +23,18 @@ import torch
 
 from repro_torch.common.params import resolve_device
 from repro_torch.configs import get_config, smoke_config
-from repro_torch.configs.base import GNNConfig, LMConfig
-from repro_torch.data.pipeline import SyntheticLMStream
+from repro_torch.configs.base import GNNConfig, LMConfig, RecsysConfig
+from repro_torch.data.pipeline import SyntheticLMStream, SyntheticRecsysStream
 from repro_torch.train.optimizer import AdamWConfig, init_adamw
 from repro_torch.train.trainer import Trainer, TrainerConfig
-
-RECSYS_ARCHS = ("xdeepfm",)
 
 
 def build(args, device: torch.device):
     """(step, stream, params, opt_state, to_device) for ``args.arch``."""
-    if args.arch in RECSYS_ARCHS:
-        raise NotImplementedError(
-            f"{args.arch}: recsys training is not ported to repro_torch yet "
-            "(ROADMAP.md Queue 1 Step 10)")
     cfg = get_config(args.arch) if args.full else smoke_config(args.arch)
+
+    def to_device(b):
+        return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
     if isinstance(cfg, LMConfig):
         from repro_torch.models import lm
         params = lm.init_lm(cfg, 0, device=device)
@@ -43,9 +42,13 @@ def build(args, device: torch.device):
             cfg, None, lm.ExecOpts(q_block=0, remat=False),
             AdamWConfig(lr=args.lr, warmup_steps=10, total_steps=args.steps))
         stream = SyntheticLMStream(cfg.vocab_size, args.batch, args.seq)
-
-        def to_device(b):
-            return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+    elif isinstance(cfg, RecsysConfig):
+        from repro_torch.models.recsys import xdeepfm
+        params = xdeepfm.init(cfg, 0, device=device)
+        step = xdeepfm.make_train_step(cfg, AdamWConfig(
+            lr=args.lr, warmup_steps=10, total_steps=args.steps))
+        stream = SyntheticRecsysStream(cfg.n_sparse, cfg.vocab_per_field,
+                                       args.batch)
     elif isinstance(cfg, GNNConfig):
         from repro_torch.models.gnn import driver as gd
         from repro_torch.models.gnn.dimenet import build_triplets

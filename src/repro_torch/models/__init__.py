@@ -1,2 +1,3 @@
-"""Models of the port: the RAG engine's transformer LM (serving half) and
-the EGNN node classifier (``gnn/``, inference)."""
+"""Models of the port: the transformer LM (serving and training), the
+GNNs (``gnn/``: EGNN, NequIP, DimeNet, Equiformer-v2) and the recommender
+(``recsys/``: xDeepFM over EmbeddingBag)."""

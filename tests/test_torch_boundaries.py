@@ -76,7 +76,8 @@ def _small_index(maint_auto=False):
 def test_unported_parts_raise():
     """The index takes a mesh (its row-sharded scan is ported); only the
     GNN ring over a mesh is still refused (item 15). The NSW lane, the
-    rerank lane and traces run; the unported recsys config is unknown."""
+    rerank lane and traces run; every config of the reference is
+    registered, the recsys one too, and an unknown id raises KeyError."""
     from repro_torch.configs import get_config as pget
     from repro_torch.models.gnn.common import run_flat
     from repro_torch.models.gnn.driver import full_graph_loss
@@ -100,12 +101,12 @@ def test_unported_parts_raise():
                     device="cpu")
     nsw.ingest({"text": (np.arange(64), v)}, 64)
     assert nsw.modalities["text"].nsw.neighbors.shape == (64, 4)
-    # every LM and GNN config is registered; the recsys config waits for
-    # Queue 1 Step 10
+    # every LM, GNN and recsys config is registered; an unknown id is not
     assert get_config("qwen2-72b").qkv_bias
     assert get_config("dimenet").model == "dimenet"
-    with pytest.raises(KeyError, match="Step 10"):
-        get_config("xdeepfm")
+    assert get_config("xdeepfm").family == "recsys"
+    with pytest.raises(KeyError, match="no-such-arch"):
+        get_config("no-such-arch")
 
 
 def test_converter_refuses_nsw_and_sparse_state():

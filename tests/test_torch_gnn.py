@@ -72,8 +72,11 @@ def test_configs_match_reference():
     assert shapes["ogb_products"] == {"n_nodes": 2_449_029,
                                       "n_edges": 61_859_140, "d_feat": 100}
     assert shapes["molecule"] == {"n_nodes": 30, "n_edges": 64, "batch": 128}
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("xdeepfm")
+    # the recsys config is a RecsysConfig, not a GNN's; unknown ids raise
+    assert get_config("xdeepfm").family == "recsys"
+    assert not isinstance(get_config("xdeepfm"), GNNConfig)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
 
 
 def test_graph_builders_match_reference(graph):

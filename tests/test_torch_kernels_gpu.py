@@ -25,7 +25,11 @@ three equivariant GNNs (NequIP, DimeNet with its triplets, Equiformer-v2)
 at smoke widths: ``gather_rows``' transpose (the in-place kernel over the
 rows a gather reads) against ``index_add_``, logits and one train step on
 the card against the CPU (1e-4 of max(1, |value|)), a step's launches and
-two card steps bitwise.
+two card steps bitwise; and xDeepFM at its smoke config: one train step
+on the card against the CPU (two in-place launches a step), two card
+steps bitwise, and ``embedding_bag``'s sum and mean on the card (the
+summing kernel) against the CPU; and the serving launcher on the card
+(durable, recovered, with RAG generation through the decode kernel).
 
 Every test carries the ``gpu`` marker and skips itself when
 ``torch.cuda.is_available()`` is false (decided inside the test, so every
@@ -1539,3 +1543,105 @@ def test_gnn_model_step_on_the_card_repeats_bitwise(arch):
     assert all(torch.equal(x, y) for x, y in zip(leaves(a[:2]),
                                                  leaves(b[:2])))
     assert torch.equal(a[2]["loss"], b[2]["loss"])
+
+
+def _recsys_smoke():
+    """xDeepFM's smoke config, seeded params on the CPU and a batch of the
+    recsys stream with a clipped id (>= V) and an id < 0."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import SyntheticRecsysStream
+    from repro_torch.models.recsys import xdeepfm
+    cfg = smoke_config("xdeepfm")
+    params = xdeepfm.init(cfg, 0, device="cpu")
+    b = SyntheticRecsysStream(cfg.n_sparse, cfg.vocab_per_field, 64,
+                              seed=0).batch_at(0)
+    b["ids"][0, 0], b["ids"][1, 1] = cfg.vocab_per_field + 3, -2
+    return cfg, params, {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+@pytest.mark.gpu
+def test_recsys_step_on_the_card_matches_the_cpu():
+    """One xDeepFM train step at the smoke config on the card against the
+    CPU: the loss, and the new params and first moments within 1e-4 ·
+    max(1, max |want|) per leaf; the step launches the in-place kernel
+    twice (the tables' and linear_w's transposes)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.common.tree import leaves
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.models.recsys import xdeepfm
+    from repro_torch.train.optimizer import init_adamw
+    cfg, params, batch = _recsys_smoke()
+    step = xdeepfm.make_train_step(cfg)
+    hp, hs, hm = step(params, init_adamw(params), batch)
+    cp = _on(params, "cuda")
+    before = sops.segment_sum_csr_accumulate.launches
+    dp, ds, dm = step(cp, init_adamw(cp), _on(batch, "cuda"))
+    assert sops.segment_sum_csr_accumulate.launches - before == 2
+    assert abs(float(dm["loss"]) - float(hm["loss"])) <= 1e-4
+    for a, b in zip(leaves(dp) + leaves(ds.mu), leaves(hp) + leaves(hs.mu)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * max(
+            1.0, float(b.abs().max()))
+
+
+@pytest.mark.gpu
+def test_recsys_step_on_the_card_repeats_bitwise():
+    _need_card()
+    from repro_torch.common.tree import leaves
+    from repro_torch.models.recsys import xdeepfm
+    from repro_torch.train.optimizer import init_adamw
+    cfg, params, batch = _recsys_smoke()
+    params, batch = _on(params, "cuda"), _on(batch, "cuda")
+    step = xdeepfm.make_train_step(cfg)
+    a = step(params, init_adamw(params), batch)
+    b = step(params, init_adamw(params), batch)
+    assert all(torch.equal(x, y) for x, y in zip(leaves(a[:2]),
+                                                 leaves(b[:2])))
+    assert torch.equal(a[2]["loss"], b[2]["loss"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_on_the_card_matches_plain_version(mode):
+    """``embedding_bag`` on the card (the summing kernel: one launch for
+    sum, two for mean) against the same call on the CPU (its plain
+    version), bit for bit for sum; ragged bags of 0-40 ids, ids < 0 and
+    >= V."""
+    _need_card()
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.models.recsys.embedding_bag import embedding_bag
+    g = torch.Generator().manual_seed(5)
+    tables = torch.randn((3, 1000, 10), generator=g)
+    sizes = torch.randint(0, 41, (300,), generator=g)
+    bags = torch.repeat_interleave(torch.arange(300), sizes).to(torch.int32)
+    flat = torch.randint(-5, 1010, (bags.numel(),), generator=g,
+                         dtype=torch.int32)
+    want = embedding_bag(tables, flat, bags, 300, 1, mode)
+    before = sops.segment_sum_csr.launches
+    got = embedding_bag(tables.cuda(), flat.cuda(), bags.cuda(), 300, 1, mode)
+    assert sops.segment_sum_csr.launches - before == (1 if mode == "sum"
+                                                      else 2)
+    if mode == "sum":
+        assert torch.equal(got.cpu(), want)
+    else:
+        assert float((got.cpu() - want).abs().max()) <= 1e-6 * float(
+            want.abs().max())
+
+
+@pytest.mark.gpu
+def test_serve_launcher_on_the_card(tmp_path):
+    """``launch.serve`` on the card: durable, recovered, and with RAG
+    generation (the decode kernel at the launcher's head dim of 64)."""
+    _need_card()
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.launch import serve
+    args = ["--n-nodes", "600", "--queries", "16", "--ingest-steps", "2"]
+    d = str(tmp_path / "data")
+    first = serve.main(args + ["--data-dir", d])
+    assert first["device"].startswith("cuda") and first["recall"] >= 0.5
+    again = serve.main(args + ["--data-dir", d, "--recover"])
+    assert again["last_seq"] > first["last_seq"]
+    before = dops.decode_attention.launches
+    rag = serve.main(args + ["--rag"])
+    assert rag["rag_generated"] == {i: 8 for i in range(4)}
+    assert dops.decode_attention.launches > before
