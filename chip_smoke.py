@@ -2,7 +2,9 @@
 on one NVIDIA GPU (written for an H100): hybrid retrieval, RAG serving
 over the retrieval index with phi4-mini and with DeepSeek-V2-Lite at full
 width and depth, EGNN full-graph inference at the ogbn-products shape,
-EGNN training (full graph, minibatch, molecule), NequIP, DimeNet and
+EGNN training (full graph, minibatch, molecule), the mesh bodies on one
+controller (the GNN ring at ogbn-products, DimeNet's line-graph ring,
+xDeepFM's row-sharded tables, the MoE/LM mesh), NequIP, DimeNet and
 Equiformer-v2 inference and training at their published configs,
 phi4-mini training at full width and depth, xDeepFM training, serving
 and retrieval at its published config, and the serving launcher.
@@ -168,6 +170,34 @@ Phases (each prints one line; any failure exits non-zero):
                 114,615,892-edge host graph, the neighbour sampler's CSR,
                 4 steps of 1,024 fanout-(15, 10) trees (sampler ms and
                 step ms apart); (d) one molecule step.
+     mesh     — the mesh bodies on one controller, their shards on this
+                card: (a) EGNN on phase 7's graph padded to 2,449,032
+                nodes through full_graph_loss(mesh=) (the ring: to_ring,
+                RingExec) at S = 4 and on a (2, 2) data x model grid: 3
+                forwards after a warm-up (one on the grid), p50/p99,
+                to_ring's seconds, peak memory, the summing kernel's
+                launches held to layers x shards x rounds x chunks a
+                round, the loss sums within 1e-5 of LocalExec's, two ring
+                forwards bit for bit; (b) one make_train_step(mesh=) step
+                at S = 4: step ms, peak memory, the in-place launches
+                (layers x 2 x message blocks), loss and grad norm within
+                1e-4 of gnn_train's first LocalExec step; (c) a 16,384-node
+                copy at S = 4 and (2, 2), loss sums and gradients card
+                against CPU within 1e-5; (d) DimeNet's ring_loss at
+                full_graph_sm (published config, bonds spread) at S = 2
+                and (2, 2) against its local loss; (e) xDeepFM at its
+                published config on a (2, 2) grid: the forward at 65,536
+                rows bitwise equal to the unsharded one, retrieval over
+                1,000,000 candidates within 1e-6, both timed beside the
+                unsharded calls. The rag phase adds phi4-mini's prefill
+                and decode_step over a (1, 4) grid (bitwise, one decode
+                launch a layer) and rag_dsv2 DeepSeek-V2-Lite's 512-token
+                prefill over a (1, 4) grid against prefill(None), a
+                decode_step over it, the drop shares by data shard of a
+                (2, 2) prefill, and one of its MoE layers in fp32 on a
+                (2, 2) grid against each data shard's tokens through
+                moe_ffn(mesh=None): the same keep masks, outputs within
+                1e-5, two controls outside that bound ([mesh.lm]).
      gnn_models — NequIP, DimeNet and Equiformer-v2 at their published
                 configs (fp32, seeded random weights, TF32 off), each on
                 the molecule cell (128 graphs of 30 nodes / 64 edges;
@@ -199,12 +229,12 @@ Phases (each prints one line; any failure exits non-zero):
                 one profiled step; the token transpose (the in-place kernel
                 at 4,096 x 3,072 bf16 into 200,064 rows) against its plain
                 version bit for bit, timed beside its byte bound and
-                index_put_(accumulate=True); (b) 2-layer full-width copies
-                of phi4-mini (grad_accum 2) and DeepSeek-V2-Lite (a dense
-                and an MLA + MoE layer), one fp32 step each at seq 64,
-                card against CPU; (c) their bf16 twins, two runs of one step
-                bitwise; (d) the Trainer with checkpoints on the 2-layer
-                phi4-mini with its vocabulary cut to 32,768 (~3 GB each), a
+                index_put_(accumulate=True); (b) 1-layer full-width copies
+                of phi4-mini (grad_accum 2) and DeepSeek-V2-Lite (its MLA
+                + MoE layer), their vocabularies cut to 32,768, one fp32
+                step each at seq 64, card against CPU; (c) their bf16
+                twins, two runs of one step bitwise; (d) the Trainer with
+                checkpoints on the phi4-mini copy, a
                 failure at step 3 restored bitwise; (e) python -m repro_torch.launch.train --arch
                 phi4-mini-3.8b --steps 2 as a child process.
      recsys   — xDeepFM at its published config (get_config("xdeepfm"):
@@ -235,14 +265,17 @@ Phases (each prints one line; any failure exits non-zero):
                 (run beside them).
   8. the kernels line, then the contract line. The segment sum's launches
      there count the index path's too (k-means cluster sums, hop
-     out-weights), read phase by phase, and the training runs' forwards;
+     out-weights), read phase by phase, the training runs' forwards and
+     the mesh phase's ring forwards and step;
      the in-place kernel's (segment_sum_csr_accumulate) the GNN training
-     runs' gather transposes and the LM runs' token transposes ((a)'s
+     runs' and the mesh phase's ring step's gather transposes and the LM
+     runs' token transposes ((a)'s
      steps and (d)'s Trainer runs); both also count the gnn_models cells'
      forwards and steps (not their checks), and the recsys phase's: its
      train_batch steps' table transposes and its embedding_bag call; the
      scans' count the index phases' and both RAG cells' retrievals, the
-     decode kernel's the phi4-mini cell and the mixtral check.
+     decode kernel's the phi4-mini cell, its decode_step over a mesh and
+     the mixtral check.
 
 It imports only torch, numpy and the port (``src/repro_torch``), and needs a
 CUDA device: without one it exits 1 and prints no result. ``--durable-child
@@ -397,19 +430,43 @@ MODEL_CUTS = {
     "dimenet-minibatch-lg": "without triplets, as the reference's "
                             "minibatch_loss runs it",
 }
+# the mesh phase: the ring's shards on this card (S = 4 and a (2, 2)
+# grid), MESH_REPS timed forwards after a warm-up at S = 4 (one on the
+# grid); the ring's loss sums against LocalExec's (and DimeNet's ring
+# against its local loss) at MESH_LOCAL_RTOL, its train step's loss and
+# gradient norm at MESH_STEP_RTOL, card against CPU at MESH_CPU_N nodes
+# at MESH_CPU_RTOL, xDeepFM's retrieval over the grid at
+# MESH_RETRIEVAL_RTOL (its forward at MESH_XDEEPFM_ROWS rows bitwise)
+MESH_SHARDS, MESH_REPS, MESH_CPU_N = 4, 3, 16_384
+MESH_LOCAL_RTOL, MESH_STEP_RTOL, MESH_CPU_RTOL = 1e-5, 1e-4, 1e-5
+MESH_RETRIEVAL_RTOL, MESH_XDEEPFM_ROWS = 1e-6, 65_536
+# the LMs over a mesh: DeepSeek-V2-Lite's prefill of MESH_PROMPT tokens on
+# a (1, 4) grid against prefill(None) within MESH_BF16_RTOL of
+# max(1, largest |logit|) (the experts' F slices summed in another order
+# in bf16, through 27 layers of random weights: 3.0% of the largest logit
+# on the H100), the same argmax up to near-ties, a smoke of the whole
+# path; the mesh body itself is held in fp32, one MoE layer on a (2, 2)
+# grid against its plain split within MESH_MOE_RTOL of its largest
+# |output|; phi4-mini's MESH_DENSE_PROMPT-token prefill and decode bitwise
+MESH_PROMPT, MESH_DENSE_PROMPT, MESH_BF16_RTOL = 512, 64, 2.0 ** -4
+MESH_MOE_RTOL = 1e-5
 # the LM training cell: phi4-mini at full width and depth, train_4k's
 # sequence, micro-batch 1 x LM_ACCUM micro-batches, one warm-up and
-# LM_STEPS timed steps; its checks on 2-layer full-width copies (card vs
-# CPU at LM_CPU_SEQ in fp32; two runs bitwise in bf16; the Trainer's
-# restart at LM_CKPT_SEQ with the vocabulary cut to LM_CKPT_VOCAB, which
-# needs LM_CKPT_MIN_FREE of disk: two ~3 GB checkpoints). LM_CPU_SEQ was
-# 128 and the Trainer ran the full 200,064 vocabulary (two 8.2 GB
-# checkpoints, 100 s) until the gnn_models phase needed the time.
+# LM_STEPS timed steps; its checks on 1-layer full-width copies with the
+# vocabulary cut to LM_CHECK_VOCAB (card vs CPU at LM_CPU_SEQ in fp32; two
+# runs bitwise in bf16; the Trainer's restart at LM_CKPT_SEQ, which needs
+# LM_CKPT_MIN_FREE of disk). DeepSeek-V2-Lite's copy is its MLA + MoE
+# layer (no dense first layer; phi4-mini's copy runs a dense FFN).
+# LM_CPU_SEQ was 128 and the Trainer ran the full 200,064 vocabulary (two
+# 8.2 GB checkpoints, 100 s) until the gnn_models phase needed the time;
+# the copies had 2 layers and the full vocabulary in the card-vs-CPU
+# check (97 s, the CPU's embedding-sized work most of it) until the mesh
+# phase needed it.
 LM_SEQ, LM_ACCUM, LM_STEPS = 4096, 4, 3
 LM_CUT = ("lm_train: global batch 4 (micro-batch 1 x grad_accum 4), cut "
           "from train_4k's 256; seq 4,096, width, vocabulary and depth as "
           "published")
-LM_CPU_SEQ, LM_CKPT_SEQ, LM_CKPT_VOCAB = 64, 512, 32_768
+LM_CPU_SEQ, LM_CKPT_SEQ, LM_CHECK_VOCAB = 64, 512, 32_768
 LM_CKPT_MIN_FREE = 8e9
 # card vs CPU in fp32 (TF32 off): PR 20's 1e-4, relative to each leaf's
 # largest |value| (to max(1, ...) for the params)
@@ -2701,6 +2758,154 @@ def rag_traffic(corpus, vocab: int):
     return rng, queries, prompts, news
 
 
+def mesh_lm_dense(cfg, params) -> dict:
+    """phi4-mini (dense) over a (1, 4) grid of this card: one prefill and
+    one ``decode_step(mesh=)``, which runs the decode kernel once a layer;
+    a dense model's mesh path is the unsharded one, bit for bit."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.models import lm
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    tok = torch.randint(0, cfg.vocab_size, (1, MESH_DENSE_PROMPT),
+                        device="cuda", generator=gen)
+    m14 = grid((1, 4))
+    with torch.no_grad():
+        want, c0 = lm.prefill(cfg, params, tok, 1)
+        got, c1 = lm.prefill(cfg, params, tok, 1, mesh=m14)
+        nxt = torch.argmax(want, -1)
+        d0, _ = lm.decode_step(cfg, params, c0, nxt, MESH_DENSE_PROMPT)
+        before = dops.decode_attention.launches
+        d1, _ = lm.decode_step(cfg, params, c1, nxt, MESH_DENSE_PROMPT,
+                               mesh=m14)
+        torch.cuda.synchronize()
+        n = dops.decode_attention.launches - before
+    same = torch.equal(got, want) and torch.equal(d1, d0)
+    check(same and n == cfg.n_layers,
+          f"mesh.lm {cfg.arch_id}: prefill/decode over the (1, 4) grid "
+          f"bitwise {same}, {n} decode launches for {cfg.n_layers} layers")
+    out = dict(model=cfg.arch_id, mesh=m14.shape, prompt=MESH_DENSE_PROMPT,
+               bitwise=same, decode_launches=n)
+    line("mesh.lm", **out)
+    return out
+
+
+def mesh_moe_layer(cfg, moe_p) -> dict:
+    """One full-width MoE layer in fp32 on a (2, 2) grid (two data shards
+    of MESH_PROMPT / 2 tokens, the experts' F split over "model") against
+    its plain split: each data shard's tokens through moe_ffn(mesh=None)
+    with the whole F, so at that shard's capacity. The keep masks must be
+    equal and the outputs within MESH_MOE_RTOL of the largest |output|;
+    two controls must fall outside that bound: model shard 0's F half
+    alone (the psum over "model" left out) and the whole batch routed at
+    one capacity (the per-data-shard capacity left out)."""
+    from repro_torch.layers import moe
+    p = {k: v.float() for k, v in moe_p.items()}
+    f2 = p["w1"].shape[2] // 2
+    half = dict(p, w1=p["w1"][..., :f2], w3=p["w3"][..., :f2],
+                w2=p["w2"][:, :f2])
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    x = torch.randn((2, MESH_PROMPT // 2, cfg.d_model), device="cuda",
+                    generator=gen)
+    cf = cfg.capacity_factor
+
+    def split_run(pp, routings=None):
+        return torch.cat([moe.moe_ffn(cfg, pp, x[d:d + 1],
+                                      capacity_factor=cf,
+                                      routings=routings)[0]
+                          for d in range(2)])
+
+    with torch.no_grad():
+        want_r, got_r = [], []
+        want = split_run(p, want_r)
+        got = moe.moe_ffn(cfg, p, x, grid((2, 2)), capacity_factor=cf,
+                          routings=got_r)[0]
+        controls = dict(
+            no_model_psum=split_run(half),
+            batch_capacity=moe.moe_ffn(cfg, p, x, capacity_factor=cf)[0])
+        torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    ctl = {k: float((v - want).abs().max()) for k, v in controls.items()}
+    keep = len(got_r) == 2 and all(
+        torch.equal(a.keep, b.keep) and torch.equal(a.idx, b.idx)
+        for a, b in zip(got_r, want_r))
+    tol = MESH_MOE_RTOL * scale
+    check(keep and err <= tol and min(ctl.values()) > tol,
+          f"mesh.lm {cfg.arch_id}: fp32 MoE layer on (2, 2): keep masks "
+          f"equal {keep}, max |diff| {err} against tolerance {tol} "
+          f"({MESH_MOE_RTOL} of {scale}), controls {ctl} must exceed it")
+    return dict(mesh=(2, 2), tokens_per_shard=MESH_PROMPT // 2,
+                dtype="float32", keep_equal=keep, max_abs_err=err,
+                scale=scale, tolerance_rel=MESH_MOE_RTOL,
+                drops_by_data_shard=[float((~r.keep).float().mean())
+                                     for r in got_r],
+                controls_max_abs=ctl)
+
+
+def mesh_lm_moe(cfg, params) -> dict:
+    """(f) DeepSeek-V2-Lite over this card's shards: one prefill of
+    MESH_PROMPT tokens on a (1, 4) grid (one data shard: the unsharded
+    capacity; the experts' F split over "model") against prefill(None)
+    within MESH_BF16_RTOL of the largest logit, the same argmax; one
+    ``decode_step(mesh=)`` (MLA's absorbed decode, no decode kernel); the
+    per-data-shard drop shares of a batch-2 prefill on a (2, 2) grid;
+    ``mesh_moe_layer``."""
+    from repro_torch.models import lm
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    tok = torch.randint(0, cfg.vocab_size, (1, MESH_PROMPT), device="cuda",
+                        generator=gen)
+    m14 = grid((1, 4))
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, c0 = lm.prefill(cfg, params, tok, 1)
+        torch.cuda.synchronize()
+        t_none = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        got, c1 = lm.prefill(cfg, params, tok, 1, mesh=m14)
+        torch.cuda.synchronize()
+        t_mesh = (time.perf_counter() - t0) * 1e3
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        nxt = torch.argmax(want, -1)
+        d0, _ = lm.decode_step(cfg, params, c0, nxt, MESH_PROMPT)
+        d1, _ = lm.decode_step(cfg, params, c1, nxt, MESH_PROMPT, mesh=m14)
+        d_err = float((d1.float() - d0.float()).abs().max())
+        d_scale = float(d0.float().abs().max())
+        del c0, c1
+        tok2 = torch.randint(0, cfg.vocab_size, (2, MESH_PROMPT // 2),
+                             device="cuda", generator=gen)
+        routings = []
+        lm.prefill(cfg, params, tok2, 1, mesh=grid((2, 2)),
+                   moe_routings=routings)
+        torch.cuda.synchronize()
+    drops = [[float((~r.keep).float().mean()) for r in routings[d::2]]
+             for d in range(2)]
+    # the argmax may move only between logits closer than twice the error
+    top2 = torch.topk(want.float(), 2, dim=-1).values[0]
+    same_argmax = (torch.equal(torch.argmax(got, -1), nxt)
+                   or float(top2[0] - top2[1]) <= 2 * err)
+    ok = (err <= MESH_BF16_RTOL * max(1.0, scale)
+          and d_err <= MESH_BF16_RTOL * max(1.0, d_scale)
+          and same_argmax and bool(torch.isfinite(d1).all()))
+    check(ok, f"mesh.lm {cfg.arch_id}: (1, 4) prefill differs by {err} "
+              f"(scale {scale}), decode by {d_err} (scale {d_scale}), "
+              f"tolerance {MESH_BF16_RTOL} of max(1, scale), same argmax "
+              f"{same_argmax}")
+    out = dict(model=cfg.arch_id, mesh=m14.shape, prompt=MESH_PROMPT,
+               prefill_ms=dict(none=t_none, mesh=t_mesh),
+               prefill_max_abs=err, logit_scale=scale,
+               decode_max_abs=d_err, decode_scale=d_scale,
+               tolerance_rel=MESH_BF16_RTOL, same_argmax=same_argmax,
+               drops_2x2=dict(batch=2, tokens_per_shard=MESH_PROMPT // 2,
+                              share_by_data_shard=[
+                                  float(np.mean(d)) for d in drops],
+                              by_layer=drops),
+               layer_fp32_2x2=mesh_moe_layer(
+                   cfg, params["layers"][cfg.first_dense_layers]["moe"]))
+    line("mesh.lm", **out)
+    return out
+
+
 def phase_rag(index, corpus) -> dict:
     """The RAG serving path over the phase-5 index; returns the launches of
     its run (counts set to 0 just before it, read just after)."""
@@ -2828,6 +3033,7 @@ def phase_rag(index, corpus) -> dict:
          else "not measured (the profiler saw no kernels)",
          search_many_bytes_identical_8_vs_1=bytes_same,
          info_bf16_streams_equal_sequential=seq_same)
+    launches["mesh_decode"] = mesh_lm_dense(cfg, params)["decode_launches"]
     del engine, params
     torch.cuda.empty_cache()
 
@@ -3099,6 +3305,7 @@ def phase_rag_dsv2(index, corpus) -> dict:
              dec_drops, ticks=DSV2_TICKS, slots=RAG_SLOTS)),
          tick_profile=prof, tick_bytes=tick_bytes, tick_parts=parts,
          nvidia_smi=smi_line())
+    mesh_lm_moe(cfg, params)
     del engine, params
     torch.cuda.empty_cache()
 
@@ -3777,7 +3984,8 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
     the summing and the in-place kernels' launches of the cells' runs (the
     two Trainer runs and the molecule step; the checks' extra steps not
     counted), the in-place kernel's kernels-line entry and the last
-    minibatch batch on the card (for the gnn_models phase)."""
+    minibatch batch on the card (for the gnn_models phase), and the first
+    full-graph step's (loss, grad norm) (for the mesh phase)."""
     from repro_torch.checkpoint import restore_checkpoint
     from repro_torch.common.tree import leaves, tree_finite
     from repro_torch.configs import get_config, get_shapes
@@ -3820,6 +4028,8 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
               and bool(tree_finite(tr.params)),
               f"gnn_train: a loss or gradient is not finite ({losses}, "
               f"{gnorms})")
+        marks = {"trainer_run": run_s}
+        t_mark = time.perf_counter()
         opt0 = init_adamw(params)
         first = firsts[0]
         del firsts
@@ -3845,6 +4055,8 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
         check(same_twice, "gnn_train: steps from the same params and state "
                           "differ in their bits")
         del prof_out, parts
+        marks["profiled_step_and_parts"] = time.perf_counter() - t_mark
+        t_mark = time.perf_counter()
         half = LocalExec(g, GNN_CHUNK_EDGES // 2)
         half_chunks = len(half.chunks)
         hp = gd.make_train_step(cfg, "full_graph")(
@@ -3852,6 +4064,8 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
         check(trees_equal(hp, first), "gnn_train: a step with half the chunk "
                                       "budget differs in its bits")
         del half, hp
+        marks["half_budget_step"] = time.perf_counter() - t_mark
+        t_mark = time.perf_counter()
         # restart contract: a failure at step 3 restores the step-2
         # checkpoint; at step 4 the state equals the plain run's
         fr, _, _ = train_run(cfg, "full_graph", params, ConstantStream(batch),
@@ -3866,6 +4080,7 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
                           "differs from the uninterrupted run's")
         del fr, rp, ro
         torch.cuda.empty_cache()
+        marks["restart_run"] = time.perf_counter() - t_mark
         line("gnn_train", cell="egnn-ogbn-products-train",
              model=cfg.arch_id, layers=cfg.n_layers, d_hidden=cfg.d_hidden,
              dtype=cfg.dtype, nodes=g.n_nodes, edges=ex.n_edges,
@@ -3884,7 +4099,10 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
                                     formula="layers x 2 x blocks, backward"),
              trainer_launches=dict(summing=full_launches,
                                    in_place=full_acc), step_profile=prof)
+        t_mark = time.perf_counter()
         acc_kern = measure_transpose(ex)
+        marks["transpose_kernel"] = time.perf_counter() - t_mark
+        t_mark = time.perf_counter()
 
         # (b) one step on a smaller copy, card vs CPU
         f = g.feats.shape[1]
@@ -3904,6 +4122,8 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
               f"gnn_train: {TRAIN_CPU_N}-node step, card vs CPU: gradients "
               f"{grad_err}, new params {param_err} (relative)")
         del small, sb, cb, cg, hg
+        marks["card_vs_cpu"] = time.perf_counter() - t_mark
+        t_mark = time.perf_counter()
 
         # (c) minibatch_lg: host graph, the sampler, Trainer steps
         md = dims["minibatch_lg"]
@@ -3955,6 +4175,8 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
              launches=dict(summing=mb_launches, in_place=mb_acc),
              launches_per_step=[mb_launches / MB_STEPS, mb_acc / MB_STEPS])
         del sampler, hg_, stream, mtr, mparams
+        marks["minibatch_cell"] = time.perf_counter() - t_mark
+        t_mark = time.perf_counter()
 
         # (d) one molecule step
         mo = dims["molecule"]
@@ -3974,6 +4196,7 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
               f"gnn_train molecule: {(mol_launches, mol_acc)} launches, "
               f"loss {float(mout[2]['loss'])}")
         m50, m99 = host_ms(lambda: mstep(molp, init_adamw(molp), mbatch), 10)
+        marks["molecule_cell"] = time.perf_counter() - t_mark
         line("gnn_train.checks", steps_from_same_state_bitwise=same_twice,
              half_budget_bitwise=True, half_budget_chunks=half_chunks,
              restart_at_step=TRAIN_FAIL_AT, restored_from_step=2,
@@ -3988,11 +4211,254 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
                            step_ms_p50=m50, step_ms_p99=m99,
                            launches_per_step=[mol_launches, mol_acc],
                            loss=float(mout[2]["loss"])),
-             phase_s=time.perf_counter() - phase_t0)
+             part_s=marks, phase_s=time.perf_counter() - phase_t0)
         return (full_launches + mb_launches + mol_launches,
-                full_acc + mb_acc + mol_acc, acc_kern, kept["batch"])
+                full_acc + mb_acc + mol_acc, acc_kern, kept["batch"],
+                (losses[0], gnorms[0]))
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def ring_grads(cfg, params, ring, mesh, ex=None):
+    """(loss sums, gradients in leaf order) of the ring's training loss."""
+    from repro_torch.common.tree import leaves, tree_map
+    from repro_torch.models.gnn import driver as gd
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    batch = {"graph": ring} if ex is None else {"graph": ring, "exec": ex}
+    loss, sums = gd.train_loss(cfg, "full_graph", live, batch, mesh)
+    grads = torch.autograd.grad(loss, leaves(live))
+    return {k: float(v.detach()) for k, v in sums.items()}, grads
+
+
+def grid(shape, device="cuda:0"):
+    """A mesh of ``device`` repeated over ``shape``: ("data",) for one
+    axis, ("data", "model") for two."""
+    from repro_torch.sharding import Mesh
+    names = ("data",) if len(shape) == 1 else ("data", "model")
+    return Mesh(np.array([device] * int(np.prod(shape)), dtype=object
+                         ).reshape(shape), names)
+
+
+def sums_rel(got: dict, want: dict) -> float:
+    """The largest relative difference over the loss sums."""
+    return max(abs(float(got[k]) - float(want[k]))
+               / max(abs(float(want[k])), 1e-30) for k in want)
+
+
+def phase_mesh(params, g, ex, forward_ms: float, local_step) -> tuple:
+    """The mesh bodies on one controller, four shards of this card: (a)
+    EGNN at ogbn-products (padded to 2,449,032 nodes) through
+    ``full_graph_loss(mesh=)`` at S = 4 and on a (2, 2) grid against
+    ``LocalExec``, (b) one ``make_train_step(mesh=)`` step at S = 4
+    against the LocalExec step ``local_step`` = (loss, grad norm), (c) a
+    16,384-node copy at S = 4 and (2, 2), card against the CPU, (d)
+    DimeNet's ``ring_loss`` at full-graph-sm against its local loss, (e)
+    xDeepFM's row-sharded tables on a (2, 2) grid. Returns the (summing,
+    in-place) kernel launches of (a)'s and (b)'s runs."""
+    from repro_torch.configs import get_config, get_shapes
+    from repro_torch.models.gnn import dimenet
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.models.gnn.common import (FlatGraph, RingExec,
+                                               pad_to_shards, to_ring)
+    from repro_torch.models.recsys import xdeepfm
+    from repro_torch.train.optimizer import init_adamw
+    phase_t0 = time.perf_counter()
+    cfg = get_config("egnn")
+    with torch.no_grad():
+        local = {k: float(v) for k, v in
+                 gd.full_graph_loss(cfg, params, g, ex=ex).items()}
+    gp = pad_to_shards(g, MESH_SHARDS)
+    runs, launches = {}, [0, 0]
+    # (a) the ring's forward at S = 4 and on the (2, 2) grid
+    for shape, reps in (((MESH_SHARDS,), MESH_REPS), ((2, 2), 1)):
+        mesh = grid(shape)
+        t0 = time.perf_counter()
+        ring = to_ring(gp, shape[0])
+        torch.cuda.synchronize()
+        ring_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rex = RingExec.of(ring, mesh, GNN_CHUNK_EDGES)
+        rex.engines
+        torch.cuda.synchronize()
+        exec_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        seg_zero()
+        times, sums = [], []
+        for _ in range(1 + reps):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = gd.full_graph_loss(cfg, params, ring, mesh, ex=rex)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            sums.append(out)
+        got = seg_counts()
+        launches[0] += got[0]
+        per_fwd = cfg.n_layers * rex.chunk_count()
+        check(got == ((1 + reps) * per_fwd, 0),
+              f"mesh {shape}: {got} launches for {1 + reps} forwards of "
+              f"{per_fwd} (layers x shards x rounds x chunks a round)")
+        bitwise = all(torch.equal(o[k], sums[0][k]) for o in sums[1:]
+                      for k in o)
+        check(bitwise, f"mesh {shape}: two ring forwards differ in their "
+                       "bits")
+        err = sums_rel(sums[-1], local)
+        check(err <= MESH_LOCAL_RTOL,
+              f"mesh {shape}: ring loss sums {sums[-1]} against LocalExec's "
+              f"{local}: {err} > {MESH_LOCAL_RTOL}")
+        timed = times[1:]
+        runs["x".join(map(str, shape))] = dict(
+            mesh=mesh.shape, to_ring_host_s=ring_s, exec_build_s=exec_s,
+            e_cap=int(ring.esrc_local.shape[2]),
+            rounds=int(ring.esrc_local.shape[1]),
+            chunks_per_push=rex.chunk_count(),
+            msg_blocks_per_push=rex.block_count(),
+            forwards=1 + reps,
+            forward_ms=dict(p50=float(np.percentile(timed, 50)),
+                            p99=float(np.percentile(timed, 99)), all=times),
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches=got[0], launches_per_forward=per_fwd,
+            formula="layers x shards x rounds x chunks a round",
+            loss_sums={k: float(v) for k, v in sums[-1].items()},
+            rel_err_vs_local=err, bitwise_repeat=bitwise)
+        if shape == (MESH_SHARDS,):
+            ring4, ex4, mesh4 = ring, rex, mesh
+        del ring, rex, sums
+        torch.cuda.empty_cache()
+    # (b) one train step at S = 4 from the parameters of gnn_train's first
+    # step
+    step = gd.make_train_step(cfg, "full_graph", mesh4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seg_zero()
+    t0 = time.perf_counter()
+    _, _, m = step(params, init_adamw(params), {"graph": ring4, "exec": ex4})
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step_l = seg_counts()
+    launches[0] += step_l[0]
+    launches[1] += step_l[1]
+    blocks = ex4.block_count()
+    check(step_l == (cfg.n_layers * ex4.chunk_count(),
+                     cfg.n_layers * 2 * blocks),
+          f"mesh step: {step_l} launches, the formula (layers x chunks, "
+          f"layers x 2 x blocks) = ({cfg.n_layers * ex4.chunk_count()}, "
+          f"{cfg.n_layers * 2 * blocks})")
+    step_loss, step_gn = float(m["loss"]), float(m["grad_norm"])
+    loss_err = abs(step_loss - local_step[0]) / abs(local_step[0])
+    gn_err = abs(step_gn - local_step[1]) / abs(local_step[1])
+    check(loss_err <= MESH_STEP_RTOL and gn_err <= MESH_STEP_RTOL,
+          f"mesh step: loss {step_loss} and grad norm {step_gn} against "
+          f"LocalExec's {local_step} "
+          f"({loss_err}, {gn_err} > {MESH_STEP_RTOL})")
+    step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del ring4, ex4, step, m, gp
+    torch.cuda.empty_cache()
+    line("mesh", cell="egnn-ogbn-products-ring", model=cfg.arch_id,
+         nodes=g.n_nodes, padded_nodes=g.n_nodes + (-g.n_nodes) % MESH_SHARDS,
+         edges=int(g.edge_src.shape[0]), local_loss_sums=local,
+         forward_ms_local_p50=forward_ms, runs=runs,
+         step=dict(shards=MESH_SHARDS, step_ms=step_ms,
+                   peak_mem_gib=step_peak, launches=dict(
+                       summing=step_l[0], in_place=step_l[1]),
+                   in_place_formula="layers x 2 x message blocks",
+                   loss=step_loss, grad_norm=step_gn,
+                   local_loss=local_step[0], local_grad_norm=local_step[1],
+                   loss_rel_err=loss_err, grad_norm_rel_err=gn_err,
+                   tolerance_rel=MESH_STEP_RTOL))
+
+    # (c) a 16,384-node copy, card against the CPU
+    f = g.feats.shape[1]
+    small = gd.make_flat_graph(MESH_CPU_N, MESH_CPU_N * 25, f, seed=1)
+    cpu_small = FlatGraph(*(t.cpu() for t in small))
+    cpu_p = _params_to(params, "cpu")
+    cpu_checks = {}
+    for shape in ((MESH_SHARDS,), (2, 2)):
+        c_sums, c_grads = ring_grads(cfg, params, to_ring(small, shape[0]),
+                                     grid(shape))
+        h_sums, h_grads = ring_grads(cfg, cpu_p, to_ring(cpu_small, shape[0]),
+                                     grid(shape, "cpu"))
+        s_err, g_err = sums_rel(c_sums, h_sums), rel_err(c_grads, h_grads)
+        check(s_err <= MESH_CPU_RTOL and g_err <= MESH_CPU_RTOL,
+              f"mesh {shape} card vs CPU at {MESH_CPU_N} nodes: loss sums "
+              f"{s_err}, gradients {g_err} > {MESH_CPU_RTOL}")
+        cpu_checks["x".join(map(str, shape))] = dict(
+            loss_sums_rel_err=s_err, grad_rel_err=g_err)
+    del small, cpu_small, cpu_p
+
+    # (d) DimeNet's line-graph ring at full-graph-sm (bonds spread), a
+    # triplet cap above the largest in-degree (the ring and the local path
+    # keep the same triplets: ROADMAP.md Queue 3)
+    dcfg = get_config("dimenet")
+    sm = {s.name: s.dims for s in get_shapes("dimenet")}["full_graph_sm"]
+    dg = gd.spread_bonds(gd.make_flat_graph(sm["n_nodes"], sm["n_edges"],
+                                            sm["d_feat"], seed=3))
+    dparams = gd.init_model(dcfg, 0, sm["d_feat"])
+    cap = int(torch.bincount(dg.edge_dst[dg.edge_mask].long()).max()) + 1
+    trip = dimenet.build_triplets(dg.edge_src.cpu(), dg.edge_dst.cpu(),
+                                  dg.edge_mask.cpu(), cap)
+    with torch.no_grad():
+        dlocal = gd.full_graph_loss(dcfg, dparams, dg, triplets=trip)
+        dimenet_runs = {}
+        for shape in ((2,), (2, 2)):
+            ring, *tri = dimenet.build_triplet_ring(dg, shape[0], cap)
+            t0 = time.perf_counter()
+            got = gd.full_graph_loss(dcfg, dparams, ring, grid(shape),
+                                     tuple(tri))
+            torch.cuda.synchronize()
+            err = sums_rel(got, dlocal)
+            check(err <= MESH_LOCAL_RTOL,
+                  f"mesh dimenet {shape}: ring loss sums against local "
+                  f"{err} > {MESH_LOCAL_RTOL}")
+            dimenet_runs["x".join(map(str, shape))] = dict(
+                rel_err_vs_local=err, ms=(time.perf_counter() - t0) * 1e3,
+                t_cap=int(tri[0].shape[2]))
+    del dg, dparams, trip, ring, tri
+
+    # (e) xDeepFM on a (2, 2) grid: forward bitwise, retrieval to 1e-6
+    xcfg = get_config("xdeepfm")
+    xshapes = {s.name: s.dims for s in get_shapes("xdeepfm")}
+    xp = xdeepfm.init(xcfg, 0)
+    m22 = grid((2, 2))
+    ids = recsys_batch(xcfg, MESH_XDEEPFM_ROWS)["ids"]
+    with torch.no_grad():
+        fwd = {"none": xdeepfm.forward(xcfg, xp, ids),
+               "mesh": xdeepfm.forward(xcfg, xp, ids, m22)}
+        same = torch.equal(fwd["none"], fwd["mesh"])
+        check(same, "mesh xdeepfm: forward over the (2, 2) grid differs from "
+                    f"the unsharded forward (max |d| "
+                    f"{float((fwd['none'] - fwd['mesh']).abs().max())})")
+        fwd_ms = {k: cuda_ms(lambda m=m: xdeepfm.forward(xcfg, xp, ids, m),
+                             3) for k, m in (("none", None), ("mesh", m22))}
+        n_cand = xshapes["retrieval_cand"]["n_candidates"]
+        gen = torch.Generator(device="cuda").manual_seed(47)
+        cands = torch.randint(0, xcfg.vocab_per_field,
+                              (n_cand, xcfg.n_sparse), device="cuda",
+                              generator=gen, dtype=torch.int32)
+        user = cands[n_cand // 3].clone()
+        r0 = xdeepfm.retrieval_score(xcfg, xp, user, cands)
+        r1 = xdeepfm.retrieval_score(xcfg, xp, user, cands, m22)
+        r_err = float((r1 - r0).abs().max() / r0.abs().max())
+        check(r_err <= MESH_RETRIEVAL_RTOL,
+              f"mesh xdeepfm: retrieval over the grid differs by {r_err} > "
+              f"{MESH_RETRIEVAL_RTOL}")
+        r_ms = {k: cuda_ms(lambda m=m: xdeepfm.retrieval_score(
+            xcfg, xp, user, cands, m), 3) for k, m in (("none", None),
+                                                       ("mesh", m22))}
+    del xp, ids, fwd, cands, r0, r1
+    torch.cuda.empty_cache()
+    line("mesh.checks", card_vs_cpu=dict(nodes=MESH_CPU_N,
+                                         edges=MESH_CPU_N * 25,
+                                         tolerance_rel=MESH_CPU_RTOL,
+                                         **cpu_checks),
+         dimenet=dict(cell="dimenet-full-graph-sm", nodes=sm["n_nodes"],
+                      edges=sm["n_edges"], cap_per_edge=cap,
+                      tolerance_rel=MESH_LOCAL_RTOL, **dimenet_runs),
+         xdeepfm=dict(mesh=m22.shape, rows=MESH_XDEEPFM_ROWS,
+                      forward_bitwise=same, forward_ms=fwd_ms,
+                      candidates=n_cand, retrieval_rel_err=r_err,
+                      retrieval_ms=r_ms, tolerance_rel=MESH_RETRIEVAL_RTOL),
+         phase_s=time.perf_counter() - phase_t0)
+    return tuple(launches)
 
 
 def model_launches(cfg, ex, triplets: bool) -> dict:
@@ -4820,11 +5286,12 @@ def phase_lm_train() -> tuple:
     """LM training (phi4-mini, the reference's ``make_train_step``
     semantics): (a) full width and depth, train_4k's sequence, micro-batch
     1 x grad_accum 4, one warm-up and 3 timed steps, one profiled; the
-    token transpose at its shape; (b) 2-layer full-width copies of
-    phi4-mini and DeepSeek-V2-Lite, one fp32 step each, card against CPU;
-    (c) their bf16 twins, two runs of one step bitwise; (d) the Trainer's
-    restart with checkpoints on the 2-layer phi4-mini; (e) the launcher as
-    a child process. Returns (the in-place kernel's launches of (a)'s and
+    token transpose at its shape; (b) 1-layer full-width copies of
+    phi4-mini and DeepSeek-V2-Lite (its MLA + MoE layer) with the
+    vocabulary cut to LM_CHECK_VOCAB, one fp32 step each, card against
+    CPU; (c) their bf16 twins, two runs of one step bitwise; (d) the
+    Trainer's restart with checkpoints on the phi4-mini copy; (e) the
+    launcher as a child process. Returns (the in-place kernel's launches of (a)'s and
     (d)'s runs, the token transpose's measurement)."""
     from repro_torch.common.tree import leaves, tree_finite
     from repro_torch.configs import get_config
@@ -4897,20 +5364,27 @@ def phase_lm_train() -> tuple:
     del params, state, batches, metrics, step
     torch.cuda.empty_cache()
 
-    # (b) card vs CPU, fp32, 2 layers at full width
-    two = cfg.replace(n_layers=2)
-    dsv2 = get_config(DSV2).replace(n_layers=2)
-    cpu = [lm_cpu_check("phi4-mini-2l", two.replace(dtype="float32"), 1, 2, 1),
-           lm_cpu_check("deepseek-v2-lite-2l", dsv2.replace(dtype="float32"),
+    marks = {"main_cell": time.perf_counter() - phase_t0}
+    t_mark = time.perf_counter()
+    # (b) card vs CPU, fp32, 1 layer at full width
+    one = cfg.replace(n_layers=1, vocab_size=LM_CHECK_VOCAB)
+    dsv2 = get_config(DSV2).replace(n_layers=1, first_dense_layers=0,
+                                    vocab_size=LM_CHECK_VOCAB)
+    cpu = [lm_cpu_check("phi4-mini-1l", one.replace(dtype="float32"), 1, 2, 1),
+           lm_cpu_check("deepseek-v2-lite-1l", dsv2.replace(dtype="float32"),
                         2, 1, 2)]
     torch.cuda.empty_cache()
+    marks["card_vs_cpu"] = time.perf_counter() - t_mark
+    t_mark = time.perf_counter()
     # (c) their bf16 twins, two runs of one step
-    bitwise = {"phi4-mini-2l": lm_bitwise_check(two, 1, 2, 1),
-               "deepseek-v2-lite-2l": lm_bitwise_check(dsv2, 2, 1, 2)}
+    bitwise = {"phi4-mini-1l": lm_bitwise_check(one, 1, 2, 1),
+               "deepseek-v2-lite-1l": lm_bitwise_check(dsv2, 2, 1, 2)}
     check(all(bitwise.values()),
           f"lm_train: two runs of one bf16 step differ in their bits "
           f"({bitwise})")
     torch.cuda.empty_cache()
+    marks["bitwise_twins"] = time.perf_counter() - t_mark
+    t_mark = time.perf_counter()
     # (d) the Trainer's restart with checkpoints
     root = tempfile.mkdtemp(prefix="lm_train_")
     try:
@@ -4918,9 +5392,9 @@ def phase_lm_train() -> tuple:
         check(free >= LM_CKPT_MIN_FREE,
               f"lm_train: {free / 1e9:.1f} GB free under {root}, the "
               f"Trainer check needs {LM_CKPT_MIN_FREE / 1e9:.0f}")
-        restart = lm_trainer_restart(two.replace(vocab_size=LM_CKPT_VOCAB),
-                                     root)
+        restart = lm_trainer_restart(one, root)
         torch.cuda.empty_cache()
+        marks["trainer_restart"] = time.perf_counter() - t_mark
         # (e) the launcher, as a user runs it, in a child process
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         t0 = time.perf_counter()
@@ -4930,6 +5404,7 @@ def phase_lm_train() -> tuple:
              os.path.join(root, "launch")], env=env, capture_output=True,
             text=True, timeout=600)
         launch_s = time.perf_counter() - t0
+        marks["launcher_child"] = launch_s
     finally:
         shutil.rmtree(root, ignore_errors=True)
     final = re.findall(r"final loss: (\S+)", child.stdout)
@@ -4942,9 +5417,9 @@ def phase_lm_train() -> tuple:
                      "phi4-mini-3.8b --steps 2", exit=child.returncode,
              final_loss=float(final[-1]), wall_s=launch_s),
          left_out="a full-depth checkpoint (46 GB of host copy and disk "
-                  "writes); the Trainer runs on the 2-layer copy with the "
-                  f"vocabulary cut to {LM_CKPT_VOCAB:,}",
-         phase_s=time.perf_counter() - phase_t0)
+                  "writes); the Trainer runs on the 1-layer copy with the "
+                  f"vocabulary cut to {LM_CHECK_VOCAB:,}",
+         part_s=marks, phase_s=time.perf_counter() - phase_t0)
     return main_launches + restart["launches"], token_kern
 
 
@@ -5384,10 +5859,15 @@ def main():
         kern["shared"] = measure_shared(delta_cap, delta_live)
     kern["segment"], gnn_launches, trained = phase_gnn(small_seg_err)
     (train_launches, train_acc, kern["accumulate"],
-     mb_batch) = phase_gnn_train(*trained)
+     mb_batch, local_step) = phase_gnn_train(*trained)
+    check(train_acc > 0, "the in-place kernel was not launched by training")
+    torch.cuda.empty_cache()
+    mesh_launches = phase_mesh(*trained, local_step)
+    check(min(mesh_launches) > 0,
+          f"a segment kernel was not launched by the mesh phase: "
+          f"{mesh_launches}")
     g_ogb, ex_ogb = trained[1], trained[2]
     del trained
-    check(train_acc > 0, "the in-place kernel was not launched by training")
     torch.cuda.empty_cache()
     models = phase_gnn_models(g_ogb, ex_ogb, mb_batch)
     check(min(models["launches"]) > 0,
@@ -5423,6 +5903,8 @@ def main():
          gnn={"segment_sum": gnn_launches},
          gnn_train={"segment_sum": train_launches,
                     "segment_sum_accumulate": train_acc},
+         mesh={"segment_sum": mesh_launches[0],
+               "segment_sum_accumulate": mesh_launches[1]},
          gnn_models={"segment_sum": models["launches"][0],
                      "segment_sum_accumulate": models["launches"][1]},
          lm_train={"segment_sum_accumulate": lm_acc},
@@ -5443,21 +5925,23 @@ def main():
                     "decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/"
                       "decode_attention.py:78",
-             launches=rag["decode"] + mixtral_decode, **kern["decode"]),
+             launches=rag["decode"] + rag["mesh_decode"] + mixtral_decode,
+             **kern["decode"]),
         dict(name="segment_sum", route="cuda",
              source="src/repro_torch/kernels/segment_reduce/csrc/"
                     "segment_reduce.cu",
              replaces="src/repro/kernels/segment_reduce/"
                       "segment_reduce.py:50",
-             launches=(gnn_launches + train_launches + models["launches"][0]
-                       + index_seg + rec_sum),
+             launches=(gnn_launches + train_launches + mesh_launches[0]
+                       + models["launches"][0] + index_seg + rec_sum),
              **kern["segment"]),
         dict(name="segment_sum_csr_accumulate", route="cuda",
              source="src/repro_torch/kernels/segment_reduce/csrc/"
                     "segment_reduce.cu",
              replaces="src/repro/kernels/segment_reduce/"
                       "segment_reduce.py:50",
-             launches=train_acc + models["launches"][1] + lm_acc + rec_acc,
+             launches=(train_acc + mesh_launches[1] + models["launches"][1]
+                       + lm_acc + rec_acc),
              **kern["accumulate"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -32,6 +32,10 @@ GNN params with numpy leaves and returns the port's, in the same layout
 xDeepFM params (one flat dict: ``tables``, ``linear_w``, ``bias``,
 ``cin_w{k}``, ``cin_out``, ``mlp_{w,b}{k}``, ``mlp_out``).
 
+``ring_graph_from_jax(ring, device)`` takes a reference ``RingGraph``
+(or a mapping of its fields) with numpy leaves and returns the port's
+``models.gnn.common.RingGraph`` holding the same arrays.
+
 ``adamw_state_from_jax(state, device)`` takes a reference ``AdamWState``
 (``step``, ``mu``, ``nu``; numpy leaves) and returns the port's
 ``train.optimizer.AdamWState``: the int32 step and the fp32 moments in the
@@ -50,6 +54,7 @@ from repro_torch.configs import get_config
 from repro_torch.common.params import resolve_device
 from repro_torch.configs.base import HMGIConfig
 from repro_torch.core.index import HMGIIndex
+from repro_torch.models.gnn.common import RingGraph
 from repro_torch.train.optimizer import AdamWState
 
 
@@ -117,6 +122,15 @@ def recsys_params_from_jax(tree: Dict[str, object],
     tree (the same keys). device: None = the CUDA device."""
     device = resolve_device(device, "recsys_params_from_jax")
     return {k: _leaf(v, device) for k, v in tree.items()}
+
+
+def ring_graph_from_jax(ring, device=None):
+    """ring: a reference ``RingGraph`` (or a mapping of its field names)
+    with numpy leaves. device: None = the CUDA device."""
+    device = resolve_device(device, "ring_graph_from_jax")
+    get = ring.get if isinstance(ring, dict) else (
+        lambda k: getattr(ring, k))
+    return RingGraph(*(_leaf(get(k), device) for k in RingGraph._fields))
 
 
 def adamw_state_from_jax(state, device=None):

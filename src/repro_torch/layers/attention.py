@@ -16,6 +16,7 @@ import torch
 from repro_torch.common.params import Init
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.layers.rope import apply_rope
+from repro_torch.sharding.rules import with_sharding
 
 
 def init_gqa(cfg, init: Init) -> Dict[str, torch.Tensor]:
@@ -119,7 +120,7 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def gqa_forward(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str, cache=None,
-                cache_pos=None, q_block: int = 0):
+                cache_pos=None, q_block: int = 0, mesh=None):
     """One attention sublayer.
 
     mode "full":   x (B, S, D), positions (S,); returns (out, (k, v)) with
@@ -134,6 +135,8 @@ def gqa_forward(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
                    tick at phi4-mini's serving shape), then attends to its
                    own valid history. Returns (out, cache) — the same
                    tensors, updated.
+    ``mesh``: the reference's sharding constraints, resolved
+    (``with_sharding``); they change no value.
     """
     dtype = x.dtype
     q = _project(x, p["wq"])
@@ -147,6 +150,7 @@ def gqa_forward(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if mode == "full":
+        q = with_sharding(q, ("batch", "seq_attn", "act_heads", None), mesh)
         out = attend_full(q, k, v, positions, positions,
                           window=cfg.sliding_window, q_block=q_block)
         new_cache = (k, v)
@@ -158,6 +162,10 @@ def gqa_forward(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
         k_cache[rows, slot] = k[:, 0]
         v_cache[rows, slot] = v[:, 0]
         slot_pos[rows, slot] = cache_pos.to(slot_pos.dtype)
+        k_cache = with_sharding(k_cache, ("batch", "cache_seq", None, None),
+                                mesh)
+        v_cache = with_sharding(v_cache, ("batch", "cache_seq", None, None),
+                                mesh)
         pos_now = cache_pos[:, None]                        # (B, 1)
         valid = (slot_pos >= 0) & (slot_pos <= pos_now)
         if cfg.sliding_window:

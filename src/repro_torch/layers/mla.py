@@ -19,6 +19,7 @@ import torch
 from repro_torch.common.params import Init
 from repro_torch.layers.attention import _project, attend_full
 from repro_torch.layers.rope import apply_rope
+from repro_torch.sharding.rules import with_sharding
 
 
 def init_mla(cfg, init: Init) -> Dict[str, torch.Tensor]:
@@ -35,7 +36,7 @@ def init_mla(cfg, init: Init) -> Dict[str, torch.Tensor]:
 
 def mla_forward(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
                 positions: torch.Tensor, *, mode: str, cache=None,
-                cache_pos=None, q_block: int = 0):
+                cache_pos=None, q_block: int = 0, mesh=None):
     """One attention sublayer.
 
     mode "full":   x (B, S, D), positions (S,); returns (out, (latent,
@@ -54,6 +55,8 @@ def mla_forward(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
                    reference, a row with no valid slot gives NaN (the engine
                    never makes one). Returns (out, cache) — the same
                    tensors, updated.
+    ``mesh``: the reference's sharding constraints, resolved
+    (``with_sharding``); they change no value.
     """
     dtype = x.dtype
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
@@ -86,6 +89,10 @@ def mla_forward(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
         lat_cache[rows, slot] = latent[:, 0]
         rope_cache[rows, slot] = k_rope[:, 0]
         slot_pos[rows, slot] = cache_pos.to(slot_pos.dtype)
+        lat_cache = with_sharding(lat_cache, ("batch", "cache_seq", None),
+                                  mesh)
+        rope_cache = with_sharding(rope_cache, ("batch", "cache_seq", None),
+                                   mesh)
         # absorbed scores: (q_nope · W_uk) · latentᵀ + q_rope · k_ropeᵀ,
         # the heads as the matmuls' batch axis
         w_uk = p["w_uk"].to(dtype).permute(1, 2, 0)             # (H, dn, r)

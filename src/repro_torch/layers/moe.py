@@ -1,5 +1,5 @@
 """Mixture-of-experts FFN: top-k routing with capacity-bounded dispatch, the
-port of ``repro.layers.moe`` (its unsharded path, ``mesh=None``).
+port of ``repro.layers.moe``.
 
 Per call of t tokens, k choices and E experts:
 
@@ -21,6 +21,18 @@ Per call of t tokens, k choices and E experts:
 
 A token's output depends on the other tokens of its call when an expert
 overflows: the reference's semantics, kept.
+
+Over a mesh (``moe_ffn(mesh=)``, the reference's ``shard_map`` body run
+on one controller through ``sharding/collectives.py``): the expert
+weights are laid out (E, D, F) with D split over "data" (ZeRO-3) and F
+over "model" (tensor parallel); each (data, model) shard all-gathers its
+weights over "data", routes and dispatches its own data shard's tokens
+at that shard's capacity ``ceil(T_loc·k·cf / E)`` (so a sharded call
+drops other tokens than an unsharded one), runs its F slice, and the
+outputs are ``psum``med over "model". The load-balance statistics are
+``pmean``ed over the data axes. A batch that does not divide by the data
+shards (batch 1 in decode) is replicated instead, each shard routing
+every token.
 """
 from __future__ import annotations
 
@@ -32,6 +44,8 @@ import torch.nn.functional as F
 
 from repro_torch.common.params import Init
 from repro_torch.common.topk import top_k
+from repro_torch.sharding import collectives as col
+from repro_torch.sharding.rules import data_axes, require_mesh
 
 
 def init_moe(cfg, init: Init) -> Dict[str, torch.Tensor]:
@@ -75,15 +89,10 @@ def route(cfg, p: Dict[str, torch.Tensor], xf: torch.Tensor,
     return Routing(probs, gate, idx, keep, slot, cap)
 
 
-def moe_ffn(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, mesh=None, *,
-            capacity_factor: float = 1.25, routings: Optional[list] = None):
-    """x (B, S, D) -> (out (B, S, D), aux ()). ``routings``: a list to
-    which the call appends its ``Routing`` (device tensors: reading one is the
-    caller's sync)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_ffn over a mesh is not ported to repro_torch (ROADMAP.md "
-            "Queue 1 item 15: a multi-process torch.distributed design)")
+def _dispatch_combine(cfg, p, x, w1, w3, w2, capacity_factor: float):
+    """One shard's MoE body over its tokens x (B, S, D) and its expert
+    weights (E, D, F'), (E, F', D): (out (B, S, D), frac (E,), mean probs
+    (E,), routing)."""
     dtype = x.dtype
     bsz, s, d = x.shape
     t = bsz * s
@@ -97,21 +106,61 @@ def moe_ffn(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, mesh=None, *,
     buf.index_copy_(0, r.slot, xrep)
     xe = buf[: e * cap].view(e, cap, d)
 
-    h = torch.bmm(xe, p["w1"].to(dtype))
-    u = torch.bmm(xe, p["w3"].to(dtype))
-    ye = torch.bmm(F.silu(h) * u, p["w2"].to(dtype))                 # (e, cap, d)
+    h = torch.bmm(xe, w1.to(dtype))
+    u = torch.bmm(xe, w3.to(dtype))
+    ye = torch.bmm(F.silu(h) * u, w2.to(dtype))                     # (e, cap, d)
 
     yflat = torch.cat([ye.reshape(e * cap, d),
                        torch.zeros((1, d), dtype=dtype, device=x.device)])
     w = (r.gate.reshape(t * k, 1) * r.keep[:, None]).to(dtype)
     out = (yflat[r.slot] * w).reshape(t, k, d).sum(dim=1)
-
-    # load-balance aux loss (Switch): E · Σ_e f_e · P_e
     frac = F.one_hot(r.idx[:, 0], e).to(torch.float32).mean(dim=0)
-    aux = e * torch.sum(frac * r.probs.mean(dim=0))
+    return out.reshape(bsz, s, d), frac, r.probs.mean(dim=0), r
+
+
+def moe_ffn(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, mesh=None, *,
+            capacity_factor: float = 1.25, routings: Optional[list] = None):
+    """x (B, S, D) -> (out (B, S, D), aux ()). ``routings``: a list to
+    which the call appends its ``Routing`` (device tensors: reading one is the
+    caller's sync); over a mesh, one for each data shard in shard order
+    (the first shard's alone when the batch is replicated)."""
+    if mesh is None:
+        out, frac, pm, r = _dispatch_combine(cfg, p, x, p["w1"], p["w3"],
+                                             p["w2"], capacity_factor)
+        if routings is not None:
+            routings.append(r)
+        # load-balance aux loss (Switch): E · Σ_e f_e · P_e
+        return out, cfg.n_experts * torch.sum(frac * pm)
+    require_mesh(mesh, "moe_ffn")
+    # batch=1 decode cells can't shard tokens over data: replicate instead
+    axes = data_axes(mesh, x.shape[0])
+    xs = col.split(x, mesh, axes) if axes else col.replicate(x, mesh)
+
+    def weights(name, spec, d_dim):
+        ws = col.blocks(p[name], mesh, spec)
+        if "data" in mesh.shape:             # ZeRO-3 weight gather
+            ws = col.all_gather(ws, mesh, "data", dim=d_dim)
+        return ws
+
+    w1 = weights("w1", (None, "data", "model"), 1)
+    w3 = weights("w3", (None, "data", "model"), 1)
+    w2 = weights("w2", (None, "model", "data"), 2)
+    res = col.map_shards(
+        lambda _, xx, a, b, c: _dispatch_combine(cfg, p, xx, a, b, c,
+                                                 capacity_factor),
+        mesh, xs, w1, w3, w2)
+    out = [o for o, _, _, _ in res]
+    if "model" in mesh.shape:
+        out = col.psum(out, mesh, "model")       # tensor-parallel reduce
+    frac = [f for _, f, _, _ in res]
+    pm = [m for _, _, m, _ in res]
+    if axes:
+        frac = col.pmean(frac, mesh, axes)
+        pm = col.pmean(pm, mesh, axes)
     if routings is not None:
-        routings.append(r)
-    return out.reshape(bsz, s, d), aux
+        routings.extend(col.firsts([r for _, _, _, r in res], mesh, axes))
+    aux = cfg.n_experts * torch.sum(frac[0] * pm[0])
+    return col.unsplit(out, mesh, axes), aux
 
 
 def near_tie_gap(r: Routing) -> torch.Tensor:

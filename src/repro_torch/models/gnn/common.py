@@ -63,19 +63,25 @@ same sort. A model's own row lookups (DimeNet's) go through
 the rows it touches with the in-place kernel too, so a step repeats bit
 for bit.
 
-The ring engine (``RingGraph``, ``RingExec``, ``to_ring``) and ``run_flat``
-over a mesh wait for sharding (ROADMAP Queue 1 item 15).
+Over a mesh the graph is a ``RingGraph`` (``to_ring``; ``pad_to_shards``
+first where N does not divide by the shards), and ``RingExec`` runs the
+reference's ring on one controller: R rotations of each shard's block of
+the payload (``sharding/collectives.py``), each (shard, round) a
+``SortedEdges`` with the machinery above, the "model" split of a round's
+edges and its ``psum``. S = 1 runs the ring too.
 """
 from __future__ import annotations
 
 import copy
-from typing import Callable, List, NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.segment_reduce import ops
+from repro_torch.sharding import collectives as col
+from repro_torch.sharding.rules import Mesh, data_axes, require_mesh
 from repro_torch.sparse import segment as seg
 from repro_torch.sparse.segment import csr_by_row
 
@@ -137,8 +143,14 @@ class _GradBuffer:
         if self.buf is None:
             self.buf = torch.zeros(self.shape, dtype=self.dtype,
                                    device=self.device)
-        ops.segment_sum_csr_accumulate(grad.contiguous(), rowptr, perm,
-                                       out=self.buf, rows=rows, seg_lo=seg_lo)
+        dev = self.device              # a ring's block may sit elsewhere
+
+        def on(t):
+            return None if t is None else t.to(dev)
+
+        ops.segment_sum_csr_accumulate(on(grad).contiguous(), on(rowptr),
+                                       on(perm), out=self.buf, rows=on(rows),
+                                       seg_lo=seg_lo)
 
     def take(self) -> torch.Tensor:
         buf, self.buf = self.buf, None
@@ -182,21 +194,23 @@ class _GatherRows(torch.autograd.Function):
         return None, None, None
 
 
-class LocalExec:
-    """Single-device engine over a FlatGraph, with destination-sorted edges
-    (see the module docstring). ``chunks`` lists ``(seg_lo, seg_hi, e0, e1,
-    rowptr)`` with ``rowptr`` rebased to the chunk's first edge; ``block``
-    is the row count of every ``msg_fn`` call: the valid edges rounded up
-    to a power of two, at most ``MSG_BLOCK_EDGES`` (or ``sized``'s)."""
+class SortedEdges:
+    """One edge set sorted by destination once (see the module docstring):
+    ``src`` rows of a source table into ``n`` destination rows. ``chunks``
+    lists ``(seg_lo, seg_hi, e0, e1, rowptr)`` with ``rowptr`` rebased to
+    the chunk's first edge; ``block`` is the row count of every ``msg_fn``
+    call: the valid edges rounded up to a power of two, at most
+    ``MSG_BLOCK_EDGES`` (or ``sized``'s). ``LocalExec`` is one over a
+    graph's own nodes; ``RingExec`` keeps one for each (shard, round)."""
 
-    def __init__(self, g: FlatGraph, chunk_edges: int = DEFAULT_CHUNK_EDGES):
+    def __init__(self, src: torch.Tensor, dst: torch.Tensor,
+                 mask: torch.Tensor, n: int,
+                 chunk_edges: int = DEFAULT_CHUNK_EDGES):
         if chunk_edges < 1:
             raise ValueError(f"chunk_edges must be >= 1, got {chunk_edges}")
-        self.g = g
-        self.n = g.n_nodes
+        self.n = n
         self.chunk_edges = chunk_edges
-        src, dst = g.edge_src, g.edge_dst
-        ok = g.edge_mask & (dst >= 0) & (dst < self.n)
+        ok = mask & (dst >= 0) & (dst < self.n)
         dst_ok = dst[ok].to(torch.int64)
         sorted_dst, order = torch.sort(dst_ok, stable=True)
         self.src = src[ok][order].to(torch.int32)
@@ -222,7 +236,7 @@ class LocalExec:
             self._chunk_lists[chunk_edges] = out
         return self._chunk_lists[chunk_edges]
 
-    def sized(self, edge_bytes: int, row_bytes: int) -> "LocalExec":
+    def sized(self, edge_bytes: int, row_bytes: int) -> "SortedEdges":
         """This engine for a model whose msg_fn holds ``edge_bytes`` of
         temporaries per edge and whose messages are ``row_bytes`` wide: its
         block the largest power of two that keeps a block's temporaries
@@ -241,14 +255,6 @@ class LocalExec:
     def n_edges(self) -> int:
         """Valid edges (those that carry a message)."""
         return int(self.src.numel())
-
-    def edge_geometry(self):
-        """(rel (E, 3), dist (E,)) in the graph's edge order; masked edges
-        have distance 0."""
-        pos = self.g.positions
-        rel = pos[self.g.edge_src] - pos[self.g.edge_dst]
-        dist = torch.linalg.vector_norm(rel, dim=-1)
-        return rel, torch.where(self.g.edge_mask, dist, 0.0)
 
     def _block_edges(self, k: int) -> Tuple[int, int]:
         """[a, b): the valid sorted edges of block k."""
@@ -285,31 +291,36 @@ class LocalExec:
         buffer.add(grad, rowptr, perm, rows)
 
     def _block_rows(self, fn, node_payload: torch.Tensor, k: int,
-                    buffer=None):
+                    buffer=None, src_table=None, src_buffer=None):
         """``fn(src rows, dst rows)`` of sorted-edge block k, padded to
-        ``block`` rows with copies of node 0. Under grad the block is
-        checkpointed; with a ``buffer`` (``node_payload`` is then its
-        sink's token) its gathers are ``_GatherRows``."""
+        ``block`` rows with copies of row 0. The destination rows come from
+        ``node_payload``, the source rows from ``src_table`` (None: the
+        same). Under grad the block is checkpointed; with a ``buffer``
+        (``node_payload`` is then its sink's token, ``src_table`` the
+        token of ``src_buffer``'s sink) its gathers are ``_GatherRows``."""
         a = k * self.block
         src = self.src[a:a + self.block]
         dst = self.dst[a:a + self.block]
         if src.numel() < self.block:
             pad = src.new_zeros(self.block - src.numel())
             src, dst = torch.cat([src, pad]), torch.cat([dst, pad])
+        if src_table is None:
+            src_table, src_buffer = node_payload, buffer
         if not torch.is_grad_enabled():
-            return fn(node_payload.index_select(0, src),
+            return fn(src_table.index_select(0, src),
                       node_payload.index_select(0, dst))
 
-        def run(payload):
+        def run(payload, src_payload):
             if buffer is None:
-                return fn(payload.index_select(0, src),
+                return fn(src_payload.index_select(0, src),
                           payload.index_select(0, dst))
             return fn(_GatherRows.apply(
-                          payload, src, lambda g: self._add_src(buffer, k, g)),
+                          src_payload, src,
+                          lambda g: self._add_src(src_buffer, k, g)),
                       _GatherRows.apply(
                           payload, dst, lambda g: self._add_dst(buffer, k, g)))
 
-        return checkpoint(run, node_payload, use_reentrant=False)
+        return checkpoint(run, node_payload, src_table, use_reentrant=False)
 
     @staticmethod
     def _sink(node_payload: torch.Tensor):
@@ -320,12 +331,15 @@ class LocalExec:
         buffer = _GradBuffer(node_payload)
         return _GradSink.apply(node_payload, buffer), buffer
 
-    def messages(self, fn, node_payload: torch.Tensor, buffer=None):
+    def messages(self, fn, node_payload: torch.Tensor, buffer=None,
+                 src_table=None, src_buffer=None):
         """Yields ``(chunk, rows)`` for every chunk in order: ``rows`` is
         ``fn(src rows, dst rows)`` of the chunk's edges (Ec, ...), taken
         from the fixed blocks of sorted edges (the module docstring says
         why). fn must compute each row from its own edge alone. With a
-        ``buffer``, ``node_payload`` is its sink's token (``_sink``)."""
+        ``buffer``, ``node_payload`` is its sink's token (``_sink``).
+        ``src_table`` / ``src_buffer``: where the source rows come from,
+        when not from ``node_payload`` (``_block_rows``)."""
         t = self.block
         last_k, last = -1, None
         for chunk in self.chunks:
@@ -337,8 +351,8 @@ class LocalExec:
                 min(e0 // t, max(0, self.n_edges - 1) // t)]
             for k in ks:
                 if k != last_k:
-                    last_k, last = k, self._block_rows(fn, node_payload, k,
-                                                       buffer)
+                    last_k, last = k, self._block_rows(
+                        fn, node_payload, k, buffer, src_table, src_buffer)
                 a = k * t
                 parts.append(last[max(e0, a) - a:min(e1, a + t) - a])
             yield chunk, parts[0] if len(parts) == 1 else torch.cat(parts)
@@ -375,6 +389,25 @@ class LocalExec:
             return torch.cat(parts)
         return node_payload.new_empty((self.n, d_out)) if agg is None else agg
 
+
+
+class LocalExec(SortedEdges):
+    """Single-device engine over a FlatGraph: its edges sorted by
+    destination over its own nodes (``SortedEdges``)."""
+
+    def __init__(self, g: FlatGraph, chunk_edges: int = DEFAULT_CHUNK_EDGES):
+        self.g = g
+        super().__init__(g.edge_src, g.edge_dst, g.edge_mask, g.n_nodes,
+                         chunk_edges)
+
+    def edge_geometry(self):
+        """(rel (E, 3), dist (E,)) in the graph's edge order; masked edges
+        have distance 0."""
+        pos = self.g.positions
+        rel = pos[self.g.edge_src] - pos[self.g.edge_dst]
+        dist = torch.linalg.vector_norm(rel, dim=-1)
+        return rel, torch.where(self.g.edge_mask, dist, 0.0)
+
     def gather_src(self, node_payload: torch.Tensor) -> torch.Tensor:
         """Per-edge source rows (E, Dp) in the graph's edge order, 0 on
         masked edges."""
@@ -405,13 +438,334 @@ class LocalExec:
         return self._aggregate(weighted(), node_payload, d_out)
 
 
-def run_flat(apply_local, g: FlatGraph, params, mesh=None):
-    """Single-device dispatch: ``apply_local(params, feats, positions,
-    node_mask, labels, LocalExec(g))``. A mesh (the reference's shard_map
-    ring) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_flat over a mesh (RingGraph / RingExec) is not ported to "
-            "repro_torch yet (ROADMAP.md Queue 1 item 15)")
-    ex = LocalExec(g)
-    return apply_local(params, g.feats, g.positions, g.node_mask, g.labels, ex)
+class RingGraph(NamedTuple):
+    """Distributed flat layout (global tensors; leading dims shard over the
+    data axes). Node arrays: (N, ...) block-sharded (owner = id // n_loc).
+    Edge arrays: (S, R, E_cap): shard s's edges grouped by source-owner
+    round r (source owner (s - r) mod S), with local indices."""
+    feats: torch.Tensor        # (N, F)
+    positions: torch.Tensor    # (N, 3)
+    esrc_local: torch.Tensor   # (S, R, E_cap) int32 — row in the rotating buffer
+    edst_local: torch.Tensor   # (S, R, E_cap) int32 — local destination row
+    edge_mask: torch.Tensor    # (S, R, E_cap) bool
+    node_mask: torch.Tensor    # (N,) bool
+    labels: torch.Tensor       # (N,) int32
+
+
+def pad_to_shards(g: FlatGraph, n_shards: int) -> FlatGraph:
+    """``g`` with masked nodes appended (zero features and positions,
+    label 0, no edges) up to a multiple of ``n_shards``: ``to_ring`` needs
+    N to divide by the shards."""
+    pad = (-g.n_nodes) % n_shards
+    if not pad:
+        return g
+
+    def grow(t):
+        return torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+
+    return g._replace(feats=grow(g.feats), positions=grow(g.positions),
+                      node_mask=grow(g.node_mask), labels=grow(g.labels))
+
+
+def to_ring(g: FlatGraph, n_shards: int, e_cap: Optional[int] = None
+            ) -> RingGraph:
+    """Regroups a FlatGraph into the ring layout, on ``g``'s device: the
+    reference's arrays bit for bit (each (shard, round) takes its valid
+    edges in edge order, the first ``e_cap`` of them; ``e_cap`` None = the
+    largest group), from one stable sort of the edges by (shard, round)
+    instead of its host loop over them."""
+    n = g.n_nodes
+    assert n % n_shards == 0, (n, n_shards)
+    n_loc, groups = n // n_shards, n_shards * n_shards
+    src = g.edge_src[g.edge_mask].to(torch.int64)
+    dst = g.edge_dst[g.edge_mask].to(torch.int64)
+    d_own = dst // n_loc
+    key = d_own * n_shards + (d_own - src // n_loc) % n_shards
+    counts = torch.bincount(key, minlength=groups)
+    if e_cap is None:
+        e_cap = max(1, int(counts.max()))
+    key, order = torch.sort(key, stable=True)
+    pos = (torch.arange(key.numel(), device=key.device)
+           - (torch.cumsum(counts, 0) - counts)[key])
+    keep = pos < e_cap
+    slot, idx = key[keep] * e_cap + pos[keep], order[keep]
+    arrays = []
+    for vals in (src % n_loc, dst % n_loc, None):
+        a = torch.zeros(groups * e_cap, device=key.device,
+                        dtype=torch.bool if vals is None else torch.int32)
+        a[slot] = True if vals is None else vals[idx].to(torch.int32)
+        arrays.append(a.reshape(n_shards, n_shards, e_cap))
+    return RingGraph(g.feats, g.positions, *arrays, g.node_mask, g.labels)
+
+
+class RingExec:
+    """The ring engine over a mesh, on one controller (the reference's
+    ``RingExec`` inside ``shard_map``, every shard at once).
+
+    Node payloads are global (N, Dp) tensors, the data shards' rows in
+    shard order; ``push`` splits one into its shards' blocks (replicated
+    over "model"), and over R rounds each shard aggregates the edges of
+    its round r from the block that has rotated to it (the source owner's,
+    ``collectives.rotate``) into its own destinations, through a
+    ``SortedEdges`` of that (shard, round): ``LocalExec``'s sort, blocks,
+    chunks and kernels, so a round's peak memory is ``LocalExec``'s and
+    its bits do not depend on the chunk budget. With a "model" axis
+    (``split_model``) each round's edge slots are split into "model"
+    pieces, one a shard, and the shards' sums are ``psum``med over
+    "model"; the rounds add in round order. The result is the shards'
+    blocks joined again. Under grad each shard reads its block through a
+    ``_GradSink``, and every gather's transpose adds in place into the
+    buffer of the shard whose block it read.
+
+    esrc, edst, emask: (S, R, cap) global arrays (``RingGraph``'s, or
+    DimeNet's triplet ring), on the mesh's first device; ``n_loc`` the
+    rows a shard owns."""
+
+    def __init__(self, esrc: torch.Tensor, edst: torch.Tensor,
+                 emask: torch.Tensor, n_loc: int, mesh: Mesh, *,
+                 split_model: bool = True,
+                 chunk_edges: int = DEFAULT_CHUNK_EDGES):
+        self.mesh = mesh
+        self.axes = data_axes(mesh)
+        if not self.axes:
+            raise ValueError(f"RingExec: the mesh {mesh.shape} has no "
+                             "'pod' or 'data' axis to shard nodes over")
+        n_shards = col.size(mesh, self.axes)
+        s, r, _ = esrc.shape
+        if s != n_shards:
+            raise ValueError(f"RingGraph built for {s} shards but mesh has "
+                             f"{n_shards} data shards")
+        first = col.shards(mesh)[0].device
+        if esrc.device != first:
+            raise ValueError(f"RingExec: the ring's arrays are on "
+                             f"{esrc.device}, the mesh's first shard on "
+                             f"{first}")
+        split = split_model and mesh.shape.get("model", 1) > 1
+        self.model_axis = "model" if split else None
+        self.n, self.rounds = n_loc, r
+        self.esrc, self.edst, self.emask = esrc, edst, emask
+        self.chunk_edges = chunk_edges
+        self._engines = None
+        # the shard each shard's rotating block came from, by round
+        self._from = [col.ring_sources(mesh, self.axes, rr)
+                      for rr in range(r)]
+
+    @property
+    def engines(self) -> List[List[SortedEdges]]:
+        """Each shard's ``SortedEdges`` by round, built at first use: shard
+        (d, m) takes slot piece m of its rounds (the whole round without
+        a "model" split)."""
+        if self._engines is None:
+            s, r, cap = self.esrc.shape
+            msize = self.mesh.shape["model"] if self.model_axis else 1
+            piece = -(-cap // msize)
+
+            def build(shard):
+                d = col.axis_index(self.mesh, self.axes, shard)
+                m = shard.coords["model"] if self.model_axis else 0
+                sl = slice(m * piece, (m + 1) * piece)
+                return [SortedEdges(*(a[d, rr, sl].to(shard.device) for a in
+                                      (self.esrc, self.edst, self.emask)),
+                                    self.n, self.chunk_edges)
+                        for rr in range(r)]
+
+            self._engines = col.map_shards(build, self.mesh)
+        return self._engines
+
+    def sized(self, edge_bytes: int, row_bytes: int) -> "RingExec":
+        """This engine with every (shard, round) ``SortedEdges.sized``."""
+        ex = copy.copy(self)
+        ex._engines = col.map_shards(
+            lambda _, es: [e.sized(edge_bytes, row_bytes) for e in es],
+            self.mesh, self.engines)
+        return ex
+
+    def chunk_count(self) -> int:
+        """Segment-sum launches of one ``push``: the chunks of every
+        (shard, round)."""
+        return sum(col.map_shards(lambda _, es: sum(len(e.chunks) for e in es),
+                                  self.mesh, self.engines))
+
+    def block_count(self) -> int:
+        """Message blocks of one ``push``: every (shard, round)'s. Under
+        grad the in-place kernel launches twice a block (its gathers'
+        transposes)."""
+        return sum(col.map_shards(
+            lambda _, es: sum(-(-e.n_edges // e.block) for e in es),
+            self.mesh, self.engines))
+
+    def _blocks(self, node_payload: torch.Tensor):
+        """(tokens, buffers): each shard's block of the payload and its
+        gradient buffer (``SortedEdges._sink``)."""
+        own = col.split(node_payload, self.mesh, self.axes)
+        sinks = col.map_shards(lambda _, x: SortedEdges._sink(x), self.mesh,
+                               own)
+        return [t for t, _ in sinks], [b for _, b in sinks]
+
+    def _rounds(self, tokens, buffers, fn, with_engines: bool = True):
+        """Runs ``fn(shard, r, engine, dst token, dst buffer, src token,
+        src buffer)`` for every round and shard, the blocks rotating one
+        step around the data ring between rounds; returns each shard's
+        results by round."""
+        buf, out = list(tokens), [[] for _ in tokens]
+        engines = self.engines if with_engines else [[None] * self.rounds
+                                                      for _ in tokens]
+        for r in range(self.rounds):
+            if r:
+                buf = col.rotate(buf, self.mesh, self.axes)
+            src = self._from[r]
+            col.map_shards(
+                lambda sh, es, t, b, sb, o: o.append(fn(
+                    sh, r, es[r], t, b, sb, buffers[src[sh.index]])),
+                self.mesh, engines, tokens, buffers, buf, out)
+        return out
+
+    def _reduce(self, per_round) -> torch.Tensor:
+        """Adds each shard's round sums in round order, ``psum``s over
+        "model" and joins the shards' blocks."""
+        def add(_, parts):
+            acc = None
+            for part in parts:
+                if acc is None:
+                    acc = part
+                elif acc.requires_grad or part.requires_grad:
+                    acc = acc + part
+                else:
+                    acc.add_(part)
+            return acc
+
+        acc = col.map_shards(add, self.mesh, per_round)
+        if self.model_axis:
+            acc = col.psum(acc, self.mesh, self.model_axis)
+        return col.unsplit(acc, self.mesh, self.axes)
+
+    def push(self, node_payload: torch.Tensor, msg_fn, d_out: int
+             ) -> torch.Tensor:
+        """agg[dst] = Σ_edges msg_fn(payload[src], payload[dst]) over the
+        ring: (N, Dp) -> (N, d_out)."""
+        tokens, buffers = self._blocks(node_payload)
+
+        def one(sh, r, eng, t, b, sb, sbuf):
+            return eng._aggregate(eng.messages(msg_fn, t, b, sb, sbuf), t,
+                                  d_out)
+
+        return self._reduce(self._rounds(tokens, buffers, one))
+
+    def push_attn(self, node_payload: torch.Tensor, logit_fn, msg_fn,
+                  d_out: int) -> torch.Tensor:
+        """Softmax-normalised (per destination) attention aggregation over
+        the ring, as the reference's: pass 1 takes every round's logits,
+        the softmax runs over each destination's edges of all rounds (its
+        shift the max over the shard and "model", without gradient; its
+        denominator ``psum``med over "model"), pass 2 weights the rounds'
+        messages, which are summed as in ``push``."""
+        tokens, buffers = self._blocks(node_payload)
+
+        def rows(eng, fn, t, b, sb, sbuf):
+            parts = [x for _, x in eng.messages(fn, t, b, sb, sbuf)]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+        logits = self._rounds(tokens, buffers,
+                              lambda sh, r, eng, *a: rows(eng, logit_fn, *a))
+        dst = col.map_shards(lambda _, es: torch.cat(
+            [e.dst.to(torch.int64) for e in es]), self.mesh, self.engines)
+        flat = col.map_shards(lambda _, ls: torch.cat(ls), self.mesh, logits)
+        n = self.n
+
+        def shift(_, lg, d):
+            m = seg.segment_max(lg.detach(), d, n)
+            return torch.where(torch.isfinite(m), m, -3e38)
+
+        m = col.map_shards(shift, self.mesh, flat, dst)
+        if self.model_axis:
+            m = col.map_shards(lambda _, g: g.amax(0), self.mesh,
+                               col.all_gather(m, self.mesh, self.model_axis,
+                                              tiled=False))
+
+        def expo(_, lg, d, mm):
+            sh = lg - mm.index_select(0, d)
+            return torch.where(torch.isfinite(sh), torch.exp(sh), 0.0)
+
+        e = col.map_shards(expo, self.mesh, flat, dst, m)
+        z = col.map_shards(lambda _, x, d: seg.segment_sum(x, d, n),
+                           self.mesh, e, dst)
+        if self.model_axis:
+            z = col.psum(z, self.mesh, self.model_axis)
+        w = col.map_shards(
+            lambda _, x, zz, d: x / torch.clamp(seg.gather_rows(zz, d),
+                                                min=1e-20),
+            self.mesh, e, z, dst)
+        w = col.map_shards(
+            lambda _, x, es: torch.split(x, [e_.n_edges for e_ in es]),
+            self.mesh, w, self.engines)
+
+        def weighted(sh, r, eng, t, b, sb, sbuf):
+            wr = w[sh.index][r]
+
+            def chunks():
+                for chunk, msgs in eng.messages(msg_fn, t, b, sb, sbuf):
+                    e0, e1 = chunk[2], chunk[3]
+                    yield chunk, (msgs * wr[e0:e1, :, None]).reshape(
+                        e1 - e0, d_out)
+
+            return eng._aggregate(chunks(), t, d_out)
+
+        return self._reduce(self._rounds(tokens, buffers, weighted))
+
+    def gather_src(self, node_payload: torch.Tensor) -> torch.Tensor:
+        """Per-edge source rows (S·R·cap, Dp) in slot order (shard, round,
+        slot), 0 on masked slots: each round takes from the block that has
+        rotated to the shard. Under grad the gathers' transposes add in
+        place (``sparse.segment.gather_rows``)."""
+        own = col.split(node_payload, self.mesh, self.axes)
+
+        def take(sh, r, eng, t, b, sb, sbuf):
+            d = col.axis_index(self.mesh, self.axes, sh)
+            idx = self.esrc[d, r].to(sb.device, torch.int64)
+            ok = self.emask[d, r].to(sb.device)[:, None]
+            return torch.where(ok, seg.gather_rows(sb, idx), 0.0)
+
+        rows = self._rounds(own, [None] * len(own), take, False)
+        return col.unsplit(
+            col.map_shards(lambda _, rs: torch.cat(rs), self.mesh, rows),
+            self.mesh, self.axes)
+
+    def dst_index(self):
+        """Global destination index (S·R·cap,) (shard s's local row plus
+        s·n_loc) and mask, in ``gather_src``'s slot order."""
+        off = torch.arange(self.esrc.shape[0], device=self.edst.device,
+                           dtype=torch.int64) * self.n
+        return ((self.edst.to(torch.int64) + off[:, None, None]).reshape(-1),
+                self.emask.reshape(-1))
+
+    @classmethod
+    def of(cls, g: RingGraph, mesh: Mesh,
+           chunk_edges: int = DEFAULT_CHUNK_EDGES) -> "RingExec":
+        """The engine over a ``RingGraph``'s edges, its nodes split evenly
+        over the mesh's data shards."""
+        n_shards = g.esrc_local.shape[0]
+        if g.feats.shape[0] % n_shards:
+            raise ValueError(f"{g.feats.shape[0]} nodes do not divide into "
+                             f"{n_shards} shards")
+        return cls(g.esrc_local, g.edst_local, g.edge_mask,
+                   g.feats.shape[0] // n_shards, mesh,
+                   chunk_edges=chunk_edges)
+
+
+def run_flat(apply_local, g, params, mesh=None, *, ex=None):
+    """Dispatch: ``apply_local(params, feats, positions, node_mask, labels,
+    ex)`` on a ``LocalExec`` over the FlatGraph ``g`` (no mesh), or on a
+    ``RingExec`` over the RingGraph ``g`` and ``mesh``. ``ex``: an engine
+    built on ``g`` once and reused. apply_local returns loss-like sums;
+    over a mesh they are the sums over every shard's nodes, what the
+    reference's closing ``psum`` over the data axes gives."""
+    if mesh is None:
+        ex = LocalExec(g) if ex is None else ex
+    else:
+        require_mesh(mesh, "run_flat")
+        if not isinstance(g, RingGraph):
+            raise TypeError("run_flat over a mesh takes a RingGraph "
+                            "(models.gnn.common.to_ring)")
+        ex = RingExec.of(g, mesh) if ex is None else ex
+    return apply_local(params, g.feats, g.positions, g.node_mask, g.labels,
+                       ex)

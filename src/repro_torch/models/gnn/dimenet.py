@@ -19,9 +19,16 @@ second kernel, so a step repeats bit for bit.
 
 Parameters are the reference's dict: ``enc``, ``rbf_lin``,
 ``edge_embed.{w0, b0, w1, b1}``, ``blocks[i].{w_msg, w_sbf, w_bilinear,
-update, out_node}``, ``head``. The ring path (``build_triplet_ring``,
-``ring_loss``, ``node_logits_ring``) waits for the multi-process mesh
-(ROADMAP Queue 1 Step 11).
+update, out_node}``, ``head``.
+
+The ring path (``build_triplet_ring``, ``ring_loss``,
+``node_logits_ring``): edges become entities of a line graph laid out per
+shard as the node ring's (R·E_cap) slots; a node ring (``RingExec``
+without a "model" split) fetches each edge's source rows, and a
+line-graph ring over the triplets (kj -> ji, grouped by the round of
+kj's owner, split over "model") aggregates the triplet messages into the
+edges. ``build_triplet_ring`` gives the reference's arrays bit for bit
+from one ``build_triplets_np`` over the ring's edge instances.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from repro_torch.equivariant.bessel import (angular_basis, radial_bessel_basis,
                                             spherical_bessel_basis)
 from repro_torch.kernels.segment_reduce import ops
 from repro_torch.kernels.segment_reduce.ref import csr_from_ids
+from repro_torch.models.gnn.common import RingExec, to_ring
 from repro_torch.sparse.segment import gather_rows
 
 
@@ -203,6 +211,120 @@ def node_logits(cfg, params, feats, positions, node_mask, ex,
             t_agg = ops.segment_sum_csr(contrib, *tri_csr)      # (E, d)
             m = m + _apply_mlp(bp["update"], t_agg, 2)
         # edge -> node
+        node_in = ops.segment_sum_csr((m * emask[:, None]).contiguous(),
+                                      *node_csr)
+        h = h + _apply_mlp(bp["out_node"], node_in, 2)
+        h = h * node_mask[:, None]
+    return h @ params["head"]
+
+
+# ---------------------------------------------------------------------------
+# distributed (ring) path: the node ring for edge endpoints and the
+# line-graph ring for triplets. Edges live with their destination node's
+# owner, so the edge -> node sum is local.
+# ---------------------------------------------------------------------------
+
+def build_triplet_ring(g, n_shards: int, cap_per_edge: int = 8,
+                       t_cap: Optional[int] = None):
+    """Host prep for the line-graph ring: ``(ring, t_src, t_dst, t_mask)``,
+    the triplet arrays (S, S, T_cap) of *local* edge slots (r·E_cap + k),
+    grouped by the round of the source edge's owner, each group in the
+    reference's order (edge instances shard by shard in slot order, and
+    each edge's first ``cap_per_edge`` in-edges of its source node in that
+    order, skipping k = i). On ``g``'s device."""
+    ring = to_ring(g, n_shards)
+    s_, r_, e_cap = ring.esrc_local.shape
+    n_loc = g.n_nodes // n_shards
+    esrc = ring.esrc_local.cpu().numpy().reshape(s_, -1).astype(np.int64)
+    edst = ring.edst_local.cpu().numpy().reshape(s_, -1).astype(np.int64)
+    shard, slot = np.nonzero(ring.edge_mask.cpu().numpy().reshape(s_, -1))
+    gsrc = (shard - slot // e_cap) % n_shards * n_loc + esrc[shard, slot]
+    gdst = shard * n_loc + edst[shard, slot]
+    ts, td, tm = build_triplets_np(gsrc, gdst, np.ones(gsrc.size, bool),
+                                   cap_per_edge)
+    kj, ji = ts[tm].astype(np.int64), td[tm].astype(np.int64)
+    key = shard[ji] * n_shards + (shard[ji] - shard[kj]) % n_shards
+    counts = np.bincount(key, minlength=n_shards * n_shards)
+    cap = t_cap or max(1, int(counts.max()))
+    order = np.argsort(key, kind="stable")
+    pos = np.arange(order.size) - np.repeat(np.cumsum(counts) - counts,
+                                            counts)
+    keep = pos < cap
+    idx, k, p = order[keep], key[order][keep], pos[keep]
+    out = []
+    for vals, dt in ((slot[kj], np.int32), (slot[ji], np.int32),
+                     (np.ones(kj.size, bool), bool)):
+        a = np.zeros((n_shards * n_shards, cap), dt)
+        a[k, p] = vals[idx]
+        out.append(torch.from_numpy(a.reshape(n_shards, n_shards, cap)).to(
+            g.feats.device))
+    return (ring, *out)
+
+
+def ring_loss(cfg, params, ring, t_src, t_dst, t_mask, mesh, ce_sums_fn):
+    """Distributed full-graph loss for DimeNet (see ``node_logits_ring``):
+    ``ce_sums_fn(logits, labels, node_mask)`` over every shard's nodes.
+    ``t_src`` None: no triplet interaction (as ``node_logits`` without
+    triplets)."""
+    s_, r_, e_cap = ring.esrc_local.shape
+    ex_nodes = RingExec(ring.esrc_local, ring.edst_local, ring.edge_mask,
+                        ring.feats.shape[0] // s_, mesh, split_model=False)
+    ex_tri = None if t_src is None else RingExec(t_src, t_dst, t_mask,
+                                                 r_ * e_cap, mesh)
+    logits = node_logits_ring(cfg, params, ring.feats, ring.positions,
+                              ring.node_mask, ex_nodes, ex_tri)
+    return ce_sums_fn(logits, ring.labels, ring.node_mask)
+
+
+def _triplet_msg(cfg, bp):
+    """One block's message of a triplet (kj -> ji) from the payload rows
+    ``[m, rel, dist]`` of its two edges."""
+    d = cfg.d_hidden
+
+    def t_msg(srcs, dsts):
+        m_kj = srcs[:, :d]
+        rel_kj = srcs[:, d:d + 3]
+        dist_kj = srcs[:, d + 3]
+        rel_ji = dsts[:, d:d + 3]
+        cos_a = torch.sum(-rel_kj * rel_ji, -1) / torch.clamp(
+            torch.linalg.vector_norm(rel_kj, dim=-1)
+            * torch.linalg.vector_norm(rel_ji, dim=-1), min=1e-9)
+        angle = torch.arccos(torch.clamp(cos_a, -1 + 1e-7, 1 - 1e-7))
+        sbf_r = spherical_bessel_basis(dist_kj, cfg.n_spherical,
+                                       cfg.n_radial, cfg.cutoff)
+        cbf = angular_basis(angle, cfg.n_spherical)
+        sbf = (sbf_r * cbf[..., None]).reshape(srcs.shape[0], -1)
+        mk = m_kj @ bp["w_msg"]
+        basis = sbf @ bp["w_sbf"]
+        return torch.einsum("td,dbf,tb->tf", mk, bp["w_bilinear"], basis)
+
+    return t_msg
+
+
+def node_logits_ring(cfg, params, feats, positions, node_mask, ex_nodes,
+                     ex_tri):
+    """(N, n_out) logits over the ring. feats, positions, node_mask:
+    global node arrays; edge tensors are the node ring's slots
+    (S·R·E_cap), which are also the line-graph ring's entities."""
+    n = feats.shape[0]
+    h = feats @ params["enc"]
+    pos_src = ex_nodes.gather_src(positions)                   # (E_loc, 3)
+    edst, emask = ex_nodes.dst_index()
+    rel = pos_src - positions.index_select(0, edst)
+    dist = torch.where(emask, torch.linalg.vector_norm(rel, dim=-1), 0.0)
+    rbf_d = (radial_bessel_basis(dist, cfg.n_radial, cfg.cutoff)
+             @ params["rbf_lin"])
+    h_src = ex_nodes.gather_src(h)
+    m = _apply_mlp(params["edge_embed"],
+                   torch.cat([h_src, gather_rows(h, edst), rbf_d], -1), 2)
+    m = m * emask[:, None]
+    node_csr = csr_from_ids(torch.where(emask, edst, -1), n)
+    for bp in params["blocks"]:
+        if ex_tri is not None:
+            payload = torch.cat([m, rel, dist[:, None]], -1)
+            t_agg = ex_tri.push(payload, _triplet_msg(cfg, bp),
+                                cfg.d_hidden)
+            m = m + _apply_mlp(bp["update"], t_agg, 2) * emask[:, None]
         node_in = ops.segment_sum_csr((m * emask[:, None]).contiguous(),
                                       *node_csr)
         h = h + _apply_mlp(bp["out_node"], node_in, 2)

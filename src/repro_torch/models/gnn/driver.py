@@ -19,7 +19,8 @@ the differentiable segment sum and ``LocalExec``'s checkpointed blocks,
 then ``adamw_update``. It returns new trees and leaves its inputs as they
 were, as the reference's functional step does. A full-graph batch may
 carry ``"exec"``, a ``LocalExec`` built on its graph once and reused
-across steps.
+across steps. Over a mesh the full-graph loss and step run the ring
+(``common.RingExec`` on a ``RingGraph``; its ``"exec"`` a ``RingExec``).
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from repro_torch.models.gnn import equiformer_v2 as eqv2_mod
 from repro_torch.models.gnn import nequip as nequip_mod
 from repro_torch.models.gnn.common import (DEFAULT_CHUNK_EDGES, FlatGraph,
                                            LocalExec, run_flat)
+from repro_torch.sharding.rules import require_mesh
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
 N_CLASSES = 16
@@ -182,13 +184,34 @@ def _ce_sums(logits, labels, mask) -> Dict[str, torch.Tensor]:
             "count": torch.sum(ok)}
 
 
-def full_graph_loss(cfg, params, g: FlatGraph, mesh=None, triplets=None,
-                    ex: Optional[LocalExec] = None):
-    """CE sums over labelled nodes of one graph (single device)."""
-    if mesh is not None:
-        return run_flat(None, g, params, mesh)       # raises: Queue 1 item 15
-    logits = node_logits_local(cfg, params, g, triplets, ex)
-    return _ce_sums(logits, g.labels, g.node_mask)
+def full_graph_loss(cfg, params, g, mesh=None, triplets=None, ex=None):
+    """CE sums over labelled nodes of one graph. g: a FlatGraph (no mesh)
+    or a RingGraph (over ``mesh``, the ring). ``ex``: the engine, built on
+    ``g`` once and reused (``LocalExec``, or ``RingExec``).
+
+    DimeNet over a mesh runs its line-graph ring (``dimenet.ring_loss``,
+    which builds its own two engines, so ``ex`` must be None):
+    ``triplets`` are then ``build_triplet_ring``'s (t_src, t_dst, t_mask),
+    or None for no triplet interaction. (The reference hands DimeNet's
+    single-graph ``node_logits`` a ``RingExec``, which has no graph, and
+    raises: ROADMAP.md Queue 3.)"""
+    if mesh is None:
+        logits = node_logits_local(cfg, params, g, triplets, ex)
+        return _ce_sums(logits, g.labels, g.node_mask)
+    mod = _module(cfg)
+    if cfg.model == "dimenet":
+        if ex is not None:
+            raise ValueError("DimeNet's ring builds its own engines: "
+                             "pass no ex")
+        t_src, t_dst, t_mask = (None,) * 3 if triplets is None else triplets
+        return dimenet_mod.ring_loss(cfg, params, g, t_src, t_dst, t_mask,
+                                     mesh, _ce_sums)
+
+    def apply_local(params, feats, pos, nmask, labels, ex):
+        logits = mod.node_logits(cfg, params, feats, pos, nmask, ex)
+        return _ce_sums(logits, labels, nmask)
+
+    return run_flat(apply_local, g, params, mesh, ex=ex)
 
 
 def molecule_loss(cfg, params, batched_g: FlatGraph, energy, triplets=None):
@@ -222,11 +245,14 @@ def minibatch_loss(cfg, params, batched_g: FlatGraph, root_labels):
 # train steps
 # ---------------------------------------------------------------------------
 
-def train_loss(cfg, kind: str, params, batch):
-    """(loss, sums) of one batch on one device: ``loss_sum / max(count,
-    1)``."""
+def train_loss(cfg, kind: str, params, batch, mesh=None):
+    """(loss, sums) of one batch: ``loss_sum / max(count, 1)``. ``mesh``:
+    the full-graph ring (``batch["graph"]`` a RingGraph)."""
+    if mesh is not None and kind != "full_graph":
+        raise ValueError(f"a mesh runs the full_graph layout, not {kind!r} "
+                         "(the reference's ring)")
     if kind == "full_graph":
-        sums = full_graph_loss(cfg, params, batch["graph"], None,
+        sums = full_graph_loss(cfg, params, batch["graph"], mesh,
                                batch.get("triplets"), ex=batch.get("exec"))
     elif kind == "molecule":
         sums = molecule_loss(cfg, params, batch["graph"], batch["energy"],
@@ -251,16 +277,21 @@ def _unreached(cfg, params, triplets) -> set:
 def make_train_step(cfg, kind: str, mesh=None,
                     opt_cfg: AdamWConfig = AdamWConfig(lr=1e-3)):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
-    metrics are ``loss``, the loss sums, ``grad_norm`` and ``lr``."""
+    metrics are ``loss``, the loss sums, ``grad_norm`` and ``lr``. With a
+    ``mesh`` (``kind="full_graph"``, ``batch["graph"]`` a RingGraph) the
+    loss runs the ring; the parameters are replicated, and autograd gives
+    each the sum of its shards' gradients, as ``shard_map`` does for a
+    ``P()`` input."""
     if mesh is not None:
-        raise NotImplementedError(
-            "GNN training over a mesh (RingGraph / RingExec) is not ported "
-            "to repro_torch yet (ROADMAP.md Queue 1 item 15)")
+        require_mesh(mesh, "make_train_step")
+        if kind != "full_graph":
+            raise ValueError(f"a mesh trains the full_graph layout, not "
+                             f"{kind!r}")
 
     def step(params, opt_state, batch):
         with torch.enable_grad():
             live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-            loss, sums = train_loss(cfg, kind, live, batch)
+            loss, sums = train_loss(cfg, kind, live, batch, mesh)
             # the leaves the loss cannot reach get zeros, as jax.grad gives
             # them; any other leaf cut off from the loss raises
             off = _unreached(cfg, live, None if kind == "minibatch"

@@ -53,6 +53,7 @@ from repro_torch.layers.mla import init_mla, mla_forward
 from repro_torch.layers.mlp import init_swiglu, swiglu
 from repro_torch.layers.moe import init_moe, moe_ffn
 from repro_torch.layers.norms import rms_norm
+from repro_torch.sharding.rules import require_mesh, with_sharding
 from repro_torch.sparse.segment import csr_by_row
 from repro_torch.train.optimizer import AdamWConfig, adamw_update_
 
@@ -138,21 +139,23 @@ def init_lm(cfg, seed: int = 0, *, device=None) -> Dict[str, object]:
 # ---------------------------------------------------------------------------
 
 def _layer_fwd(cfg, lp, x, positions, mode, cache_l, cache_pos, moe_routings,
-               opts: Optional[ExecOpts] = None):
+               opts: Optional[ExecOpts] = None, mesh=None):
     """One block; returns (x, this layer's cache, MoE aux loss). With
     ``opts`` (training) attention takes ``opts.q_block``, no cache is
-    returned and the output passes the bf16 barrier."""
+    returned and the output passes the bf16 barrier. ``mesh``: the MoE
+    FFN's mesh body and the reference's sharding constraints."""
     attn = mla_forward if cfg.attention == "mla" else gqa_forward
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     h, new_cache = attn(cfg, lp["attn"], h, positions, mode=mode,
                         cache=cache_l, cache_pos=cache_pos,
-                        q_block=opts.q_block if opts is not None else 0)
+                        q_block=opts.q_block if opts is not None else 0,
+                        mesh=mesh)
     if opts is not None:
         new_cache = None    # training keeps no KV (collect_cache=False)
     x = x + h
     hn = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if "moe" in lp:
-        out, aux = moe_ffn(cfg, lp["moe"], hn,
+        out, aux = moe_ffn(cfg, lp["moe"], hn, mesh,
                            capacity_factor=cfg.capacity_factor,
                            routings=moe_routings)
         if "shared" in lp:
@@ -160,20 +163,23 @@ def _layer_fwd(cfg, lp, x, positions, mode, cache_l, cache_pos, moe_routings,
     else:
         out, aux = swiglu(lp["ffn"], hn), None
     x = x + out
+    x = with_sharding(x, ("batch", "seq", None), mesh)
     if opts is not None:
         x = barrier_apply(x, opts)
     return x, new_cache, aux
 
 
 def _logits(cfg, params, x: torch.Tensor,
-            embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+            embed: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """``embed``: the table the lookup read (training's sink token), for
     tied embeddings."""
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     if cfg.tie_embeddings:
         table = params["embed"] if embed is None else embed
-        return x @ table.to(x.dtype).T
-    return x @ params["head"].to(x.dtype)
+        logits = x @ table.to(x.dtype).T
+    else:
+        logits = x @ params["head"].to(x.dtype)
+    return with_sharding(logits, ("batch", "seq", "vocab_act"), mesh)
 
 
 def _embed(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
@@ -255,14 +261,7 @@ def _lookup(cfg, params, tokens: torch.Tensor):
     return x.reshape(*tokens.shape, -1).to(dtype_of(cfg.dtype)), table
 
 
-def _no_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} over a mesh is not ported to repro_torch (ROADMAP.md "
-            "Queue 1 Step 11 / item 15)")
-
-
-def _remat_layer(cfg, lp, x, positions, moe_routings, opts):
+def _remat_layer(cfg, lp, x, positions, moe_routings, opts, mesh=None):
     """One layer under ``torch.utils.checkpoint``: its activations are
     recomputed in the backward. The recompute appends no second routing."""
     first = [True]
@@ -271,7 +270,7 @@ def _remat_layer(cfg, lp, x, positions, moe_routings, opts):
         routings = moe_routings if first[0] else None
         first[0] = False
         y, _, a = _layer_fwd(cfg, lp, x, positions, "full", None, None,
-                             routings, opts)
+                             routings, opts, mesh)
         return y, a
 
     return checkpoint(run, x, use_reentrant=False)
@@ -287,21 +286,25 @@ def forward(cfg, params, tokens: torch.Tensor, mesh=None,
     ``opts`` None: the inference forward (one query block, no barrier,
     nothing rematerialised). With ``opts``: the training forward (the
     module docstring). ``moe_routings``: a list to which every MoE layer
-    appends its ``moe.Routing``, once per forward."""
-    _no_mesh(mesh, "forward")
+    appends its ``moe.Routing``, once per forward (over a mesh, one per
+    data shard). ``mesh``: each MoE FFN runs its mesh body
+    (``moe.moe_ffn``); the rest of the forward is unchanged, as under
+    GSPMD, where the reference's sharding constraints change no value."""
     x, table = _lookup(cfg, params, tokens)
+    x = with_sharding(x, ("batch", "seq", None), mesh)
     positions = torch.arange(tokens.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = opts is not None and opts.remat and torch.is_grad_enabled()
     for i, lp in enumerate(params["layers"]):
         if remat and i >= cfg.first_dense_layers:
-            x, a = _remat_layer(cfg, lp, x, positions, moe_routings, opts)
+            x, a = _remat_layer(cfg, lp, x, positions, moe_routings, opts,
+                                mesh)
         else:
             x, _, a = _layer_fwd(cfg, lp, x, positions, "full", None, None,
-                                 moe_routings, opts)
+                                 moe_routings, opts, mesh)
         if a is not None:
             aux = aux + a
-    return _logits(cfg, params, x, table), aux
+    return _logits(cfg, params, x, table, mesh), aux
 
 
 def xent_loss(cfg, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -324,7 +327,8 @@ def loss_fn(cfg, params, batch, mesh=None, opts: ExecOpts = ExecOpts()):
     return loss + opts.aux_loss_weight * aux, {"xent": loss, "aux": aux}
 
 
-def _backward_into(cfg, params, batch, opts, take) -> Tuple[torch.Tensor, dict]:
+def _backward_into(cfg, params, batch, opts, take,
+                   mesh=None) -> Tuple[torch.Tensor, dict]:
     """Runs ``loss_fn`` of one batch and its backward; ``take(i, g)`` gets
     leaf i's gradient as soon as the backward has produced it (a hook after
     its accumulation), and the leaf lets it go, so the whole gradient tree
@@ -343,7 +347,7 @@ def _backward_into(cfg, params, batch, opts, take) -> Tuple[torch.Tensor, dict]:
     it = iter(live)
     with torch.enable_grad():
         loss, parts = loss_fn(cfg, tree_map(lambda _: next(it), params),
-                              batch, None, opts)
+                              batch, mesh, opts)
         loss.backward()
     return loss.detach(), {k: v.detach() for k, v in parts.items()}
 
@@ -362,8 +366,11 @@ def make_train_step(cfg, mesh=None, opts: ExecOpts = ExecOpts(),
     mean of the micro-batches' and the metrics carry no parts, as in the
     reference. Each leaf's gradient is added into an fp32 sum as the
     backward produces it (cast from the model dtype, as the reference
-    accumulates). metrics: {"loss", ["xent", "aux",] "grad_norm", "lr"}."""
-    _no_mesh(mesh, "make_train_step")
+    accumulates). metrics: {"loss", ["xent", "aux",] "grad_norm", "lr"}.
+    ``mesh``: the forward's (``forward``); the parameters are replicated
+    and each gets the sum of its shards' gradients."""
+    if mesh is not None:
+        require_mesh(mesh, "make_train_step")
 
     def train_step(params, opt_state, batch):
         flat = leaves(params)
@@ -377,7 +384,7 @@ def make_train_step(cfg, mesh=None, opts: ExecOpts = ExecOpts(),
         lsum = torch.zeros((), dtype=torch.float32, device=flat[0].device)
         for mb in micro:
             loss, parts = _backward_into(cfg, params, mb, opts,
-                                         lambda i, g: grads[i].add_(g))
+                                         lambda i, g: grads[i].add_(g), mesh)
             lsum = lsum + loss
         if grad_accum > 1:
             for g in grads:
@@ -419,23 +426,26 @@ def init_cache(cfg, batch: int, cache_len: int, *, device=None) -> Cache:
 
 
 def prefill(cfg, params, tokens: torch.Tensor, margin: int = 0, *,
-            moe_routings: Optional[list] = None) -> Tuple[torch.Tensor, Cache]:
+            mesh=None, moe_routings: Optional[list] = None
+            ) -> Tuple[torch.Tensor, Cache]:
     """Processes prompts tokens (B, S); returns (last-token logits (B, V),
     cache).
 
     ``margin`` reserves headroom in the returned cache for the decode steps
     that follow (full attention); a sliding-window cache keeps the last
     ``window`` positions, rolled so that slot == pos % clen. ``moe_routings``:
-    a list to which every MoE layer appends its ``moe.Routing``."""
+    a list to which every MoE layer appends its ``moe.Routing``. ``mesh``:
+    as for ``forward``."""
     bsz, s = tokens.shape
-    x = _embed(cfg, params, tokens)
+    x = with_sharding(_embed(cfg, params, tokens), ("batch", "seq", None),
+                      mesh)
     positions = torch.arange(s, device=x.device)
     per_layer = []
     for lp in params["layers"]:
         x, layer_cache, _ = _layer_fwd(cfg, lp, x, positions, "full", None,
-                                       None, moe_routings)
+                                       None, moe_routings, mesh=mesh)
         per_layer.append(layer_cache)
-    logits = _logits(cfg, params, x[:, -1:, :])
+    logits = _logits(cfg, params, x[:, -1:, :], mesh=mesh)
 
     clen = cache_len_for(cfg, s + margin)
     L = len(per_layer)
@@ -465,22 +475,26 @@ def prefill(cfg, params, tokens: torch.Tensor, margin: int = 0, *,
 
 
 def decode_step(cfg, params, cache: Cache, token: torch.Tensor, pos, *,
-                moe_routings: Optional[list] = None) -> Tuple[torch.Tensor, Cache]:
+                mesh=None, moe_routings: Optional[list] = None
+                ) -> Tuple[torch.Tensor, Cache]:
     """One decode step. token (B,); pos a scalar (every row at the same
     position) or (B,) per-row positions — the continuous-batching case,
     where ragged prompts put each cache row at its own length. Each row
     writes its cache entry at its own slot, in place in ``cache``, and
-    attends only to its own history. ``moe_routings`` as for ``prefill``.
+    attends only to its own history. ``moe_routings`` and ``mesh`` as for
+    ``prefill`` (over a mesh a GQA model still runs the decode kernel).
 
     Returns (logits (B, V), cache) — the cache tensors given, updated."""
-    x = _embed(cfg, params, token[:, None])
+    x = with_sharding(_embed(cfg, params, token[:, None]),
+                      ("batch", "seq", None), mesh)
     pos_b = torch.as_tensor(pos, device=x.device).to(torch.int32).reshape(-1)
     pos_b = pos_b.expand(token.shape[0]).contiguous()          # (B,)
     positions = pos_b[:, None]                                  # (B, 1)
     for i, lp in enumerate(params["layers"]):
         x, _, _ = _layer_fwd(cfg, lp, x, positions, "decode",
-                             tuple(c[i] for c in cache), pos_b, moe_routings)
-    return _logits(cfg, params, x)[:, 0], cache
+                             tuple(c[i] for c in cache), pos_b, moe_routings,
+                             mesh=mesh)
+    return _logits(cfg, params, x, mesh=mesh)[:, 0], cache
 
 
 def param_bytes(params) -> int:

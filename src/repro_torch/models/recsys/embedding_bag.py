@@ -12,8 +12,12 @@ ragged multi-hot ids per bag: ``sum`` through the CUDA segment-sum kernel
 (``sparse.segment.segment_sum``), ``mean`` through ``segment_mean`` and
 ``max`` through ``segment_max``; an id < 0 contributes a row of zeros, an
 id >= V reads the last row, and an empty bag is 0 (-inf for ``max``), as
-in the reference. The row-sharded lookup waits for the multi-process
-mesh.
+in the reference. ``lookup_sharded`` is the reference's row-sharded
+lookup over a mesh (``sharding/collectives.py``): the tables' rows split
+over "model", each shard takes its row range (an id outside it reads
+zeros) and the partial rows are ``psum``med over "model"; the batch
+splits over the data axes when it divides. An id < 0 or >= V therefore
+reads zeros there, where ``lookup`` clips it (ROADMAP.md Queue 3).
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ from typing import Dict
 import torch
 
 from repro_torch.common.params import Init
+from repro_torch.sharding import collectives as col
+from repro_torch.sharding.rules import Mesh, data_axes, require_mesh
 from repro_torch.sparse import segment as seg
 
 
@@ -49,10 +55,39 @@ def lookup(tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return rows.reshape(ids.shape[0], f, d)
 
 
-def lookup_sharded(tables: torch.Tensor, ids: torch.Tensor, mesh):
-    raise NotImplementedError(
-        "the row-sharded table lookup is not ported to repro_torch "
-        "(ROADMAP.md Queue 1 Step 11: the multi-process mesh)")
+def table_shards(tables: torch.Tensor, mesh: Mesh):
+    """(each shard's (F, V_loc, ...) block of the rows, V_loc): the rows
+    split over "model" (all of them without a "model" axis)."""
+    if "model" not in mesh.shape:
+        return col.replicate(tables, mesh), tables.shape[1]
+    return (col.split(tables, mesh, "model", dim=1),
+            tables.shape[1] // mesh.shape["model"])
+
+
+def local_rows(shard, t: torch.Tensor, ids: torch.Tensor,
+               v_loc: int) -> torch.Tensor:
+    """One shard's partial rows: ids in its range ``[m·V_loc, (m+1)·V_loc)``
+    read its block, any other id reads zeros."""
+    lo = shard.coords.get("model", 0) * v_loc
+    rel = ids.to(torch.int64) - lo
+    ok = (rel >= 0) & (rel < v_loc)
+    return torch.where(ok[..., None], lookup(t, rel), 0.0)
+
+
+def lookup_sharded(tables: torch.Tensor, ids: torch.Tensor,
+                   mesh: Mesh) -> torch.Tensor:
+    """tables (F, V, D); ids (B, F) -> (B, F, D) over ``mesh`` (the module
+    docstring): one ``psum`` of the partial rows over "model"."""
+    require_mesh(mesh, "lookup_sharded")
+    tabs, v_loc = table_shards(tables, mesh)
+    axes = data_axes(mesh, ids.shape[0])
+    idl = (col.split(ids, mesh, axes) if axes
+           else col.replicate(ids, mesh))
+    rows = col.map_shards(
+        lambda sh, t, i: local_rows(sh, t, i, v_loc), mesh, tabs, idl)
+    if "model" in mesh.shape:
+        rows = col.psum(rows, mesh, "model")
+    return col.unsplit(rows, mesh, axes)
 
 
 def embedding_bag(tables: torch.Tensor, flat: torch.Tensor,

@@ -21,8 +21,11 @@ path. Both table reads (the embeddings and the first-order ``linear_w``)
 are ``embedding_bag.lookup``: one gather each, whose transpose under grad
 is one launch of the in-place kernel. ``retrieval_score`` scores one
 user against N candidates as one GEMV over the candidates' joint
-embeddings. The sharded paths (``mesh`` other than None) wait for the
-multi-process mesh.
+embeddings. Over a mesh, the embeddings come from
+``embedding_bag.lookup_sharded`` (the rest of the forward is unchanged,
+as under GSPMD), and ``retrieval_score`` scores then reduces: each shard
+scores its candidates (split over the data axes) from its own rows and
+the partial scores are ``psum``med over "model".
 """
 from __future__ import annotations
 
@@ -33,17 +36,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.params import Init, resolve_device
 from repro_torch.common.tree import leaves, tree_map
-from repro_torch.models.recsys.embedding_bag import init_tables, lookup
+from repro_torch.models.recsys.embedding_bag import (init_tables,
+                                                     local_rows, lookup,
+                                                     lookup_sharded,
+                                                     table_shards)
+from repro_torch.sharding import collectives as col
+from repro_torch.sharding.rules import data_axes
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
 CIN_CHUNK_ROWS = 8192
-
-
-def _no_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} over a mesh is not ported to repro_torch (ROADMAP.md "
-            "Queue 1 Step 11: the multi-process mesh)")
 
 
 def init(cfg, seed: int, device=None) -> Dict[str, torch.Tensor]:
@@ -102,8 +103,10 @@ def cin(params, x0: torch.Tensor, n_layers: int) -> torch.Tensor:
 
 def forward(cfg, params, ids: torch.Tensor, mesh=None) -> torch.Tensor:
     """ids (B, F) int -> logits (B,)."""
-    _no_mesh(mesh, "xdeepfm.forward")
-    emb = lookup(params["tables"], ids)                      # (B, F, D)
+    if mesh is not None:
+        emb = lookup_sharded(params["tables"], ids, mesh)    # (B, F, D)
+    else:
+        emb = lookup(params["tables"], ids)
     bsz = ids.shape[0]
     # first order
     first = lookup(params["linear_w"][..., None], ids)[..., 0].sum(-1)
@@ -154,8 +157,24 @@ def retrieval_score(cfg, params, user_ids: torch.Tensor,
 
     user_ids (F,) — the user's feature ids; cand_ids (N, F) — candidate
     item feature ids. Score = <pooled user embedding, pooled item
-    embedding>: (N,)."""
-    _no_mesh(mesh, "xdeepfm.retrieval_score")
-    u = lookup(params["tables"], user_ids[None, :])[0]       # (F, D)
-    c = lookup(params["tables"], cand_ids)                   # (N, F, D)
-    return c.reshape(c.shape[0], -1) @ u.reshape(-1)
+    embedding>: (N,). Over a mesh the candidates split over the data axes
+    and each shard's partial scores (from the table rows it holds) are
+    ``psum``med over "model" (the module docstring)."""
+    if mesh is None:
+        u = lookup(params["tables"], user_ids[None, :])[0]   # (F, D)
+        c = lookup(params["tables"], cand_ids)               # (N, F, D)
+        return c.reshape(c.shape[0], -1) @ u.reshape(-1)
+    u = lookup_sharded(params["tables"], user_ids[None, :], mesh)[0]
+    tabs, v_loc = table_shards(params["tables"], mesh)
+    axes = data_axes(mesh, cand_ids.shape[0])
+    cands = (col.split(cand_ids, mesh, axes) if axes
+             else col.replicate(cand_ids, mesh))
+
+    def score(sh, t, c, uu):
+        rows = local_rows(sh, t, c, v_loc)                   # (B_loc, F, D)
+        return rows.reshape(rows.shape[0], -1) @ uu.reshape(-1)
+
+    part = col.map_shards(score, mesh, tabs, cands, col.replicate(u, mesh))
+    if "model" in mesh.shape:
+        part = col.psum(part, mesh, "model")
+    return col.unsplit(part, mesh, axes)

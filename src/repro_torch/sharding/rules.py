@@ -23,14 +23,17 @@ mesh:
     ("pod","data")=32).
 
 The index's row-sharded stable scan reads ``db_axes`` / ``db_shards``
-(``core/ivf.py:shard_index``). The reference's ``shard_tree`` and
-``with_sharding`` place LM and GNN leaves over a mesh; they wait with the
-rest of ROADMAP Queue 1 item 15 (the GNN ring and the LM mesh, a
-multi-process ``torch.distributed`` design).
+(``core/ivf.py:shard_index``); the mesh bodies split their batches and
+nodes over ``data_axes``. ``shard_tree`` resolves a tree of logical
+axes against a mesh into one ``NamedSharding`` a leaf, and
+``with_sharding`` is the activation constraint: it resolves the spec (a
+bad one raises) and returns its input, since under GSPMD a sharding
+constraint never changes a value. The mesh bodies' collectives are
+``sharding/collectives.py``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -207,3 +210,67 @@ def db_shards(mesh: Optional[Mesh]) -> int:
     if mesh is None:
         return 1
     return _axes_size(mesh, db_axes(mesh))
+
+
+def data_axes(mesh: Mesh, rows: Optional[int] = None) -> Tuple[str, ...]:
+    """The data axes of a mesh body, ("pod", "data") trimmed to what the
+    mesh has: a batch's rows, or a graph's nodes, split over them. With
+    ``rows``: none when ``rows`` does not divide by their shards (a batch
+    of 1 in decode stays replicated)."""
+    axes = _present(mesh, ("pod", "data"))
+    if rows is not None and rows % _axes_size(mesh, axes):
+        return ()
+    return axes
+
+
+def require_mesh(mesh, what: str) -> Mesh:
+    """``mesh`` if it is a ``Mesh``; anything else raises TypeError."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"{what}: mesh must be a repro_torch Mesh, got "
+                        f"{type(mesh).__name__}")
+    return mesh
+
+
+class NamedSharding(NamedTuple):
+    """A leaf's placement over a mesh: the mesh and its resolved spec (one
+    entry per dimension, as ``logical_to_spec`` gives it)."""
+    mesh: Mesh
+    spec: Tuple[MeshAxes, ...]
+
+
+def _is_axes_leaf(x) -> bool:
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str)
+                                        for a in x)
+
+
+def shard_tree(axes_tree, shapes_tree, mesh: Mesh, rules=None):
+    """A tree of logical-axes tuples (and a tree of the same structure
+    whose leaves have ``.shape``: tensors, or anything shaped) -> the same
+    tree of ``NamedSharding``s."""
+    def walk(axes, shaped: Any):
+        if _is_axes_leaf(axes):
+            dims = getattr(shaped, "shape", None)
+            return NamedSharding(mesh, logical_to_spec(axes, mesh, rules,
+                                                       dims))
+        if isinstance(axes, dict):
+            return {k: walk(v, shaped[k]) for k, v in axes.items()}
+        if isinstance(axes, (list, tuple)):
+            return type(axes)(walk(a, s) for a, s in zip(axes, shaped))
+        raise TypeError(f"shard_tree: a leaf {axes!r} is not a tuple of "
+                        "logical axis names")
+    return walk(axes_tree, shapes_tree)
+
+
+def with_sharding(x, logical_axes, mesh: Optional[Mesh] = None, rules=None):
+    """Activation sharding constraint by logical names: the identity (no
+    mesh, or any mesh: a constraint moves no value). With a mesh the spec
+    is resolved first, so a spec longer than ``x``'s rank raises, as
+    ``jax.lax.with_sharding_constraint`` does."""
+    if mesh is None:
+        return x
+    require_mesh(mesh, "with_sharding")
+    if len(logical_axes) > x.dim():
+        raise ValueError(f"with_sharding: {len(logical_axes)} logical axes "
+                         f"{tuple(logical_axes)} for a rank-{x.dim()} value")
+    logical_to_spec(logical_axes, mesh, rules, dims=tuple(x.shape))
+    return x

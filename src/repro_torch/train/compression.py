@@ -5,9 +5,9 @@ error feedback, and int8 quantized all-reduce emulation.
 Error feedback (Karimireddy et al. '19): the residual of the compression is
 carried into the next step, so compressed SGD/Adam converges at the dense
 rate. ``compress -> (all-reduce compressed) -> decompress`` applies to the
-inter-pod gradient sync only; the port has no multi-process mesh yet
-(ROADMAP.md Queue 1 Step 11), so these are the per-tensor transforms and
-their error feedback, with the reference's arithmetic: top-k takes
+inter-pod gradient sync only. The reference has no mesh body here either:
+these are the per-tensor transforms and their error feedback, with the
+reference's arithmetic: top-k takes
 ``common/topk.top_k``, which orders ties as ``jax.lax.top_k`` does (lower
 position first), and int8 rounds half to even, as ``jnp.round`` does.
 """

@@ -41,6 +41,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.equivariant.bessel\n"
         "import repro_torch.models.gnn.dimenet, repro_torch.models.gnn.nequip\n"
         "import repro_torch.models.gnn.equiformer_v2\n"
+        "import repro_torch.sharding.collectives, repro_torch.launch.mesh\n"
+        "import repro_torch.models.recsys.xdeepfm, repro_torch.layers.moe\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib')) or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n")
@@ -74,8 +76,8 @@ def _small_index(maint_auto=False):
 
 
 def test_unported_parts_raise():
-    """The index takes a mesh (its row-sharded scan is ported); only the
-    GNN ring over a mesh is still refused (item 15). The NSW lane, the
+    """The index takes a mesh (its row-sharded scan is ported); the GNN
+    ring refuses a FlatGraph (it takes a RingGraph). The NSW lane, the
     rerank lane and traces run; every config of the reference is
     registered, the recsys one too, and an unknown id raises KeyError."""
     from repro_torch.configs import get_config as pget
@@ -93,7 +95,7 @@ def test_unported_parts_raise():
     for call in (lambda: run_flat(None, None, None, mesh=mesh),
                  lambda: full_graph_loss(pget("egnn"), None, None,
                                          mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="item 15"):
+        with pytest.raises(TypeError, match="RingGraph"):
             call()
     assert len(idx.search(v[:2], "text", trace=True)) == 3
     assert idx.hybrid_search(v[:2], "text", use_rerank=True)[1].shape == (2, 10)

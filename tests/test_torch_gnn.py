@@ -26,6 +26,7 @@ from repro_torch.convert import gnn_params_from_jax
 from repro_torch.kernels.segment_reduce import ops
 from repro_torch.models.gnn import driver as td
 from repro_torch.models.gnn.common import FlatGraph, LocalExec, chunk_bounds
+from repro_torch.sharding import Mesh
 
 _CFGS = {"smoke": (j_smoke_config, smoke_config),
          "full": (j_get_config, get_config)}
@@ -233,15 +234,19 @@ def test_rotation_invariance(graph):
 
 
 def test_unported_parts_raise(graph):
-    """Only the mesh (the ring engine) is still refused; every GNN model
-    of the reference runs, and an unknown one is named."""
+    """Named for what it checked before the ring was ported: a mesh that
+    is not a ``Mesh``, and a FlatGraph over a mesh, are refused (the ring
+    takes a RingGraph); every GNN model of the reference runs, and an
+    unknown one is named."""
     cfg = get_config("egnn")
     tg = _to_port(graph)
     params = td.init_model(cfg, 0, 8, device="cpu")
     with pytest.raises(ValueError, match="unknown GNN model"):
         td.init_model(cfg.replace(model="gat"), 0, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Mesh"):
         td.full_graph_loss(cfg, params, tg, mesh=object())
+    with pytest.raises(TypeError, match="RingGraph"):
+        td.full_graph_loss(cfg, params, tg, mesh=Mesh(["cpu"] * 2, ("data",)))
     for model in ("dimenet", "nequip", "equiformer_v2"):
         assert td.init_model(smoke_config("egnn").replace(model=model), 0, 8,
                              device="cpu")["head"].shape == (16, 16)

@@ -29,7 +29,9 @@ two card steps bitwise; and xDeepFM at its smoke config: one train step
 on the card against the CPU (two in-place launches a step), two card
 steps bitwise, and ``embedding_bag``'s sum and mean on the card (the
 summing kernel) against the CPU; and the serving launcher on the card
-(durable, recovered, with RAG generation through the decode kernel).
+(durable, recovered, with RAG generation through the decode kernel); and
+the GNN ring over four shards of one card (and a (2, 2) grid) against
+the CPU, and the RAG example on its default device.
 
 Every test carries the ``gpu`` marker and skips itself when
 ``torch.cuda.is_available()`` is false (decided inside the test, so every
@@ -1644,4 +1646,71 @@ def test_serve_launcher_on_the_card(tmp_path):
     before = dops.decode_attention.launches
     rag = serve.main(args + ["--rag"])
     assert rag["rag_generated"] == {i: 8 for i in range(4)}
+    assert dops.decode_attention.launches > before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4,), (2, 2)])
+def test_gnn_ring_on_the_card_matches_the_cpu(shape, monkeypatch):
+    """EGNN through the ring (``full_graph_loss(mesh=)`` and the step's
+    gradients) on ``Mesh(["cuda:0"] * 4)`` and a (2, 2) grid of that card,
+    against the same ring on the CPU (1e-5 relative); the summing kernel
+    launches once a chunk, round, shard and layer, and twice the same
+    bits."""
+    _need_card()
+    from repro_torch.common.tree import leaves, tree_map
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.models.gnn import common as gc
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.sharding import Mesh
+    monkeypatch.setattr(gc, "MSG_BLOCK_EDGES", 1 << 12)
+    cfg, g, params = _egnn_train_case(n=2000, e=30_000)
+    names = ("data",) if len(shape) == 1 else ("data", "model")
+    n = int(np.prod(shape))
+
+    def run(dev, graph, p):
+        m = Mesh(np.array([dev] * n).reshape(shape), names)
+        ring = gc.to_ring(graph, shape[0])
+        ex = gc.RingExec.of(ring, m, 5_000)
+        before = sops.segment_sum_csr.launches
+        with torch.no_grad():
+            sums = gd.full_graph_loss(cfg, p, ring, m, ex=ex)
+        launches = sops.segment_sum_csr.launches - before
+        live = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        loss, _ = gd.train_loss(cfg, "full_graph", live,
+                                {"graph": ring, "exec": ex}, m)
+        return sums, torch.autograd.grad(loss, leaves(live)), launches, ex
+
+    sums, grads, launches, ex = run("cuda:0", g, params)
+    assert launches == cfg.n_layers * ex.chunk_count() > 0
+    again = run("cuda:0", g, params)
+    assert all(torch.equal(sums[k], again[0][k]) for k in sums)
+    cpu = lambda t: t.cpu()                                 # noqa: E731
+    cg, cp = type(g)(*(t.cpu() for t in g)), tree_map(cpu, params)
+    want, wgrads, _, _ = run("cpu", cg, cp)
+    for k in want:
+        assert abs(float(sums[k]) - float(want[k])) <= 1e-5 * max(
+            1.0, abs(float(want[k])))
+    for a, b in zip(grads, wgrads):
+        assert (a.cpu() - b).abs().max().item() <= 1e-5 * max(
+            1.0, b.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_multimodal_rag_example_on_the_card(capsys):
+    """``examples/torch_multimodal_rag.py`` on its default device (the
+    card) runs to its end, with the decode kernel at the launcher's head
+    dim."""
+    _need_card()
+    import importlib.util
+    import os
+    from repro_torch.kernels.decode_attention import ops as dops
+    path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "torch_multimodal_rag.py")
+    spec = importlib.util.spec_from_file_location("torch_rag_example", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    before = dops.decode_attention.launches
+    mod.main(None)
+    assert "served 12/12 requests" in capsys.readouterr().out
     assert dops.decode_attention.launches > before

@@ -275,9 +275,13 @@ def test_token_transpose_equals_index_put_gradient(tied):
 
 
 def test_mesh_is_refused():
+    """A mesh that is not a ``Mesh`` is refused (the mesh paths run since
+    the mesh bodies were ported: ``tests/test_torch_mesh_models.py``)."""
     _, _, cfg, pp = _pair("phi4-mini-3.8b")
-    for call in (lambda: lm.make_train_step(cfg, mesh=object()),
-                 lambda: lm.forward(cfg, pp, torch.zeros((1, 4), dtype=torch.int32),
-                                    object())):
-        with pytest.raises(NotImplementedError, match="Step 11"):
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    for call in (lambda: lm.loss_fn(cfg, pp, {"tokens": tokens,
+                                              "labels": tokens}, object()),
+                 lambda: lm.forward(cfg, pp, tokens, object()),
+                 lambda: lm.make_train_step(cfg, mesh=object())):
+        with pytest.raises(TypeError, match="Mesh"):
             call()

@@ -173,10 +173,10 @@ def test_int8_compression_equals_the_reference():
 
 
 # ----------------------------------------------------------------- launcher
-def test_launcher_refuses_recsys_naming_step_10(tmp_path, capsys):
-    """Named for what it checked before the recsys branch was ported: the
-    launcher now trains xdeepfm on the recsys stream, and an unknown arch
-    still raises KeyError."""
+def test_launcher_trains_xdeepfm_and_refuses_an_unknown_arch(tmp_path,
+                                                             capsys):
+    """The launcher trains xdeepfm on the recsys stream, and an unknown
+    arch raises KeyError."""
     args = ["--arch", "xdeepfm", "--steps", "2", "--batch", "16",
             "--device", "cpu", "--ckpt-dir", str(tmp_path)]
     loss = launch.main(args)

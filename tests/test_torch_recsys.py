@@ -20,8 +20,8 @@ and sums with ``jax.ops.segment_sum``.
   as ``test_torch_train.py`` holds them (Adam's first step is ±lr·g/(|g| +
   eps), so a bias whose gradient is near eps moves by a share of lr).
 - The chunked CIN equals one chunk, forward and backward; twins of
-  ``tests/test_infra.py::TestRecsys``; the mesh paths refuse, naming
-  ROADMAP Step 11.
+  ``tests/test_infra.py::TestRecsys``; the mesh paths refuse a mesh that
+  is not a ``Mesh``.
 """
 import dataclasses
 
@@ -297,6 +297,9 @@ def test_retrieval_ranks_similar_user_higher():
 
 
 def test_mesh_paths_refuse_naming_step_11():
+    """Named for what it checked before the mesh paths were ported: they
+    now run (``tests/test_torch_mesh_models.py``), and refuse a mesh that
+    is not a ``Mesh``."""
     cfg = t_configs.smoke_config("xdeepfm")
     params = t_x.init(cfg, 0, device="cpu")
     ids = torch.zeros((2, cfg.n_sparse), dtype=torch.int32)
@@ -306,7 +309,7 @@ def test_mesh_paths_refuse_naming_step_11():
                                                    "labels": ids[:, 0]}, mesh),
                  lambda: t_x.retrieval_score(cfg, params, ids[0], ids, mesh),
                  lambda: t_eb.lookup_sharded(params["tables"], ids, mesh)):
-        with pytest.raises(NotImplementedError, match="Step 11"):
+        with pytest.raises(TypeError, match="Mesh"):
             call()
 
 

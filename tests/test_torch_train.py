@@ -48,6 +48,7 @@ from repro_torch.models.gnn.common import FlatGraph, LocalExec
 from repro_torch.runtime.fault import (HeartbeatMonitor, RetryPolicy,
                                        plan_remesh)
 from repro_torch.sparse import segment as t_seg
+from repro_torch.sharding import Mesh
 from repro_torch.sparse.sampler import NeighborSampler, sizes_for_fanout
 from repro_torch.train import optimizer as t_opt
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -415,9 +416,14 @@ def test_train_step_is_bitwise_independent_of_chunk_size(monkeypatch):
 
 
 def test_unported_training_parts_raise():
+    """Named for what it checked before the ring was ported: a mesh that is
+    not a ``Mesh`` is refused when the step is made, and so is a layout the
+    ring does not run; an unknown layout raises."""
     cfg = smoke_config("egnn")
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="Mesh"):
         td.make_train_step(cfg, "full_graph", mesh=object())
+    with pytest.raises(ValueError, match="full_graph"):
+        td.make_train_step(cfg, "molecule", mesh=Mesh(["cpu"] * 2, ("data",)))
     with pytest.raises(ValueError):
         td.train_loss(cfg, "nope", {}, {})
 
