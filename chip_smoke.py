@@ -77,7 +77,9 @@ Phases (each prints one line; any failure exits non-zero):
                 this script (HMGI_FAULTPOINT at the 15th WAL append and in
                 the snapshot's write) recovered and held to a golden
                 replay of their durable prefix; the port's crash harness
-                swept over its nine points on the card; partitioner.fit
+                swept over its nine points on the card (in the background
+                beside the dryrun phase's probes, its [durable.sweep]
+                line there); partitioner.fit
                 three times bitwise, its cluster sums against their plain
                 version; the directory recovered again over a 4-shard
                 mesh, its search bytes equal to the live index's. It
@@ -209,10 +211,13 @@ Phases (each prints one line; any failure exits non-zero):
                 edges/s, peak memory, the segment-sum and in-place
                 launches per forward and per step held to their formulas,
                 the Wigner-D launches (Equiformer-v2), one profiled
-                forward or step per cell. Checks per arch: (a) 8 molecules
-                at full width and depth, logits and one step's new params
-                card against CPU; (b) two forwards, and a forward at half
-                the chunk budget, bit for bit; (c) two train steps from
+                forward or step per cell that trains (the forward-only
+                cells are not profiled: the dryrun phase took their
+                time). Checks per arch: (a) 8
+                molecules at full width and depth, logits and one step's
+                new params card against CPU; (b) two forwards, and a
+                forward at half the chunk budget, bit for bit; (c) two
+                train steps from
                 one state bit for bit; (d) rotation invariance of the
                 molecule cell's logits; (e) both kernels against their
                 plain versions at the new widths (289, 6,272 and 128
@@ -223,13 +228,15 @@ Phases (each prints one line; any failure exits non-zero):
                 (bf16, seeded random weights), seq 4,096, micro-batch 1 x
                 grad_accum 4 (global batch 4, cut from train_4k's 256),
                 remat, q_block 1,024, AdamW (lr 3e-4, warm-up 100,
-                cosine): one warm-up and 3 timed steps (step p50/p99,
+                cosine): one warm-up and 2 timed steps (step p50/p99,
                 tokens/s, mfu against 989 TFLOP/s bf16, peak memory, the
                 token transpose's launches a step: one per micro-batch),
-                one profiled step; the token transpose (the in-place kernel
-                at 4,096 x 3,072 bf16 into 200,064 rows) against its plain
-                version bit for bit, timed beside its byte bound and
-                index_put_(accumulate=True); (b) 1-layer full-width copies
+                one micro-batch's step profiled (a whole step's events
+                took the profiler ~50 s); the token transpose (the
+                in-place kernel at 4,096 x 3,072 bf16 into 200,064
+                rows) against its plain version bit for bit, timed beside
+                its byte bound and index_put_(accumulate=True); (b)
+                1-layer full-width copies
                 of phi4-mini (grad_accum 2) and DeepSeek-V2-Lite (its MLA
                 + MoE layer), their vocabularies cut to 32,768, one fp32
                 step each at seq 64, card against CPU; (c) their bf16
@@ -263,6 +270,33 @@ Phases (each prints one line; any failure exits non-zero):
                 exiting 0 with the reference's lines; recall@10 within
                 0.05 of a --device cpu child at the first run's arguments
                 (run beside them).
+     dryrun   — the H100 dry run (python -m repro_torch.launch.dryrun)
+                over the 40 cells of configs.all_cells(): its cells traced
+                on the meta device (the LMs', xDeepFM's, and the
+                singlepod/multipod grids' per-device state) run in a
+                background child of this script from the build phase on
+                (--dryrun-child, nice 10), its GNN cells' probes on the
+                card here; (a) one [dryrun.cell] line per cell, every cell
+                ok, skipped with the reference's reason or refused by a
+                kernel's own check, fits false where PERF.md §4 cuts a
+                cell for memory and true where this script runs the
+                cell's step or call at its full shape; (b) the cells this
+                script runs at their shapes (phi4-mini-train-4k at its cut
+                batch 1 x 4, phi4-mini's decode tick over 8 full slots of
+                2,048, xdeepfm-train-batch, xdeepfm-serve-bulk, EGNN's
+                ogbn-products forward and step) predicted by the dry run's
+                cell function and held against the same counter around
+                the card's own run of the same work, untimed, in its
+                phase: FLOPs within 0.1% (meta traces) or 5% (GNN
+                probes), bytes within 10% (a meta trace's never under the
+                count), peak within -5% / +10% plus 0.5 GiB (meta) or 25%
+                (GNN) of max_memory_allocated; (c) each one's measured ms
+                at least the dry run's compute term; (d) the mesh phase's
+                ring at S = 4: the counter's collective bytes equal the
+                rotations x shards x block bytes; (e) the card's
+                total_memory and nvidia-smi line beside the 80 GB
+                constant. The durable phase's crash harness sweep runs
+                beside the probes.
   8. the kernels line, then the contract line. The segment sum's launches
      there count the index path's too (k-means cluster sums, hop
      out-weights), read phase by phase, the training runs' forwards and
@@ -279,7 +313,8 @@ Phases (each prints one line; any failure exits non-zero):
 
 It imports only torch, numpy and the port (``src/repro_torch``), and needs a
 CUDA device: without one it exits 1 and prints no result. ``--durable-child
-DIR VECS.npy`` is the durable phase's own child process.
+DIR VECS.npy`` is the durable phase's own child process, ``--dryrun-child
+DIR`` the dryrun phase's.
 """
 from __future__ import annotations
 
@@ -416,6 +451,14 @@ MODEL_BITWISE = {"nequip": ("minibatch-lg", 65_536),
 # ln1/ln2 gradients may be non-finite; comparisons match NaN for NaN, and
 # (a)'s step is not clipped, so that its other leaves stay finite.
 EQV2_NONFINITE_OK = ("ln1", "ln2")
+# the forward-only cells (nequip-ogbn-products, equiformer-v2-minibatch-lg)
+# are not profiled: aggregating their forwards' events took 46.5 s and
+# 10.5 s of the cells' 80.0 s and 21.9 s on an H100, cut to make room for
+# the dryrun phase; PERF.md §5 keeps the breakdowns of both
+MODEL_PROFILE_CUT = ("not profiled: cut for the dryrun phase (on an H100, "
+                     "46.5 s of nequip-ogbn-products' 80.0 s, 10.5 s of "
+                     "equiformer-v2-minibatch-lg's 21.9 s); PERF.md §5 "
+                     "keeps their breakdowns")
 MODEL_CUTS = {
     "equiformer-v2-ogbn-products": (
         "not run: its node state (2,449,029 x 49 x 128 fp32) is 61.4 GB a "
@@ -461,8 +504,8 @@ MESH_MOE_RTOL = 1e-5
 # 8.2 GB checkpoints, 100 s) until the gnn_models phase needed the time;
 # the copies had 2 layers and the full vocabulary in the card-vs-CPU
 # check (97 s, the CPU's embedding-sized work most of it) until the mesh
-# phase needed it.
-LM_SEQ, LM_ACCUM, LM_STEPS = 4096, 4, 3
+# phase needed it; 3 timed steps until the dryrun phase needed their 4.2 s.
+LM_SEQ, LM_ACCUM, LM_STEPS = 4096, 4, 2
 LM_CUT = ("lm_train: global batch 4 (micro-batch 1 x grad_accum 4), cut "
           "from train_4k's 256; seq 4,096, width, vocabulary and depth as "
           "published")
@@ -486,6 +529,36 @@ RECSYS_SERVE_REPS = {"serve_p99": 20, "serve_bulk": 4, "retrieval_cand": 5}
 # --recover, then --rag at the launcher's default size), its recall@10
 # within SERVE_RECALL_TOL of a --device cpu child at the same arguments
 SERVE_NODES, SERVE_QUERIES, SERVE_RECALL_TOL = 32_768, 256, 0.05
+# the dryrun phase: DRYRUN_JOBS processes trace the meta cells in the
+# background child; each cell this script runs at its shapes is predicted
+# by the dry run and held to the counter around the card's run (FLOPs,
+# bytes; the peak to max_memory_allocated): meta traces and GNN probes at
+# their own tolerances, the peak's band (low, high) of the card's plus
+# DRYRUN_PEAK_SLACK for a meta trace (the caching allocator's rounding,
+# cuBLAS workspaces)
+DRYRUN_JOBS = 3
+DRYRUN_TOL = {"meta": dict(flops=1e-3, bytes=0.10, peak=(-0.05, 0.10)),
+              "gnn": dict(flops=0.05, bytes=0.10, peak=(-0.25, 0.25))}
+DRYRUN_PEAK_SLACK = 0.5 * 2 ** 30
+# PERF.md §4: the cells cut for memory (fits must be false) and the cells
+# whose step (GNN, train) or call this script runs at their full shape
+# (fits must be true)
+DRYRUN_NOT_FIT = ({("dimenet", "ogb_products"),
+                   ("equiformer-v2", "ogb_products"),
+                   ("equiformer-v2", "minibatch_lg")}
+                  | {(a, "train_4k") for a in (
+                      "deepseek-67b", "qwen2-72b", "phi4-mini-3.8b",
+                      "mixtral-8x7b", "deepseek-v2-lite-16b")})
+DRYRUN_FIT = ({("xdeepfm", s) for s in ("train_batch", "serve_p99",
+                                         "serve_bulk", "retrieval_cand")}
+              | {("egnn", s) for s in ("ogb_products", "minibatch_lg",
+                                        "molecule")}
+              | {(a, s) for a in ("nequip", "dimenet")
+                 for s in ("molecule", "full_graph_sm", "minibatch_lg")}
+              | {("equiformer-v2", s) for s in ("molecule",
+                                                 "full_graph_sm")})
+# the untimed counted runs of the cells the dryrun phase checks
+COUNTED = {}
 
 
 def line(tag: str, **kw) -> None:
@@ -636,6 +709,35 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
     ``peak`` and the bytes over HBM bandwidth."""
     t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def counted_run(cell: str, fn, *state, ms: float) -> None:
+    """One untimed run of ``fn`` on the card under the dry run's counter
+    (``roofline.trace.Counter``, its per-op callback outside every timed
+    window), holding ``state`` (what the step takes) live from the start,
+    stored in ``COUNTED[cell]`` for the dryrun phase with the card's own
+    peak on the same footing: ``max_memory_allocated`` over the run less
+    what was allocated before it, plus the state's bytes. ``ms``: the
+    cell's timed p50 in its phase."""
+    from repro_torch.roofline.trace import Counter
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with Counter() as c:
+        held = c.track(*state)
+        fn()
+        torch.cuda.synchronize()
+    COUNTED[cell] = dict(c.summary(), ms=ms, state_bytes=held,
+                         card_peak_bytes=torch.cuda.max_memory_allocated()
+                         - before + held,
+                         counted_run_s=time.perf_counter() - t0)
+
+
+def engine_tensors(ex) -> list:
+    """The tensors an engine holds (the dry run's probes hold the same)."""
+    from repro_torch.launch.dryrun import _engine_tensors
+    return _engine_tensors({"exec": ex})
 
 
 def agree_up_to_ties(sa, ia, sb, ib, atol: float) -> bool:
@@ -1883,10 +1985,11 @@ def phase_durable(corpus) -> dict:
     commit 16, one snapshot), recover() by stage, the recovered index held
     to the live one byte for byte (every state leaf; search, filtered and
     full-probe bytes for 256 queries), two kill -9 children recovered and
-    held to a golden replay of their durable prefix, the port's crash
-    harness swept over all nine points on the card, and partitioner.fit
-    repeated bitwise at serve_1m. Returns the segment-sum launches of that
-    repeat check, which are not the main path's."""
+    held to a golden replay of their durable prefix, and partitioner.fit
+    repeated bitwise at serve_1m (the port's crash harness sweeps its nine
+    points beside the dryrun phase: ``start_harness_sweep``). Returns the
+    segment-sum launches of that repeat check, which are not the main
+    path's."""
     from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.core import partitioner
@@ -2026,18 +2129,10 @@ def phase_durable(corpus) -> dict:
         torch.cuda.empty_cache()
         peak = torch.cuda.max_memory_allocated()
 
-        # (4) the checks that need other processes: the harness sweep in the
-        # background, and two kill -9 children of this script
+        # (4) the checks that need other processes: two kill -9 children of
+        # this script
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         env.pop("HMGI_FAULTPOINT", None)
-        sweep_t0 = time.perf_counter()
-        # each child leads its own process group, so that on a failure the
-        # harness's own children are stopped with it
-        sweep = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.persistence.crash_harness",
-             "--sweep"], env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True, start_new_session=True)
-        procs.append(sweep)
         vec_file = os.path.join(root, "vecs.npy")
         np.save(vec_file, vecs)
         kills = {}
@@ -2108,14 +2203,6 @@ def phase_durable(corpus) -> dict:
               "durable: run_sums on the card differs from its plain version")
         del x, fits, a
 
-        out, _ = sweep.communicate(timeout=900)
-        sweep_s = time.perf_counter() - sweep_t0
-        ok_lines = [ln for ln in out.splitlines() if ln.endswith("]")
-                    and " — OK [" in ln]
-        check(sweep.returncode == 0 and len(ok_lines) == 9
-              and "all 9 crash point(s)" in out,
-              f"durable: the crash harness sweep on the card failed "
-              f"(exit {sweep.returncode}):\n{out[-3000:]}")
         free_min = shutil.disk_usage(root).free
         line("durable", n=VEC_N, d=DIM, batch=BATCH, ops_logged=n_logged,
              wal_sync_every=cfg.wal_sync_every,
@@ -2139,8 +2226,6 @@ def phase_durable(corpus) -> dict:
              recovered_equals_live=dict(state_leaves=leaves,
                                         search_filtered_full_probe=True),
              kill9=kill_res,
-             harness_sweep=dict(points=len(ok_lines), s=sweep_s,
-                                lines=[ln[:110] for ln in ok_lines]),
              fit_repeat=dict(runs=3, bitwise=True, s=fit_s,
                              segment_sum_launches=repeat_launches,
                              run_sums_card_eq_plain=True),
@@ -2154,6 +2239,37 @@ def phase_durable(corpus) -> dict:
                 os.killpg(p.pid, signal.SIGKILL)
                 p.wait()
         shutil.rmtree(root, ignore_errors=True)
+
+
+def start_harness_sweep() -> subprocess.Popen:
+    """``python -m repro_torch.persistence.crash_harness --sweep`` on the
+    card in the background: nine points, each a child killed with exit 137,
+    recovered and held bit for bit to a golden replay (a 12-wide index; its
+    minutes are the children's start-up). It leads its own process group,
+    so that on a failure the harness's own children are stopped with it."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("HMGI_FAULTPOINT", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.persistence.crash_harness",
+         "--sweep"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    proc.t0 = time.perf_counter()
+    return proc
+
+
+def finish_harness_sweep(sweep: subprocess.Popen) -> None:
+    """Waits for the sweep, holds it to nine clean points and prints its
+    ``durable.sweep`` line."""
+    out, _ = sweep.communicate(timeout=900)
+    ok_lines = [ln for ln in out.splitlines() if ln.endswith("]")
+                and " — OK [" in ln]
+    check(sweep.returncode == 0 and len(ok_lines) == 9
+          and "all 9 crash point(s)" in out,
+          f"durable: the crash harness sweep on the card failed "
+          f"(exit {sweep.returncode}):\n{out[-3000:]}")
+    line("durable.sweep", points=len(ok_lines),
+         s=time.perf_counter() - sweep.t0,
+         lines=[ln[:110] for ln in ok_lines])
 
 
 def phase_durable_hybrid(index, corpus) -> int:
@@ -3034,6 +3150,7 @@ def phase_rag(index, corpus) -> dict:
          search_many_bytes_identical_8_vs_1=bytes_same,
          info_bf16_streams_equal_sequential=seq_same)
     launches["mesh_decode"] = mesh_lm_dense(cfg, params)["decode_launches"]
+    full_tick(cfg, params)
     del engine, params
     torch.cuda.empty_cache()
 
@@ -3084,6 +3201,27 @@ def phase_rag(index, corpus) -> dict:
          fp32_2_layer_card_vs_cpu_max_abs_logit=cpu_err,
          logit_scale=float(outs[1].abs().max()), tolerance=CPU_LOGIT_ATOL)
     return launches
+
+
+def full_tick(cfg, params) -> None:
+    """The dry run's decode cell at this script's slots (8 x 2,048): one
+    decode step of phi4-mini with every slot at the cache's last position,
+    so every cache position is valid (the dry run's worst case), timed
+    (CUDA events) and counted once for the dryrun phase."""
+    from repro_torch.models import lm
+    with torch.no_grad():
+        cache = lm.init_cache(cfg, RAG_SLOTS, RAG_SEQ)
+        cache[2].copy_(torch.arange(RAG_SEQ, dtype=torch.int32,
+                                    device="cuda").expand_as(cache[2]))
+        tok = torch.zeros(RAG_SLOTS, dtype=torch.int32, device="cuda")
+
+        def tick():
+            return lm.decode_step(cfg, params, cache, tok, RAG_SEQ - 1)
+
+        ms = cuda_ms(tick, 10)
+        counted_run("phi4-mini-decode-8x2048", tick, params, cache, tok,
+                    ms=ms)
+    del cache
 
 
 def routing_summary(routings) -> dict:
@@ -3619,6 +3757,12 @@ def phase_gnn(small_err: float):
           and float(sums["count"]) == n, "gnn: logits or sums not finite")
     p50 = float(np.percentile(times[1:], 50))
     p99 = float(np.percentile(times[1:], 99))
+    def loss_forward():
+        with torch.no_grad():        # the dry run's forward: the loss
+            gd.train_loss(cfg, "full_graph", params, {"graph": g, "exec": ex})
+
+    counted_run("egnn-ogbn-products.forward", loss_forward, params, g,
+                engine_tensors(ex), ms=p50)
     prof = profile_window(forward, top=8)
     peak = torch.cuda.max_memory_allocated()
     line("gnn", cell="egnn-ogbn-products", model=cfg.arch_id,
@@ -4055,6 +4199,9 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
         check(same_twice, "gnn_train: steps from the same params and state "
                           "differ in their bits")
         del prof_out, parts
+        counted_run("egnn-ogbn-products.step", lambda: gd.make_train_step(
+            cfg, "full_graph")(params, opt0, batch), params, opt0, g,
+            engine_tensors(ex), ms=float(np.percentile(steps_ms[1:], 50)))
         marks["profiled_step_and_parts"] = time.perf_counter() - t_mark
         t_mark = time.perf_counter()
         half = LocalExec(g, GNN_CHUNK_EDGES // 2)
@@ -4132,9 +4279,15 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
         hg_ = gd.make_flat_graph(n_mb, e_mb, MB_D_FEAT, seed=2, device="cpu")
         data_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        sampler = NeighborSampler(n_mb, hg_.edge_src.numpy(),
-                                  hg_.edge_dst.numpy(), hg_.feats.numpy(),
-                                  hg_.labels.numpy(), seed=0)
+        # the edges in destination order (a stable sort on the card): the
+        # sampler's own stable sort then meets sorted input, and its CSR,
+        # draws and batches are those of the edges as drawn
+        order = torch.sort(hg_.edge_dst.cuda(), stable=True).indices.cpu()
+        sampler = NeighborSampler(n_mb, hg_.edge_src[order].numpy(),
+                                  hg_.edge_dst[order].numpy(),
+                                  hg_.feats.numpy(), hg_.labels.numpy(),
+                                  seed=0)
+        del order
         csr_s = time.perf_counter() - t0
         stream = SampledStream(sampler, hg_.positions.numpy())
         mparams = gd.init_model(cfg, 0, MB_D_FEAT)
@@ -4245,6 +4398,33 @@ def sums_rel(got: dict, want: dict) -> float:
                / max(abs(float(want[k])), 1e-30) for k in want)
 
 
+def ring_collectives(cfg, params, gp, ring, rex, mesh) -> None:
+    """The dryrun phase's (d): one untimed ring forward at S = 4 under the
+    dry run's counter. Each layer's push rotates every shard's block of
+    the (N, d + 3) payload one step, rounds - 1 times: the counter's
+    collective-permute bytes, over the shards, must equal rotations x
+    shards x block bytes, and its count the rotations."""
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.roofline.trace import Counter
+    with Counter() as c, torch.no_grad():
+        gd.full_graph_loss(cfg, params, ring, mesh, ex=rex)
+    rounds = int(ring.esrc_local.shape[1])
+    shards = mesh.devices.size
+    block = gp.n_nodes // shards * (cfg.d_hidden + 3) * 4
+    rotations = cfg.n_layers * (rounds - 1)
+    want = rotations * shards * block
+    got = c.collective_total.get("collective-permute", 0.0)
+    COUNTED["mesh.ring"] = dict(
+        shards=shards, rounds=rounds, layers=cfg.n_layers,
+        block_bytes=block, rotations=rotations, want_bytes=want,
+        counted_bytes=got,
+        counted_rotations=c.collective_ops["collective-permute"],
+        per_device_bytes=c.collective_bytes.get("collective-permute", 0.0))
+    check(got == want and c.collective_ops["collective-permute"] == rotations,
+          f"mesh: the counter's ring bytes {got} ({c.collective_ops}) "
+          f"against {rotations} rotations x {shards} shards x {block} bytes")
+
+
 def phase_mesh(params, g, ex, forward_ms: float, local_step) -> tuple:
     """The mesh bodies on one controller, four shards of this card: (a)
     EGNN at ogbn-products (padded to 2,449,032 nodes) through
@@ -4324,6 +4504,7 @@ def phase_mesh(params, g, ex, forward_ms: float, local_step) -> tuple:
             ring4, ex4, mesh4 = ring, rex, mesh
         del ring, rex, sums
         torch.cuda.empty_cache()
+    ring_collectives(cfg, params, gp, ring4, ex4, mesh4)
     # (b) one train step at S = 4 from the parameters of gnn_train's first
     # step
     step = gd.make_train_step(cfg, "full_graph", mesh4)
@@ -4494,9 +4675,9 @@ def model_cell(cfg, cell: str, kind: str, batch, params, ex, train: bool,
     """One cell of the gnn_models phase: forward p50/p99 (the loss under
     no_grad), and with ``train`` a train step's, edges/s, peak memory,
     the launches per forward and per step held to ``model_launches``,
-    one profiled step (a forward where no step runs, and for
-    Equiformer-v2, whose step's events take the profiler ~15 s to
-    aggregate). Prints a ``gnn_models`` line."""
+    one profiled step (a forward for Equiformer-v2, whose step's events
+    take the profiler ~15 s to aggregate; none where no step runs:
+    ``MODEL_PROFILE_CUT``). Prints a ``gnn_models`` line."""
     from repro_torch.common.tree import tree_finite
     from repro_torch.models.gnn import driver as gd
     from repro_torch.train.optimizer import init_adamw
@@ -4558,9 +4739,9 @@ def model_cell(cfg, cell: str, kind: str, batch, params, ex, train: bool,
                    else "one forward")
     else:
         prof_t0 = time.perf_counter()
-        _, prof = profile_once(forward, top=8, share_of=share)
+        prof = MODEL_PROFILE_CUT
         res.update(step_ms="not run", why_forward_only=reason,
-                   profiled="one forward")
+                   profiled="none")
     res.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                cell_s=time.perf_counter() - cell_t0,
                profile_s=time.perf_counter() - prof_t0, profile=prof)
@@ -5285,8 +5466,9 @@ def lm_trainer_restart(cfg, root: str) -> dict:
 def phase_lm_train() -> tuple:
     """LM training (phi4-mini, the reference's ``make_train_step``
     semantics): (a) full width and depth, train_4k's sequence, micro-batch
-    1 x grad_accum 4, one warm-up and 3 timed steps, one profiled; the
-    token transpose at its shape; (b) 1-layer full-width copies of
+    1 x grad_accum 4, one warm-up and 2 timed steps, one micro-batch's
+    step profiled; the token transpose at its shape; (b) 1-layer
+    full-width copies of
     phi4-mini and DeepSeek-V2-Lite (its MLA + MoE layer) with the
     vocabulary cut to LM_CHECK_VOCAB, one fp32 step each, card against
     CPU; (c) their bf16 twins, two runs of one step bitwise; (d) the
@@ -5335,12 +5517,24 @@ def phase_lm_train() -> tuple:
           and bool(tree_finite(params)),
           f"lm_train: a loss, grad norm or param is not finite ({losses}, "
           f"{gnorms})")
-    _, prof = profile_once(lambda: step(params, state, batches[-1]), top=10,
+    # the profile holds one micro-batch's step (1 x 4,096 tokens and the
+    # update): a whole step's events took the profiler 50.7 s to aggregate
+    # on an H100, cut for the dryrun phase
+    one_mb = lm.make_train_step(cfg, None, opts, ocfg)
+    mb_batch = {k: v[0] for k, v in batches[-1].items()}
+    prof_t0 = time.perf_counter()
+    _, prof = profile_once(lambda: one_mb(params, state, mb_batch), top=10,
                            share_of=("segment_accumulate_kernel",),
                            ops_top=8)
+    prof["profile_s"] = time.perf_counter() - prof_t0
+    prof["window"] = ("one micro-batch's step: 1 x 4,096 tokens, its "
+                      "backward and the AdamW update")
     prof_launches = seg_counts()[1] - main_launches
     timed = steps_ms[1:]
     p50 = float(np.percentile(timed, 50))
+    counted_run("phi4-mini-train-4k", lambda: step(params, state,
+                                                   batches[-1]),
+                params, state, batches[-1], ms=p50)
     tokens = LM_ACCUM * LM_SEQ
     flops = lm_train_flops(cfg, LM_ACCUM, LM_SEQ)
     line("lm_train", cell="phi4-mini-train-4k", model=cfg.arch_id,
@@ -5610,6 +5804,9 @@ def phase_recsys() -> tuple:
                            ops_top=8)
     timed = steps_ms[1:]
     p50 = float(np.percentile(timed, 50))
+    counted_run("xdeepfm-train-batch", lambda: step(params, state,
+                                                    batches[-1]),
+                params, state, batches[-1], ms=p50)
     flops = recsys_flops(cfg, rows, "train")
     train = dict(
         rows=rows, warmup_steps=1, step_ms=dict(
@@ -5650,6 +5847,10 @@ def phase_recsys() -> tuple:
                                RECSYS_SERVE_REPS[name])
             fl = recsys_flops(cfg, ids.shape[0], "serve")["model"]
             peak = torch.cuda.max_memory_allocated()
+            if name == "serve_bulk":
+                counted_run("xdeepfm-serve-bulk",
+                            lambda: xdeepfm.forward(cfg, params, ids),
+                            params, ids, ms=f50)
             serve[name] = dict(
                 rows=ids.shape[0], forward_ms=dict(p50=f50, p99=f99),
                 examples_per_s=ids.shape[0] / (f50 * 1e-3),
@@ -5791,6 +5992,223 @@ def phase_launch_serve() -> dict:
     return res
 
 
+# the meta cells the dryrun phase predicts beside the 40: phi4-mini's train
+# step at this script's cut batch (micro-batch 1 x 4) and its decode tick
+# at this script's slots
+DRYRUN_LM_CHECKS = {
+    "phi4-mini-train-4k": ("train", {"seq_len": LM_SEQ,
+                                     "global_batch": LM_ACCUM}),
+    "phi4-mini-decode-8x2048": ("decode", {"seq_len": RAG_SEQ,
+                                           "global_batch": RAG_SLOTS}),
+}
+
+
+def dryrun_child(out: str) -> None:
+    """The dryrun phase's background child (``--dryrun-child DIR``), on the
+    host's CPU and never the card: the dry run's cells traced on the meta
+    device (``--cells traced``: the LM and xDeepFM cells on the h100 mesh,
+    every cell's per-device state on the grids) in ``DRYRUN_JOBS``
+    processes, then ``DRYRUN_LM_CHECKS``' predictions."""
+    os.nice(10)
+    t0 = time.perf_counter()
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    rc = dryrun.main(["--mesh", "all", "--cells", "traced", "--out", out,
+                      "--force", "--jobs", str(DRYRUN_JOBS)])
+    cfg = get_config("phi4-mini-3.8b")
+    preds = {name: dryrun.count_cell(cfg, ShapeSpec(name, kind, dims))
+             for name, (kind, dims) in DRYRUN_LM_CHECKS.items()}
+    preds["child_s"] = time.perf_counter() - t0
+    with open(os.path.join(out, "predictions.json"), "w") as f:
+        json.dump(preds, f, default=float)
+    raise SystemExit(rc)
+
+
+def start_dryrun_child() -> dict:
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    log = open(os.path.join(out, "child.log"), "w")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--dryrun-child", out], stdout=log,
+                            stderr=subprocess.STDOUT)
+    return {"dir": out, "proc": proc, "log": log}
+
+
+def stop_dryrun_child(child: dict) -> None:
+    if child["proc"].poll() is None:
+        child["proc"].kill()
+        child["proc"].wait()
+    child["log"].close()
+    shutil.rmtree(child["dir"], ignore_errors=True)
+
+
+def _dryrun_compare(cell: str, pred: dict, how: str) -> dict:
+    """(b) and (c) for one cell: the dry run's prediction against the
+    counter around the card's run (``COUNTED``)."""
+    from repro_torch.roofline import analysis
+    got = COUNTED[cell]
+    tol = DRYRUN_TOL[how]
+    f_rel = pred["flops_total"] / got["flops_total"] - 1
+    b_rel = pred["bytes"] / got["bytes"] - 1
+    card = got["card_peak_bytes"]
+    lo, hi = tol["peak"]
+    slack = DRYRUN_PEAK_SLACK if how == "meta" else 0.0
+    compute_ms = analysis.compute_seconds(pred["flops"]) * 1e3
+    res = dict(cell=cell, method=pred["method"],
+               flops_pred=pred["flops_total"],
+               flops_counted=got["flops_total"], flops_rel=f_rel,
+               bytes_pred=pred["bytes"], bytes_counted=got["bytes"],
+               bytes_rel=b_rel, peak_pred_gib=pred["peak_bytes"] / 2 ** 30,
+               peak_counted_gib=got["peak_bytes"] / 2 ** 30,
+               peak_card_gib=card / 2 ** 30,
+               peak_rel_card=pred["peak_bytes"] / card - 1,
+               ms=got["ms"], compute_term_ms=compute_ms,
+               memory_term_ms=pred["bytes"] / analysis.HBM_BW * 1e3,
+               counted_ops=got["ops"], counted_run_s=got["counted_run_s"],
+               kernels_counted={k: v["launches"]
+                                for k, v in got["kernels"].items()},
+               assumptions=pred["assumptions"], tolerances=tol)
+    check(abs(f_rel) <= tol["flops"],
+          f"dryrun {cell}: FLOPs predicted {pred['flops_total']:.6e}, "
+          f"counted {got['flops_total']:.6e} ({f_rel:+.4%})")
+    check(abs(b_rel) <= tol["bytes"] and (how != "meta" or b_rel >= 0),
+          f"dryrun {cell}: bytes predicted {pred['bytes']:.6e}, counted "
+          f"{got['bytes']:.6e} ({b_rel:+.4%})")
+    check(card * (1 + lo) - slack <= pred["peak_bytes"]
+          <= card * (1 + hi) + slack,
+          f"dryrun {cell}: peak predicted {pred['peak_bytes'] / 2 ** 30:.3f} "
+          f"GiB, the card's {card / 2 ** 30:.3f} GiB")
+    check(got["ms"] >= compute_ms,
+          f"dryrun {cell}: measured {got['ms']:.3f} ms under the dry run's "
+          f"compute term {compute_ms:.3f} ms")
+    return res
+
+
+def phase_dryrun(child: dict) -> dict:
+    """(a)-(e) of the dryrun phase (the module docstring): the GNN cells'
+    probes on the card, the background child's records, the checks. The
+    durable phase's crash harness sweep runs beside the probes, which are
+    counted and not timed."""
+    phase_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    sweep = start_harness_sweep()
+    try:
+        return _phase_dryrun(child, sweep, phase_t0)
+    finally:
+        if sweep.poll() is None:
+            os.killpg(sweep.pid, signal.SIGKILL)
+            sweep.wait()
+
+
+def _phase_dryrun(child: dict, sweep, phase_t0: float) -> dict:
+    from repro_torch.configs import all_cells, get_config, get_shapes
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analysis
+    out = child["dir"]
+    # (a) the GNN cells' probes on the card
+    t0 = time.perf_counter()
+    rc = dryrun.main(["--mesh", "h100", "--cells", "probed", "--out", out,
+                      "--force"])
+    probes_s = time.perf_counter() - t0
+    check(rc == 0, f"dryrun: the GNN probes exited {rc}")
+    egnn = {s.name: s for s in get_shapes("egnn")}
+    t0 = time.perf_counter()
+    egnn_fwd = dryrun.count_cell(get_config("egnn"), egnn["ogb_products"],
+                                 "cuda", train=False)
+    fwd_probe_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        child_rc = child["proc"].wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        child_rc = "timed out"
+    waited_s = time.perf_counter() - t0
+    child["log"].flush()
+    with open(os.path.join(out, "child.log")) as f:
+        child_log = f.read()
+    check(child_rc == 0, f"dryrun: the meta child exited {child_rc}: "
+                         f"{child_log[-3000:]}")
+    finish_harness_sweep(sweep)
+    recs, statuses = {}, {"ok": 0, "skipped": 0, "refused": 0}
+    for arch, shape in all_cells():
+        for mesh in dryrun.MESHES:
+            path = os.path.join(out, mesh, f"{arch}__{shape.name}.json")
+            check(os.path.exists(path), f"dryrun: no record {path}")
+            with open(path) as f:
+                recs[(mesh, arch, shape.name)] = json.load(f)
+    for (mesh, arch, name), rec in recs.items():
+        st = rec["status"]
+        if st == "failed":
+            check(dryrun.refused_by_kernel(rec),
+                  f"dryrun {mesh} {arch} {name} failed: {rec['error']}")
+            st = "refused"
+        if mesh != "h100":
+            continue
+        statuses[st] += 1
+        row = dict(arch=arch, shape=name, status=st)
+        if st == "skipped":
+            row["skip_reason"] = rec["skip_reason"]
+        elif st == "refused":
+            row["error"] = rec["error"]
+        else:
+            row.update(method=rec["method"], params=rec["params"],
+                       opt_state_bytes=rec["opt_state_bytes"],
+                       flops=rec["flops"], bytes=rec["bytes"],
+                       peak_gib=rec["peak_bytes"] / 2 ** 30,
+                       fits=rec["fits"], compute_ms=rec["compute_s"] * 1e3,
+                       memory_ms=rec["memory_s"] * 1e3,
+                       bound_ms=rec["bound_ms"], dominant=rec["dominant"],
+                       model_flops=rec["meta"]["model_flops"],
+                       useful_ratio=rec["useful_ratio"],
+                       assumptions=rec["assumptions"],
+                       trace_s=rec["trace_s"])
+            key = (arch, name)
+            if key in DRYRUN_NOT_FIT or key in DRYRUN_FIT:
+                check(rec["fits"] == (key in DRYRUN_FIT),
+                      f"dryrun {arch} {name}: fits {rec['fits']} "
+                      f"(peak {rec['peak_bytes'] / 2 ** 30:.2f} GiB), "
+                      f"PERF.md §4 says {key in DRYRUN_FIT}")
+        line("dryrun.cell", **row)
+    check(sum(statuses.values()) == 40,
+          f"dryrun: {sum(statuses.values())} h100 records, not 40")
+    grids = {}
+    for (mesh, arch, name), rec in recs.items():
+        if mesh != "h100" and rec["status"] == "ok":
+            grids.setdefault(mesh, {})[f"{arch}/{name}"] = dict(
+                state_gib=rec["state_bytes_per_device"] / 2 ** 30,
+                fits=rec["fits"])
+    line("dryrun.grids", per_device_state=grids, terms=dryrun.GRID_NOT_COUNTED)
+    # (b), (c) the cells this script runs, against the card's counted run
+    with open(os.path.join(out, "predictions.json")) as f:
+        preds = json.load(f)
+    child_s = preds.pop("child_s")
+    h100 = {(a, n): r for (m, a, n), r in recs.items() if m == "h100"}
+    pairs = [("phi4-mini-train-4k", preds["phi4-mini-train-4k"], "meta"),
+             ("phi4-mini-decode-8x2048", preds["phi4-mini-decode-8x2048"],
+              "meta"),
+             ("xdeepfm-train-batch", h100[("xdeepfm", "train_batch")],
+              "meta"),
+             ("xdeepfm-serve-bulk", h100[("xdeepfm", "serve_bulk")], "meta"),
+             ("egnn-ogbn-products.forward", egnn_fwd, "gnn"),
+             ("egnn-ogbn-products.step", h100[("egnn", "ogb_products")],
+              "gnn")]
+    checks = []
+    for cell, pred, how in pairs:
+        checks.append(_dryrun_compare(cell, pred, how))
+        line("dryrun.check", **checks[-1])
+    # (d) the ring's collective bytes (checked in the mesh phase)
+    # (e) the card's memory beside the dry run's constant
+    props = torch.cuda.get_device_properties(0)
+    res = dict(statuses=statuses, total_memory=props.total_memory,
+               hbm_bytes_constant=analysis.HBM_BYTES, nvidia_smi=smi_line(),
+               ring_collectives=COUNTED["mesh.ring"],
+               gnn_probes_s=probes_s, egnn_forward_probes_s=fwd_probe_s,
+               child_s=child_s, waited_for_child_s=waited_s,
+               phase_s=time.perf_counter() - phase_t0)
+    line("dryrun", **res)
+    return res
+
+
 def main():
     # the port must import before anything is printed: a copy of this
     # script without the repository fails here, with nothing on stdout
@@ -5798,6 +6216,16 @@ def main():
     from repro_torch.kernels.segment_reduce import ops as sops
     phase_device()
     phase_build()
+    child = start_dryrun_child()
+    try:
+        run_phases(child)
+    finally:
+        stop_dryrun_child(child)
+
+
+def run_phases(child: dict) -> None:
+    from repro_torch.kernels.ivf_topk import ops
+    from repro_torch.kernels.segment_reduce import ops as sops
     kern = {"probe": measure_probe(),
             "shared": measure_shared(4096, 0.5),   # the configured delta
             # slot histories as the RAG phase's prompts make them
@@ -5886,6 +6314,7 @@ def main():
     kern["accumulate"]["widths"]["xdeepfm_1"] = {"linear_w":
                                                  rec_kern["linear_w"]}
     phase_launch_serve()
+    phase_dryrun(child)
     line("launches", vector=dict(zip(("probe", "shared"), after_vector)),
          maint={"probe": after_maint[0] - after_vector[0],
                 "shared": after_maint[1] - after_vector[1]},
@@ -5953,5 +6382,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--durable-child"]:
         durable_child(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--dryrun-child"]:
+        dryrun_child(sys.argv[2])
     else:
         main()

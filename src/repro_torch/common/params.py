@@ -7,8 +7,14 @@ target device, one tensor at a time, so building a model never holds more
 than one fp32 copy of its largest matrix (phi4-mini's 200,064 × 3,072
 embedding: 2.5 GB) beside the finished parameters. The draws differ from
 ``jax.random``'s for the same seed: parity with the reference goes through
-``convert.lm_params_from_jax``. Parameters are plain dicts of tensors,
-with no logical-axes tree (the port shards nothing yet).
+``convert.lm_params_from_jax``. Parameters are plain dicts of tensors;
+their logical axes, which only the dry run reads, are built beside them
+by ``launch.dryrun.param_axes``.
+
+On the meta device (the dry run's traces) there is no generator
+(``torch.Generator`` takes no meta device): ``dense``, ``zeros`` and
+``ones`` return ``torch.empty`` of the shape and dtype, which hold no
+data.
 """
 from __future__ import annotations
 
@@ -49,14 +55,18 @@ class Init:
     def __init__(self, seed: int, device: torch.device, dtype: torch.dtype):
         self.device = torch.device(device)
         self.dtype = dtype
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            int(seed))
+        self.meta = self.device.type == "meta"
+        self.generator = None if self.meta else torch.Generator(
+            device=self.device).manual_seed(int(seed))
 
     def dense(self, shape: Tuple[int, ...], fan_in: Optional[int] = None,
               scale: float = 1.0,
               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """A normal draw times ``scale / sqrt(fan_in)``, in ``dtype`` (None =
         the model dtype; the MoE router is fp32 whatever the model's)."""
+        if self.meta:
+            return torch.empty(shape, dtype=dtype or self.dtype,
+                               device=self.device)
         fi = fan_in if fan_in is not None else shape[0]
         w = torch.randn(shape, generator=self.generator, device=self.device,
                         dtype=torch.float32)
@@ -64,7 +74,9 @@ class Init:
         return w.to(dtype or self.dtype)
 
     def zeros(self, shape: Tuple[int, ...]) -> torch.Tensor:
-        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+        fill = torch.empty if self.meta else torch.zeros
+        return fill(shape, dtype=self.dtype, device=self.device)
 
     def ones(self, shape: Tuple[int, ...]) -> torch.Tensor:
-        return torch.ones(shape, dtype=self.dtype, device=self.device)
+        fill = torch.empty if self.meta else torch.ones
+        return fill(shape, dtype=self.dtype, device=self.device)

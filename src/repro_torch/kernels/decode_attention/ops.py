@@ -11,6 +11,14 @@ kernel launch: the kernel's last block per (row, KV head) merges the
 splits, counting arrivals in a small int32 buffer kept per device and
 stream (the kernel leaves it at 0). ``launches`` counts kernel launches and
 nothing else.
+
+On meta tensors (the dry run's traces) it runs the CUDA route's checks and
+allocates the CUDA route's output and split workspace (planned for the
+H100's ``H100_SMS`` streaming multiprocessors), and computes nothing.
+Every route opens the dry-run counter's kernel region (``roofline.trace``):
+a call counts the formula of the kernel's bound, each valid K and V row
+read once, the mask, q in and out (meta: every position valid, the worst
+case).
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.roofline import trace
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -36,6 +45,7 @@ MAX_TILES = 8            # tiles per split, at most (csrc kMaxTiles)
 MAX_SPLITS = 512         # splits per (row, KV head), at most (csrc kMaxSplits)
 MAX_S = MAX_SPLITS * MAX_TILES * TILE
 BLOCKS_PER_SM = 4        # splits planned for at least this many blocks per SM
+H100_SMS = 132           # the meta route's plan: an H100 SXM's SMs
 _sm_count: Dict[torch.device, int] = {}
 _arrivals: Dict[Tuple[int, int], torch.Tensor] = {}
 
@@ -135,7 +145,7 @@ def _check(q, k, v, valid) -> None:
         if not t.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be contiguous")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
+        if t.device.type == "cuda" and t.data_ptr() % 16:
             raise ValueError(f"decode_attention: {name} must be 16-byte "
                              "aligned")
 
@@ -145,26 +155,51 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, H, hd) with H = Hkv·G (GQA); k/v (B, S, Hkv, hd); valid (B, S)
     bool. Returns (B, H, hd) in q's dtype: softmax(q·kᵀ/√hd) over the valid
     positions, times v, in fp32; 0 for a row with no valid position."""
+    with trace.kernel("decode_attention", lambda: _work(q, k, valid)):
+        return _route(q, k, v, valid)
+
+
+def _work(q, k, valid):
+    """(flops, class, bytes) of one call: each valid K and V row read once,
+    the mask, q in and out; two fp32 products a valid (position, head)."""
+    b, h, hd = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    if q.device.type == "meta":
+        trace.assume("decode_attention on meta tensors: every cache position "
+                     "valid (the worst case)")
+        n_valid = b * s
+    else:
+        n_valid = int(valid.sum())
+    es = q.element_size()
+    nbytes = n_valid * hkv * hd * 2 * es + b * s + 2 * b * h * hd * es
+    return 4.0 * n_valid * h * hd, "fp32", nbytes
+
+
+def _route(q, k, v, valid):
     if q.device.type == "cpu":
         b, h, hd = q.shape
         hkv = k.shape[2]
         out = decode_attention_ref(q.reshape(b, hkv, h // hkv, hd), k, v,
                                    valid)
         return out.reshape(b, h, hd)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention runs on CUDA or CPU tensors, got "
                          f"{q.device}")
     _check(q, k, v, valid)
     b, h, hd = q.shape
     s, hkv = k.shape[1], k.shape[2]
     g = h // hkv
-    if q.device.index != torch.cuda.current_device():
+    meta = q.device.type == "meta"
+    if not meta and q.device.index != torch.cuda.current_device():
         raise ValueError(f"decode_attention: q is on {q.device}, the current "
                          f"device is cuda:{torch.cuda.current_device()}")
-    tiles, splits = plan(b, hkv, s, _sms(q.device))
+    tiles, splits = plan(b, hkv, s, H100_SMS if meta else _sms(q.device))
     ws = torch.empty((b, hkv, splits, g, hd + 2), dtype=torch.float32,
                      device=q.device)
     out = torch.empty_like(q)
+    trace.peak_here()               # the workspace and the output at once
+    if meta:
+        return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     arrivals = _arrival_counters(q.device, stream, b * hkv)
     err = _lib().decode_attention(

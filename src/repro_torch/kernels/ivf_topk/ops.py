@@ -19,6 +19,15 @@ k-th best score, and at most k chunks can have such a max, so the k·chunk
 rescored rows contain the exact (quantized-score) top-k. This holds for any
 split of the rows into chunks, so also for chunks cut at every probe's
 segment end.
+
+On meta tensors (the dry run's traces) the scans run the CUDA route's
+checks and set-up (limbs, the probe order) and allocate its outputs, and
+compute nothing. Each scan call is one region of the dry-run counter
+(``roofline.trace``) on every route, counted by the formula of its bound:
+the int8 tensor-core operations of the limb passes, each probed partition
+(meta: as many as the probes could name, the worst case) or shared row
+read once with its 12 bytes of affine terms, the queries, and the chunk
+outputs written.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from repro_torch.common.topk import top_k
 from repro_torch.kernels import _build
 from repro_torch.kernels.ivf_topk import ref
 from repro_torch.kernels.ivf_topk.ref import NEG, pad_topk, topk_from_chunks
+from repro_torch.roofline import trace
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "ivf_topk.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -116,7 +126,7 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 
 def _device_of(queries: torch.Tensor) -> torch.device:
-    if queries.device.type != "cuda":
+    if queries.device.type not in ("cuda", "meta"):
         raise ValueError(f"scan kernels run on CUDA or CPU tensors, got "
                          f"{queries.device}")
     return queries.device
@@ -142,6 +152,9 @@ def _check_rows(fn: str, queries, qsum, data, aff, scale, bias, chunk):
 def _launch(fn_name: str, device: torch.device, args, out_shape):
     cmax = torch.empty(out_shape, dtype=torch.float32, device=device)
     carg = torch.empty(out_shape, dtype=torch.int32, device=device)
+    trace.peak_here()            # the limbs, the probe order and the outputs
+    if device.type == "meta":
+        return cmax, carg
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(_lib(), fn_name)(*args, cmax.data_ptr(), carg.data_ptr(),
@@ -171,6 +184,28 @@ def probe_scan(queries: torch.Tensor, qsum: torch.Tensor, slab: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """IVF probe scan (see ``ref.probe_scan`` for the contract). Every entry
     of ``probes`` must name a partition, 0 ≤ p < K·cap / cap."""
+    with trace.kernel("ivf_probe_scan", lambda: _probe_work(
+            queries, slab, probes, cap, chunk)):
+        return _probe_route(queries, qsum, slab, aff, scale, bias, probes,
+                            cap, chunk)
+
+
+def _probe_work(queries, slab, probes, cap, chunk):
+    nq, d = queries.shape
+    n_probe = probes.shape[1]
+    if queries.device.type == "meta":
+        trace.assume("ivf_probe_scan on meta tensors: every probe names a "
+                     "distinct partition (the worst case)")
+        distinct = min(slab.shape[0] // max(cap, 1), nq * n_probe)
+    else:
+        distinct = int(torch.unique(probes).numel())
+    nchp = -(-cap // chunk)
+    nbytes = (distinct * cap * (d + 12) + nq * d * 4 + nq * 4
+              + nq * n_probe * 4 + 2 * nq * n_probe * nchp * 4)
+    return 2.0 * N_LIMBS * nq * n_probe * cap * d, "int8", nbytes
+
+
+def _probe_route(queries, qsum, slab, aff, scale, bias, probes, cap, chunk):
     if queries.device.type == "cpu":
         return ref.probe_scan(queries, qsum, slab, aff, scale, bias, probes,
                               cap, chunk)
@@ -192,7 +227,8 @@ def probe_scan(queries: torch.Tensor, qsum: torch.Tensor, slab: torch.Tensor,
                    bias.data_ptr(), order.data_ptr(), offsets.data_ptr(),
                    nq, d, n_parts, n_probe, cap, chunk, vec_ok),
                   (nq, n_probe * -(-cap // chunk)))
-    probe_scan.launches += 1
+    if dev.type == "cuda":
+        probe_scan.launches += 1
     return out
 
 
@@ -203,6 +239,20 @@ def shared_scan(queries: torch.Tensor, qsum: torch.Tensor, data: torch.Tensor,
                 aff: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                 chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shared-slab scan (see ``ref.shared_scan`` for the contract)."""
+    with trace.kernel("ivf_shared_scan", lambda: _shared_work(
+            queries, data, chunk)):
+        return _shared_route(queries, qsum, data, aff, scale, bias, chunk)
+
+
+def _shared_work(queries, data, chunk):
+    nq, d = queries.shape
+    n = data.shape[0]
+    nbytes = (n * (d + 12) + nq * d * 4 + nq * 4
+              + 2 * nq * -(-n // chunk) * 4)
+    return 2.0 * N_LIMBS * nq * n * d, "int8", nbytes
+
+
+def _shared_route(queries, qsum, data, aff, scale, bias, chunk):
     if queries.device.type == "cpu":
         return ref.shared_scan(queries, qsum, data, aff, scale, bias, chunk)
     dev, nq, d, n = _check_rows("shared_scan", queries, qsum, data, aff,
@@ -214,7 +264,8 @@ def shared_scan(queries: torch.Tensor, qsum: torch.Tensor, data: torch.Tensor,
                    data.data_ptr(), aff.data_ptr(), scale.data_ptr(),
                    bias.data_ptr(), nq, n, d, chunk, vec_ok),
                   (nq, -(-n // chunk)))
-    shared_scan.launches += 1
+    if dev.type == "cuda":
+        shared_scan.launches += 1
     return out
 
 

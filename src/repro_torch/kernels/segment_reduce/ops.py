@@ -23,6 +23,13 @@ raise ``ValueError`` for an input the kernel does not take.
 nothing else (both first entry points launch through it);
 ``segment_sum_csr_accumulate.launches`` counts the in-place kernel's.
 
+On meta tensors (the dry run's traces) each entry point runs the CUDA
+route's checks and allocates its outputs, and computes nothing. Every
+route opens the dry-run counter's kernel region (``roofline.trace``),
+which counts a call by the formula of the kernel's bound: one fp32 add an
+entry (and, in place, one a row), each entry, index and touched row read
+once and each output row written once.
+
 Both are differentiable (``_SegmentSumCSR``, on either device) when the
 messages need a gradient: the backward is the transpose of the sum, a
 gather of each message's cotangent row by its segment, 0 for a message no
@@ -42,6 +49,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.segment_reduce.ref import (
     csr_from_ids, segment_sum_csr_accumulate_ref, segment_sum_csr_ref)
+from repro_torch.roofline import trace
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "segment_reduce.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -112,9 +120,41 @@ def _check(messages, rowptr, perm, out, seg_lo) -> None:
             or not 0 <= seg_lo <= out.shape[0] - n):
         raise ValueError(f"segment_sum: out {tuple(out.shape)} cannot take "
                          f"rows [{seg_lo}, {seg_lo + n}) of width {d}")
-    if dev.index != torch.cuda.current_device():
+    if dev.type == "cuda" and dev.index != torch.cuda.current_device():
         raise ValueError(f"segment_sum: messages are on {dev}, the current "
                          f"device is cuda:{torch.cuda.current_device()}")
+
+
+def _entries(messages, rowptr, perm) -> int:
+    """The entries a call reads: its data's, or on meta tensors (no data)
+    every listed one, the worst case."""
+    if messages.device.type == "meta":
+        trace.assume("segment kernels on meta tensors: every listed entry "
+                     "read (the worst case)")
+        return perm.numel() if perm is not None else messages.shape[0]
+    return int(rowptr[-1]) - int(rowptr[0]) if rowptr.numel() else 0
+
+
+def _sum_work(messages, rowptr, perm):
+    """(flops, class, bytes) of one summing call: each entry (and its
+    index) read once, each segment's row written once, rowptr read."""
+    n, d, es = rowptr.numel() - 1, messages.shape[1], messages.element_size()
+    e = _entries(messages, rowptr, perm)
+    nbytes = (e * d * es + n * d * es + (n + 1) * 4
+              + (0 if perm is None else e * 4))
+    return float(e * d), "fp32", nbytes
+
+
+def _acc_work(messages, rowptr, perm, rows, out):
+    """(flops, class, bytes) of one in-place call: each entry, index and
+    listed row read once, each touched row of ``out`` read and written."""
+    r, d = rowptr.numel() - 1, messages.shape[1]
+    e = _entries(messages, rowptr, perm)
+    nbytes = (e * d * messages.element_size()
+              + (0 if perm is None else e * 4) + (r + 1) * 4
+              + (0 if rows is None else r * 4)
+              + 2 * r * d * out.element_size())
+    return float(e * d + r * d), "fp32", nbytes
 
 
 def csr_transpose(grad: torch.Tensor, rowptr: torch.Tensor,
@@ -192,14 +232,20 @@ def _segment_sum_csr(messages, rowptr, perm, out, seg_lo) -> torch.Tensor:
             raise ValueError("segment_sum_csr: seg_lo needs an out tensor")
         out = torch.empty((n, messages.shape[1]), dtype=messages.dtype,
                           device=messages.device)
+    with trace.kernel("segment_sum",
+                      lambda: _sum_work(messages, rowptr, perm)):
+        return _segment_sum_route(messages, rowptr, perm, out, seg_lo, n)
+
+
+def _segment_sum_route(messages, rowptr, perm, out, seg_lo, n):
     if messages.device.type == "cpu":
         out[seg_lo:seg_lo + n] = segment_sum_csr_ref(messages, rowptr, perm)
         return out
-    if messages.device.type != "cuda":
+    if messages.device.type not in ("cuda", "meta"):
         raise ValueError(f"segment_sum runs on CUDA or CPU tensors, got "
                          f"{messages.device}")
     _check(messages, rowptr, perm, out, seg_lo)
-    if n == 0:
+    if n == 0 or messages.device.type == "meta":
         return out
     d = messages.shape[1]
     es = messages.element_size()
@@ -279,10 +325,16 @@ def segment_sum_csr_accumulate(messages: torch.Tensor, rowptr: torch.Tensor,
     if rows is not None and seg_lo:
         raise ValueError("segment_sum_csr_accumulate: rows= and seg_lo= "
                          "exclude each other")
+    with trace.kernel("segment_sum_csr_accumulate",
+                      lambda: _acc_work(messages, rowptr, perm, rows, out)):
+        return _accumulate_route(messages, rowptr, perm, out, rows, seg_lo, n)
+
+
+def _accumulate_route(messages, rowptr, perm, out, rows, seg_lo, n):
     if messages.device.type == "cpu":
         return segment_sum_csr_accumulate_ref(messages, rowptr, perm, out=out,
                                               rows=rows, seg_lo=seg_lo)
-    if messages.device.type != "cuda":
+    if messages.device.type not in ("cuda", "meta"):
         raise ValueError(f"segment_sum runs on CUDA or CPU tensors, got "
                          f"{messages.device}")
     _check(messages, rowptr, perm, out, seg_lo)
@@ -291,7 +343,7 @@ def segment_sum_csr_accumulate(messages: torch.Tensor, rowptr: torch.Tensor,
                              or not rows.is_contiguous()):
         raise ValueError("segment_sum_csr_accumulate: rows must be "
                          "contiguous int32 on the messages' device")
-    if n == 0:
+    if n == 0 or messages.device.type == "meta":
         return out
     g = group_size(n, messages.shape[0] if perm is None else perm.numel())
     stream = torch.cuda.current_stream(messages.device).cuda_stream

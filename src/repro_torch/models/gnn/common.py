@@ -72,6 +72,7 @@ edges and its ``psum``. S = 1 runs the ring too.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
@@ -95,6 +96,26 @@ MSG_BLOCK_EDGES = 1 << 20
 # temporaries of one block, and messages of one chunk, at most
 MSG_BLOCK_BYTES = 16 << 30
 CHUNK_MSG_BYTES = 1 << 30
+
+
+@contextlib.contextmanager
+def scaled_budgets(scale: float):
+    """The four budgets above times ``scale`` while it is open, for engines
+    built inside it (a power of two keeps the blocks' powers of two): the
+    dry run's probes shrink a cell uniformly, nodes, edges, blocks and
+    chunks alike, so that a probe runs the cell's blocks and chunks at a
+    fraction of their rows (``launch/dryrun.py``)."""
+    global DEFAULT_CHUNK_EDGES, MSG_BLOCK_EDGES, MSG_BLOCK_BYTES
+    global CHUNK_MSG_BYTES
+    saved = (DEFAULT_CHUNK_EDGES, MSG_BLOCK_EDGES, MSG_BLOCK_BYTES,
+             CHUNK_MSG_BYTES)
+    DEFAULT_CHUNK_EDGES, MSG_BLOCK_EDGES, MSG_BLOCK_BYTES, CHUNK_MSG_BYTES = (
+        max(1, int(b * scale)) for b in saved)
+    try:
+        yield
+    finally:
+        (DEFAULT_CHUNK_EDGES, MSG_BLOCK_EDGES, MSG_BLOCK_BYTES,
+         CHUNK_MSG_BYTES) = saved
 
 
 class FlatGraph(NamedTuple):
@@ -205,7 +226,9 @@ class SortedEdges:
 
     def __init__(self, src: torch.Tensor, dst: torch.Tensor,
                  mask: torch.Tensor, n: int,
-                 chunk_edges: int = DEFAULT_CHUNK_EDGES):
+                 chunk_edges: Optional[int] = None):
+        if chunk_edges is None:
+            chunk_edges = DEFAULT_CHUNK_EDGES
         if chunk_edges < 1:
             raise ValueError(f"chunk_edges must be >= 1, got {chunk_edges}")
         self.n = n
@@ -395,7 +418,7 @@ class LocalExec(SortedEdges):
     """Single-device engine over a FlatGraph: its edges sorted by
     destination over its own nodes (``SortedEdges``)."""
 
-    def __init__(self, g: FlatGraph, chunk_edges: int = DEFAULT_CHUNK_EDGES):
+    def __init__(self, g: FlatGraph, chunk_edges: Optional[int] = None):
         self.g = g
         super().__init__(g.edge_src, g.edge_dst, g.edge_mask, g.n_nodes,
                          chunk_edges)
@@ -524,7 +547,7 @@ class RingExec:
     def __init__(self, esrc: torch.Tensor, edst: torch.Tensor,
                  emask: torch.Tensor, n_loc: int, mesh: Mesh, *,
                  split_model: bool = True,
-                 chunk_edges: int = DEFAULT_CHUNK_EDGES):
+                 chunk_edges: Optional[int] = None):
         self.mesh = mesh
         self.axes = data_axes(mesh)
         if not self.axes:
@@ -740,7 +763,7 @@ class RingExec:
 
     @classmethod
     def of(cls, g: RingGraph, mesh: Mesh,
-           chunk_edges: int = DEFAULT_CHUNK_EDGES) -> "RingExec":
+           chunk_edges: Optional[int] = None) -> "RingExec":
         """The engine over a ``RingGraph``'s edges, its nodes split evenly
         over the mesh's data shards."""
         n_shards = g.esrc_local.shape[0]

@@ -35,8 +35,7 @@ from repro_torch.models.gnn import dimenet as dimenet_mod
 from repro_torch.models.gnn import egnn as egnn_mod
 from repro_torch.models.gnn import equiformer_v2 as eqv2_mod
 from repro_torch.models.gnn import nequip as nequip_mod
-from repro_torch.models.gnn.common import (DEFAULT_CHUNK_EDGES, FlatGraph,
-                                           LocalExec, run_flat)
+from repro_torch.models.gnn.common import FlatGraph, LocalExec, run_flat
 from repro_torch.sharding.rules import require_mesh
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
@@ -142,9 +141,10 @@ def init_model(cfg, seed: int, d_feat_in: int, n_out: int = N_CLASSES, *,
     return _module(cfg).init(cfg, seed, d_feat_in, n_out, device=device)
 
 
-def engine(cfg, g: FlatGraph, chunk_edges: int = DEFAULT_CHUNK_EDGES):
+def engine(cfg, g: FlatGraph, chunk_edges: Optional[int] = None):
     """The engine ``cfg``'s model runs on over ``g``: a ``LocalExec`` at
-    the chunk budget ``chunk_edges``, sized by the model."""
+    the chunk budget ``chunk_edges`` (None: the default), sized by the
+    model."""
     return _module(cfg).engine(cfg, LocalExec(g, chunk_edges))
 
 

@@ -200,7 +200,7 @@ class _TokenGrad:
         version on CPU tensors)."""
         if self.cot is None:
             return
-        rowptr, perm, rows = csr_by_row(self.tokens)
+        rowptr, perm, rows = csr_by_row(self.tokens, grad.shape[0])
         seg_ops.segment_sum_csr_accumulate(self.cot.contiguous(), rowptr,
                                            perm, out=grad, rows=rows)
         self.cot = None

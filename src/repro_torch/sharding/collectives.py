@@ -21,7 +21,10 @@ are the only place that loops over shards:
   zeros, as in JAX); ``axis_index`` is a shard's coordinate along them.
 
 A move between shards is ``.to(device)``, a no-op where the mesh repeats
-one device (four shards on one card). Every collective is built of
+one device (four shards on one card). Each collective reports its bytes
+to the dry-run counter (``roofline.trace.collective``) as the reference's
+HLO would carry them: per device, over the shards of the groups with more
+than one member (a group of one moves nothing). Every collective is built of
 differentiable tensor operations, so autograd runs through them: the
 gradient of a replicated input is the sum of its shards' gradients, as
 ``shard_map`` gives it for a ``P()`` operand.
@@ -40,6 +43,7 @@ from typing import Callable, List, NamedTuple, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.roofline import trace
 from repro_torch.sharding.rules import Mesh, _axes_size, _present
 
 Axes = Union[str, Sequence[str]]
@@ -100,6 +104,16 @@ def groups(mesh: Mesh, axes: Axes) -> List[List[int]]:
     return [[s.index for s in sorted(g, key=lambda s: axis_index(mesh, axes,
                                                                   s))]
             for g in by_key.values()]
+
+
+def _report(kind: str, xs, gs, result_bytes) -> None:
+    """One collective over the groups ``gs`` to the dry-run counter: per
+    device ``result_bytes(group, operand bytes)``, none for groups of one."""
+    big = [g for g in gs if len(g) > 1]
+    if big:
+        g = big[0]
+        trace.collective(kind, result_bytes(g, trace.tensor_bytes(xs[g[0]])),
+                         sum(len(g) for g in big))
 
 
 def map_shards(fn: Callable, mesh: Mesh, *lists) -> list:
@@ -170,6 +184,7 @@ def psum(xs: Sequence[torch.Tensor], mesh: Mesh, axes: Axes
     left to right in the group's order on the first member's device."""
     out = list(xs)
     devs = [s.device for s in shards(mesh)]
+    _report("all-reduce", xs, groups(mesh, axes), lambda g, t: t)
     for g in groups(mesh, axes):
         total = xs[g[0]]
         for i in g[1:]:
@@ -193,6 +208,7 @@ def all_gather(xs: Sequence[torch.Tensor], mesh: Mesh, axes: Axes,
     order."""
     out = list(xs)
     devs = [s.device for s in shards(mesh)]
+    _report("all-gather", xs, groups(mesh, axes), lambda g, t: len(g) * t)
     for g in groups(mesh, axes):
         dev = xs[g[0]].device
         parts = [xs[i].to(dev) for i in g]
@@ -212,6 +228,12 @@ def ppermute(xs: Sequence[torch.Tensor], mesh: Mesh, axes: Axes,
     ``perm``; a shard that receives nothing gets zeros."""
     out = [None] * len(xs)
     devs = [s.device for s in shards(mesh)]
+    moves = [(s, d) for s, d in perm if s != d]
+    if moves:
+        gs = groups(mesh, axes)
+        trace.collective("collective-permute",
+                         trace.tensor_bytes(xs[gs[0][moves[0][0]]]),
+                         len(moves) * len(gs))
     for g in groups(mesh, axes):
         for src, dst in perm:
             out[g[dst]] = xs[g[src]].to(devs[g[dst]])

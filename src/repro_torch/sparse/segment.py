@@ -20,9 +20,12 @@ depend on it.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels.segment_reduce import ops
+from repro_torch.roofline import trace
 
 
 def _ok(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -33,12 +36,28 @@ def _expand(mask: torch.Tensor, ndim: int) -> torch.Tensor:
     return mask.reshape(mask.shape + (1,) * (ndim - 1))
 
 
-def csr_by_row(idx: torch.Tensor):
+def csr_by_row(idx: torch.Tensor, n_rows: Optional[int] = None):
     """``idx``'s positions grouped by the row they read, over the distinct
     rows only: ``(rowptr (R + 1,), perm, rows (R,))``, all int32, from a
-    stable sort (ties in position order) and ``unique_consecutive``."""
+    stable sort (ties in position order) and ``unique_consecutive``.
+
+    On meta tensors (the dry run's traces), which hold no ids, R is the
+    worst case, every id distinct (R = ``idx.numel()``, at most the
+    ``n_rows`` of the table read, when given): an upper bound of the rows
+    the transposes touch, noted in the dry-run counter.
+    ``unique_consecutive``, which has no meta implementation, is counted
+    by its bytes."""
     keys, perm = torch.sort(idx, stable=True)
-    rows, counts = torch.unique_consecutive(keys, return_counts=True)
+    if idx.device.type == "meta":
+        trace.assume("csr_by_row on meta tensors: every id distinct (the "
+                     "worst case)")
+        n = keys.numel() if n_rows is None else min(keys.numel(), n_rows)
+        rows = torch.empty(n, dtype=keys.dtype, device=idx.device)
+        counts = torch.empty(n, dtype=torch.int64, device=idx.device)
+        trace.note_op("unique_consecutive", keys.numel() * keys.element_size(),
+                      n * keys.element_size() + n * 8)
+    else:
+        rows, counts = torch.unique_consecutive(keys, return_counts=True)
     rowptr = torch.zeros(rows.numel() + 1, dtype=torch.int32,
                          device=idx.device)
     rowptr[1:] = counts.cumsum(0)
@@ -62,7 +81,7 @@ class _GatherAdd(torch.autograd.Function):
         idx, = ctx.saved_tensors
         out = grad.new_zeros(ctx.shape)
         if idx.numel():
-            rowptr, perm, rows = csr_by_row(idx)
+            rowptr, perm, rows = csr_by_row(idx, ctx.shape[0])
             ops.segment_sum_csr_accumulate(grad.contiguous(), rowptr, perm,
                                            out=out, rows=rows)
         return out, None

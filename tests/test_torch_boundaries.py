@@ -43,6 +43,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import repro_torch.models.gnn.equiformer_v2\n"
         "import repro_torch.sharding.collectives, repro_torch.launch.mesh\n"
         "import repro_torch.models.recsys.xdeepfm, repro_torch.layers.moe\n"
+        "import repro_torch.roofline.trace, repro_torch.roofline.analysis\n"
+        "import repro_torch.launch.dryrun\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib')) or m == 'repro' or m.startswith('repro.'))\n"
         "print(','.join(bad))\n")

@@ -193,14 +193,18 @@ def test_pad_and_topk_from_chunks_match_reference(rng):
 
 
 def test_wrappers_refuse_other_devices():
-    """Only CPU tensors take the plain version; any other non-CUDA device
-    raises instead of falling back."""
+    """Only CPU tensors take the plain version. Meta tensors (the dry run's
+    traces) take the CUDA route: its checks, then its outputs allocated,
+    nothing computed; a call the card refuses raises there too, instead of
+    falling back."""
     q = torch.zeros((2, 16), device="meta")
+    rest = (torch.zeros((4, 16), dtype=torch.int8, device="meta"),
+            *(torch.zeros(4, device="meta"),) * 3)
+    cmax, carg = ops.shared_scan(q, q.sum(1), *rest, 1)
+    assert cmax.device.type == carg.device.type == "meta"
+    assert tuple(cmax.shape) == (2, 4) and carg.dtype == torch.int32
     with pytest.raises(ValueError):
-        ops.shared_scan(q, q.sum(1), torch.zeros((4, 16), dtype=torch.int8,
-                                                 device="meta"),
-                        *(torch.zeros(4, device="meta"),) * 3, 1)
-
+        ops.shared_scan(q, q.sum(1), *rest, 0)
 
 
 # ------------------------------------------------- the kernels' limb arithmetic

@@ -1714,3 +1714,102 @@ def test_multimodal_rag_example_on_the_card(capsys):
     mod.main(None)
     assert "served 12/12 requests" in capsys.readouterr().out
     assert dops.decode_attention.launches > before
+
+
+def _route_reading(fn, *state):
+    """(outputs' shapes and dtypes, bytes allocated over ``state`` at the
+    counter's peak, the kernels' counted work) of one call of ``fn``."""
+    from repro_torch.roofline.trace import Counter
+    with Counter() as c:
+        base = c.track(*state)
+        out = fn()
+    outs = out if isinstance(out, tuple) else (out,)
+    return ([(tuple(t.shape), t.dtype) for t in outs], c.peak - base,
+            c.summary()["kernels"])
+
+
+@pytest.mark.gpu
+def test_meta_routes_allocate_what_the_cuda_routes_do():
+    """Each kernel wrapper's meta route (the dry run's traces) allocates
+    the outputs and workspaces of its CUDA route, at their shapes and
+    dtypes, and is counted by the same formula (every position valid and
+    every partition probed, the meta route's worst case, in the data)."""
+    _need_card()
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.segment_reduce import ops as sops
+    g = torch.Generator(device="cuda").manual_seed(7)
+    # decode: 2 rows x 300 positions, 8 KV heads of G 3, hd 128, bf16
+    q = torch.randn(2, 24, 128, device="cuda", generator=g).bfloat16()
+    k = torch.randn(2, 300, 8, 128, device="cuda", generator=g).bfloat16()
+    valid = torch.ones(2, 300, dtype=torch.bool, device="cuda")
+    dops.decode_attention(q, k, k, valid)       # its arrival counters made
+    # segment sums: 5,000 rows of width 67 into 700 segments
+    msgs = torch.randn(5000, 67, device="cuda", generator=g)
+    ids = torch.randint(0, 700, (5000,), device="cuda", generator=g)
+    rowptr, perm = sops.csr_from_ids(ids, 700)
+    rows = torch.randperm(900, device="cuda", generator=g)[:700].to(
+        torch.int32)
+    acc = torch.zeros(900, 67, device="cuda")
+    # the probe scan: 16 queries, 8 probes each, every one of the 64
+    # partitions of 96 rows probed
+    slab, aff, scale, bias = _case(g, 64, 64 * 96)
+    qs = torch.randn(16, 64, device="cuda", generator=g)
+    probes = ((torch.arange(16, device="cuda")[:, None] * 8
+               + torch.arange(8, device="cuda")) % 64).to(torch.int32)
+    ops.probe_scan(qs, qs.sum(1), slab, aff, scale, bias, probes, 96, 16)
+    cases = {
+        "decode_attention": (lambda t: dops.decode_attention(*t),
+                             (q, k, k, valid)),
+        "segment_sum": (lambda t: sops.segment_sum_csr(*t),
+                        (msgs, rowptr, perm)),
+        "segment_sum_csr_accumulate": (
+            lambda t: sops.segment_sum_csr_accumulate(
+                t[0], t[1], t[2], out=t[3], rows=t[4]),
+            (msgs, rowptr, perm, acc, rows)),
+        "ivf_probe_scan": (lambda t: ops.probe_scan(*t, 96, 16),
+                           (qs, qs.sum(1), slab, aff, scale, bias, probes)),
+        "ivf_shared_scan": (lambda t: ops.shared_scan(*t, 16),
+                            (qs, qs.sum(1), slab, aff, scale, bias)),
+    }
+    for name, (fn, args) in cases.items():
+        meta = tuple(a.to("meta") for a in args)
+        got = _route_reading(lambda: fn(args), *args)
+        want = _route_reading(lambda: fn(meta), *meta)
+        assert got[0] == want[0], name
+        assert got[1] == want[1], name
+        assert got[2][name]["launches"] == want[2][name]["launches"] == 1
+        assert got[2][name]["flops"] == want[2][name]["flops"], name
+        assert got[2][name]["bytes"] == want[2][name]["bytes"], name
+
+
+@pytest.mark.gpu
+def test_counter_reads_the_same_on_the_card_and_on_meta():
+    """A smoke-width phi4-mini train step (bf16, 2 micro-batches of
+    distinct tokens) counted around its run on the card and around its
+    trace on the meta device: the same FLOPs by class, bytes and peak."""
+    _need_card()
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+    from repro_torch.roofline.trace import Counter
+    from repro_torch.train.optimizer import AdamWConfig, init_adamw
+    cfg = smoke_config("phi4-mini-3.8b")
+    rng = np.random.default_rng(3)
+    tok = torch.from_numpy(np.stack([
+        rng.permutation(cfg.vocab_size)[:2 * 32] for _ in range(2)]
+    ).reshape(2, 2, 32).astype(np.int32))
+    readings = {}
+    for dev in ("cuda", "meta"):
+        params = lm.init_lm(cfg, 0, device=dev)
+        opt = init_adamw(params)
+        t = tok.to(dev)
+        batch = {"tokens": t, "labels": t}
+        step = lm.make_train_step(cfg, None, lm.ExecOpts(q_block=16),
+                                  AdamWConfig(), grad_accum=2)
+        with Counter() as c:
+            c.track(params, opt, batch)
+            step(params, opt, batch)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+        readings[dev] = (dict(c.flops), c.bytes, c.peak,
+                         c.kernels["segment_sum_csr_accumulate"])
+    assert readings["cuda"] == readings["meta"]
