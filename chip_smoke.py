@@ -26,7 +26,11 @@ Phases (each prints one line; any failure exits non-zero):
                 histories, all 8 slots at the full 2,048 and short
                 histories, each twice for the same bits, with its launch
                 plan (tile, splits, blocks, shared memory), timed also
-                after a flush that leaves L2 clean. The delta kernel is
+                after a flush that leaves L2 clean; then at the reference's
+                smoke head dim 16 (bf16 and fp32, the tick's slots) and
+                over a bf16 cache of 2.42e9 elements, past 2^31
+                ([kernel.decode_attention.hd16_*], [...past_2_31]). The
+                delta kernel is
                 measured again after phase 4 at the delta size those
                 searches scanned, when ingest overflow grew the delta.
                 The probe kernel is also held against its plain version
@@ -106,6 +110,19 @@ Phases (each prints one line; any failure exits non-zero):
                 index through a snapshot (write_snapshot, read_snapshot,
                 restore_state): plain, typed and filtered hybrid_search
                 byte-equal; the hop operator three times bitwise.
+     racecheck — the port's concurrency contract on the card
+                (tools/racecheck_torch.py) over a get_config("hmgi")
+                index of 16,384 rows at d 384: (a) 4 seeded interleavings
+                of 3 searchers (search through a shared hot-result cache
+                and admission, the lazy id-row and sharded caches) against
+                a writer confined to another modality (insert, delete,
+                maintain, state_tree), each bitwise the card's
+                single-threaded oracle, no Eraser lockset warning and no
+                in-place write to a tensor of the published state during a
+                searcher's op; (b) 8 free-running searchers beside the
+                writer, the same checks, then RetrievalService with
+                micro-batching under 16 client threads, every response
+                bitwise the request alone. One [racecheck] line.
   6. rag      — RAGEngine over the phase-5 index with full-width
                 phi4-mini (32 layers, bf16, seeded random weights) and its
                 default maintenance pacing (a bounded maintain() every 4th
@@ -199,7 +216,9 @@ Phases (each prints one line; any failure exits non-zero):
                 (2, 2) prefill, and one of its MoE layers in fp32 on a
                 (2, 2) grid against each data shard's tokens through
                 moe_ffn(mesh=None): the same keep masks, outputs within
-                1e-5, two controls outside that bound ([mesh.lm]).
+                1e-5, two controls outside that bound ([mesh.lm]). (f)
+                RAGEngine(mesh=) on the smoke phi4-mini over a (1, 2)
+                grid: the token streams of the engine without a mesh.
      gnn_models — NequIP, DimeNet and Equiformer-v2 at their published
                 configs (fp32, seeded random weights, TF32 off), each on
                 the molecule cell (128 graphs of 30 nodes / 64 edges;
@@ -266,8 +285,10 @@ Phases (each prints one line; any failure exits non-zero):
                 bit for bit, timed beside its bound and index_add_.
      launch_serve — python -m repro_torch.launch.serve as child processes
                 on the card: --n-nodes 32768 --queries 256 --data-dir D,
-                then --recover on D, then --rag at the default size, each
-                exiting 0 with the reference's lines; recall@10 within
+                then --recover --rag on D (the reference's smoke
+                phi4-mini), each exiting 0 with the reference's lines;
+                the durable phase's crash harness sweep runs from here
+                beside it and the dryrun phase's probes; recall@10 within
                 0.05 of a --device cpu child at the first run's arguments
                 (run beside them).
      dryrun   — the H100 dry run (python -m repro_torch.launch.dryrun)
@@ -276,9 +297,10 @@ Phases (each prints one line; any failure exits non-zero):
                 singlepod/multipod grids' per-device state) run in a
                 background child of this script from the build phase on
                 (--dryrun-child, nice 10), its GNN cells' probes on the
-                card here; (a) one [dryrun.cell] line per cell, every cell
-                ok, skipped with the reference's reason or refused by a
-                kernel's own check, fits false where PERF.md §4 cuts a
+                card here; (a) one [dryrun.cell] line per cell: 37 ok and
+                the 3 dense LMs' long_500k skipped with the reference's
+                reason (none refused by a kernel's check since the decode
+                kernel takes 2^31 elements and more), fits false where PERF.md §4 cuts a
                 cell for memory and true where this script runs the
                 cell's step or call at its full shape; (b) the cells this
                 script runs at their shapes (phi4-mini-train-4k at its cut
@@ -378,8 +400,27 @@ PROGRESSIVE = (1, 2, 4, 8, 16)
 # cache (ROADMAP Queue 1 item 16)
 RAG_SLOTS, RAG_SEQ, RAG_REQUESTS = 8, 2048, 32
 # decode kernel vs its plain version: both round one fp32 result to bf16,
-# so they differ by at most 1 bf16 ulp of outputs |out| < 2 (2^-7)
+# so they differ by at most 1 bf16 ulp of outputs |out| < 2 (2^-7); the
+# kernel phase holds each output to one ulp of itself instead
+# (decode_attention.ref.bf16_excess: 2^-7 |ref| + 2^-16)
 DECODE_BF16_ATOL = 2.0 ** -7
+# the decode kernel's extents: the reference's smoke head dim 16
+# (its phi4-mini heads: Hkv 2, G 2) at the tick's slots and histories in
+# bf16 and fp32 (fp32 against fp32: DECODE_FP32_ATOL), and a bf16 cache of
+# DECODE_PAST_2_31 = (B, S, Hkv, G, hd), 2.42e9 elements (9.66 GB of K and
+# V) past 2^31, its plain version and SDPA DECODE_ROWS rows at a time; its
+# control, the plain version of the rows past 2^31 without their first
+# 64-position tile, must fail the bound
+DECODE_FP32_ATOL = 1e-5
+DECODE_PAST_2_31, DECODE_ROWS = (72, 32768, 8, 3, 128), 8
+# the racecheck phase: tools/racecheck_torch.py on the card over
+# get_config("hmgi") at d 384, RACE_ROWS rows in two modalities;
+# RACE_SEEDS seeded interleavings of 3 searchers x 2 rounds against one
+# writer, then RACE_FREE free-running searchers x RACE_ROUNDS beside the
+# writer, then RetrievalService under RACE_CLIENTS client threads of
+# RACE_REQUESTS requests each over RACE_QUERIES distinct queries
+RACE_ROWS, RACE_SEEDS, RACE_FREE, RACE_ROUNDS = 16_384, 4, 8, 4
+RACE_CLIENTS, RACE_REQUESTS, RACE_QUERIES = 16, 8, 64
 # 2-layer full-width copy, card vs CPU: fp32 with TF32 off, the same
 # function summed in another order on two devices; logits are O(1)
 CPU_LOGIT_ATOL = 1e-3
@@ -537,6 +578,9 @@ SERVE_NODES, SERVE_QUERIES, SERVE_RECALL_TOL = 32_768, 256, 0.05
 # DRYRUN_PEAK_SLACK for a meta trace (the caching allocator's rounding,
 # cuBLAS workspaces)
 DRYRUN_JOBS = 3
+# the 40 h100 records: every cell counted but the dense LMs' long_500k,
+# which the reference skips
+DRYRUN_STATUSES = {"ok": 37, "skipped": 3, "refused": 0}
 DRYRUN_TOL = {"meta": dict(flops=1e-3, bytes=0.10, peak=(-0.05, 0.10)),
               "gnn": dict(flops=0.05, bytes=0.10, peak=(-0.25, 0.25))}
 DRYRUN_PEAK_SLACK = 0.5 * 2 ** 30
@@ -2330,6 +2374,70 @@ def phase_durable_hybrid(index, corpus) -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+def phase_racecheck() -> dict:
+    """The port's concurrency contract on the card (``tools/racecheck_torch
+    .py``): (a) the canonical workload over a ``get_config("hmgi")`` index
+    of RACE_ROWS rows at d 384 under RACE_SEEDS seeded interleavings, each
+    bitwise the card's single-threaded oracle, no lockset warning, no
+    in-place write to the published state a searcher holds; (b)
+    RACE_FREE free-running searcher threads beside the writer, the same
+    checks; then ``RetrievalService`` with micro-batching, a hot-result
+    cache and admission under RACE_CLIENTS client threads, every response
+    bitwise the request retrieved alone. Returns the scans' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ivf_topk import ops
+    from tools import racecheck_torch as rc
+    phase_t0 = time.perf_counter()
+    before = (ops.probe_scan.launches, ops.shared_scan.launches)
+    wl = rc.Workload("cuda", cfg=get_config("hmgi"), n=RACE_ROWS, d=384)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - phase_t0
+    seeds, points, ops_done, warnings, changes = [], 0, 0, 0, 0
+    for seed in range(RACE_SEEDS):
+        t0 = time.perf_counter()
+        r = rc.canonical_workload(seed, workload=wl)
+        check(r["ok"], f"racecheck seed {seed}: lockset warnings "
+                       f"{r['warnings'][:3]}, mismatches {r['mismatches'][:3]}"
+                       f", version changes {r['version_changes'][:3]}; "
+                       f"repro: python -m tools.racecheck_torch --schedule "
+                       f"'{r['schedule']}'")
+        seeds.append(dict(seed=seed, points=r["points"], ops=r["ops"],
+                          s=time.perf_counter() - t0))
+        points += r["points"]
+        ops_done += r["ops"]
+        warnings += len(r["warnings"])
+        changes += len(r["version_changes"])
+    t0 = time.perf_counter()
+    free = rc.free_running(wl, n_searchers=RACE_FREE, rounds=RACE_ROUNDS)
+    check(free["ok"], f"racecheck free-running: mismatches "
+                      f"{free['mismatches'][:3]}, version changes "
+                      f"{free['version_changes'][:3]}")
+    free_s = time.perf_counter() - t0
+    changes += len(free["version_changes"])
+    t0 = time.perf_counter()
+    queries = np.random.default_rng(29).normal(
+        size=(RACE_QUERIES, 384)).astype(np.float32)
+    svc = rc.service_clients(wl.fresh(), queries, n_clients=RACE_CLIENTS,
+                             per_client=RACE_REQUESTS, k=wl.k)
+    check(svc["ok"], f"racecheck service: {svc['mismatches'][:3]}")
+    svc_s = time.perf_counter() - t0
+    launches = {"probe": ops.probe_scan.launches - before[0],
+                "shared": ops.shared_scan.launches - before[1]}
+    check(min(launches.values()) > 0,
+          f"racecheck: a scan kernel was not launched: {launches}")
+    ms = (time.perf_counter() - phase_t0) * 1e3
+    line("racecheck", seeds=RACE_SEEDS, ops=ops_done + free["ops"]
+         + svc["requests"], schedules=RACE_SEEDS, scheduling_points=points,
+         lockset_warnings=warnings, version_changes=changes, ms=ms,
+         nvidia_smi=smi_line(), rows=RACE_ROWS, d=384,
+         by_seed=seeds, free_running=dict(searchers=RACE_FREE,
+                                          rounds=RACE_ROUNDS, s=free_s),
+         service=dict(clients=RACE_CLIENTS, requests=svc["requests"],
+                      bitwise_alone=True, s=svc_s),
+         build_s=build_s, launches=launches)
+    return launches
+
+
 def stage_bytes(index, raw_queries) -> dict:
     """Time-free, per stage: the rows of a batch of queries against each
     query alone, byte for byte (True = every row the same). The stages of
@@ -2760,7 +2868,8 @@ def _measure_decode_case(case: str, lengths) -> dict:
     plain version and SDPA."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as dops
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.decode_attention.ref import (
+        BF16_FLOOR, BF16_RTOL, bf16_excess, decode_attention_ref)
     b, s, hkv, g, hd = RAG_SLOTS, RAG_SEQ, 8, 3, 128
     gen = torch.Generator(device="cuda").manual_seed(3)
     q, k, v = (torch.randn(shape, device="cuda", generator=gen).to(
@@ -2778,8 +2887,10 @@ def _measure_decode_case(case: str, lengths) -> dict:
     ref = plain()
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
-    check(err <= DECODE_BF16_ATOL,
-          f"decode_attention ({case}) max |d out| {err} > {DECODE_BF16_ATOL}")
+    excess = bf16_excess(out, ref)
+    check(excess <= 1.0,
+          f"decode_attention ({case}) max |d out| {err}: {excess} x its "
+          f"bound ({BF16_RTOL} |ref| + {BF16_FLOOR})")
     check(torch.equal(out.view(torch.int16), again.view(torch.int16)),
           f"decode_attention ({case}): two calls gave different bits")
     n_valid = int(np.sum(lengths))
@@ -2814,8 +2925,8 @@ def _measure_decode_case(case: str, lengths) -> dict:
     line(f"kernel.decode_attention.{case}",
          shape=dict(B=b, S=s, Hkv=hkv, G=g, hd=hd, dtype="bfloat16"),
          valid_lengths=[int(x) for x in lengths],
-         plan=dops.launch_plan(q, k), max_abs_err=err, same_bits_twice=True,
-         ms=kms, plain_ms=pms, library_ms=lms,
+         plan=dops.launch_plan(q, k), max_abs_err=err,
+         share_of_tolerance=excess, same_bits_twice=True, ms=kms, plain_ms=pms, library_ms=lms,
          library="F.scaled_dot_product_attention(bool mask, enable_gqa=True)",
          ms_clean_l2=kms_clean, library_ms_clean_l2=lms_clean,
          bound_ms=bms, bound_by=bby, share_of_bound=bms / kms,
@@ -2834,6 +2945,118 @@ def measure_decode(lengths) -> dict:
     _measure_decode_case("full", [RAG_SEQ] * RAG_SLOTS)
     _measure_decode_case("short", [100, 200, 50, 300, 10, 64, 128, 256])
     return ragged
+
+
+def measure_decode_extents() -> dict:
+    """The decode kernel at the extents the reference takes: its smoke
+    head dim 16 in bf16 and fp32 at the tick's slots and ragged histories,
+    and a bf16 cache past 2^31 elements (``DECODE_PAST_2_31``), each
+    against its plain version (bf16 output by output: ``bf16_excess``) and
+    timed beside its bound and SDPA. The cache past 2^31 carries a control
+    the bound must catch: the plain version of the rows that lie past 2^31
+    with their first 64-position tile left out."""
+    import torch.nn.functional as F
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention.ref import (
+        BF16_FLOOR, BF16_RTOL, bf16_excess, decode_attention_ref)
+    smoke = smoke_config("phi4-mini-3.8b")
+    lens_tick = np.random.default_rng(13).integers(132, 1601, RAG_SLOTS)
+    cases = [("hd16_bf16", (RAG_SLOTS, RAG_SEQ, smoke.n_kv_heads,
+                            smoke.n_heads // smoke.n_kv_heads,
+                            smoke.head_dim), torch.bfloat16, lens_tick),
+             ("hd16_fp32", (RAG_SLOTS, RAG_SEQ, smoke.n_kv_heads,
+                            smoke.n_heads // smoke.n_kv_heads,
+                            smoke.head_dim), torch.float32, lens_tick)]
+    b, s = DECODE_PAST_2_31[:2]
+    lens = np.random.default_rng(31).integers(s // 2, s + 1, b)
+    lens[-1] = s
+    cases.append(("past_2_31", DECODE_PAST_2_31, torch.bfloat16, lens))
+    out = {}
+    for case, (b, s, hkv, g, hd), dtype, lengths in cases:
+        gen = torch.Generator(device="cuda").manual_seed(hd + b)
+        q, k, v = (torch.randn(shape, device="cuda", generator=gen,
+                               dtype=dtype)
+                   for shape in ((b, hkv * g, hd), (b, s, hkv, hd),
+                                 (b, s, hkv, hd)))
+        lens_t = torch.as_tensor(np.asarray(lengths), device="cuda")
+        valid = torch.arange(s, device="cuda")[None, :] < lens_t[:, None]
+        rows = DECODE_ROWS if case == "past_2_31" else b
+
+        def plain_rows(i, mask):
+            return decode_attention_ref(
+                q[i:i + rows].view(-1, hkv, g, hd), k[i:i + rows],
+                v[i:i + rows], mask[i:i + rows]).view(-1, hkv * g, hd)
+
+        def plain():
+            return torch.cat([plain_rows(i, valid) for i in range(0, b, rows)])
+
+        def sdpa():
+            return torch.cat([F.scaled_dot_product_attention(
+                q[i:i + rows].view(-1, hkv * g, 1, hd),
+                k[i:i + rows].transpose(1, 2), v[i:i + rows].transpose(1, 2),
+                attn_mask=valid[i:i + rows, None, None, :], enable_gqa=True)
+                for i in range(0, b, rows)])
+
+        def kernel():
+            return dops.decode_attention(q, k, v, valid)
+
+        got, again, ref = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        big = case == "past_2_31"
+        if dtype == torch.float32:
+            tol, excess = DECODE_FP32_ATOL, err / DECODE_FP32_ATOL
+        else:
+            tol = f"{BF16_RTOL} |ref| + {BF16_FLOOR}"
+            excess = bf16_excess(got, ref)
+        check(excess <= 1.0, f"decode_attention ({case}) max |d out| {err}: "
+                             f"{excess} x its bound ({tol})")
+        control = {}
+        if big:
+            # rows from `first` on start past 2^31 elements of K and V
+            first = -(-2 ** 31 // (s * hkv * hd))
+            dropped = valid.clone()
+            dropped[:, :64] = False
+            ctl, want = plain_rows(first, dropped), ref[first:first + rows]
+            share = bf16_excess(ctl, want)
+            check(share > 1.0, f"decode_attention ({case}): the dropped-tile "
+                               f"control is within the bound ({share} x)")
+            control = dict(control=f"rows {first}-{first + rows - 1} without "
+                                   f"positions 0-63", control_share=share,
+                           control_max_abs=float(
+                               (ctl.float() - want.float()).abs().max()))
+            del ctl, want, dropped
+        check(torch.equal(got, again),
+              f"decode_attention ({case}): two calls gave different bits")
+        ref_max = float(ref.float().abs().max())
+        del got, again, ref
+        flush = None if big else torch.ones(64 << 20, dtype=torch.int32,
+                                            device="cuda").zero_
+        n_valid = int(np.sum(lengths))
+        es = q.element_size()
+        nbytes = n_valid * hkv * hd * 2 * es + b * s + 2 * b * hkv * g * hd * es
+        bms, bby = bound(4.0 * n_valid * hkv * g * hd, nbytes)
+        reps = 5 if big else 50
+        res = dict(shape=dict(B=b, S=s, Hkv=hkv, G=g, hd=hd,
+                              dtype=str(dtype).replace("torch.", "")),
+                   elements=b * s * hkv * hd, max_abs_err=err, tolerance=tol,
+                   share_of_tolerance=excess, max_abs_ref=ref_max, **control,
+                   same_bits_twice=True, plan=dops.launch_plan(q, k),
+                   ms=cuda_ms(kernel, reps, flush),
+                   plain_ms=cuda_ms(plain, 2 if big else 10, flush),
+                   library_ms=cuda_ms(sdpa, 2 if big else 50, flush),
+                   library="F.scaled_dot_product_attention(bool mask, "
+                           "enable_gqa=True)"
+                           + (f", {rows} rows a call" if big else ""),
+                   bound_ms=bms, bound_by=bby, mbytes=nbytes / 1e6)
+        res["share_of_bound"] = bms / res["ms"]
+        line(f"kernel.decode_attention.{case}", **res,
+             nvidia_smi=smi_line())
+        out[case] = res
+        del q, k, v, valid
+        torch.cuda.empty_cache()
+    return out
 
 
 def _params_to(params, device):
@@ -4425,6 +4648,36 @@ def ring_collectives(cfg, params, gp, ring, rex, mesh) -> None:
           f"against {rotations} rotations x {shards} shards x {block} bytes")
 
 
+def mesh_rag_engine() -> dict:
+    """``RAGEngine(mesh=)`` on the smoke phi4-mini (the reference's smoke
+    config): 4 ragged requests on 2 slots over a (1, 2) grid of this card,
+    the token streams equal to the engine's without a mesh."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import EngineConfig, RAGEngine
+    t0 = time.perf_counter()
+    cfg = smoke_config("phi4-mini-3.8b")
+    params = lm.init_lm(cfg, 0, device="cuda")
+    rng = np.random.default_rng(41)
+    reqs = [rng.integers(0, cfg.vocab_size, int(n))
+            for n in rng.integers(3, 20, 4)]
+    streams = []
+    for mesh in (None, grid((1, 2))):
+        eng = RAGEngine(cfg, params, None,
+                        EngineConfig(n_slots=2, max_seq=64), mesh,
+                        device="cuda")
+        for i, prompt in enumerate(reqs):
+            eng.submit(i, prompt, max_new_tokens=6)
+        streams.append(eng.run_to_completion())
+    check(streams[0] == streams[1], f"mesh: RAGEngine over a (1, 2) grid "
+                                    f"generated {streams[1]}, without a "
+                                    f"mesh {streams[0]}")
+    return dict(config="smoke phi4-mini-3.8b", mesh=[1, 2],
+                requests=len(reqs),
+                tokens=sum(len(t) for t in streams[0].values()),
+                streams_equal=True, s=time.perf_counter() - t0)
+
+
 def phase_mesh(params, g, ex, forward_ms: float, local_step) -> tuple:
     """The mesh bodies on one controller, four shards of this card: (a)
     EGNN at ogbn-products (padded to 2,449,032 nodes) through
@@ -4627,6 +4880,7 @@ def phase_mesh(params, g, ex, forward_ms: float, local_step) -> tuple:
                                                        ("mesh", m22))}
     del xp, ids, fwd, cands, r0, r1
     torch.cuda.empty_cache()
+    rag_engine = mesh_rag_engine()
     line("mesh.checks", card_vs_cpu=dict(nodes=MESH_CPU_N,
                                          edges=MESH_CPU_N * 25,
                                          tolerance_rel=MESH_CPU_RTOL,
@@ -4638,7 +4892,7 @@ def phase_mesh(params, g, ex, forward_ms: float, local_step) -> tuple:
                       forward_bitwise=same, forward_ms=fwd_ms,
                       candidates=n_cand, retrieval_rel_err=r_err,
                       retrieval_ms=r_ms, tolerance_rel=MESH_RETRIEVAL_RTOL),
-         phase_s=time.perf_counter() - phase_t0)
+         rag_engine=rag_engine, phase_s=time.perf_counter() - phase_t0)
     return tuple(launches)
 
 
@@ -5930,10 +6184,12 @@ def serve_recall(stdout: str) -> float:
 def phase_launch_serve() -> dict:
     """The serving launcher as a user runs it, as child processes on the
     card: ``--n-nodes SERVE_NODES --queries SERVE_QUERIES --data-dir D``,
-    then ``--recover`` on D, then ``--rag`` at the default size; each must
-    exit 0 and print the reference's lines. A ``--device cpu`` child at the
-    first run's arguments runs beside them; the card's recall@10 must be
-    within SERVE_RECALL_TOL of it."""
+    then ``--recover --rag`` on D (RAG generation with the reference's
+    smoke phi4-mini over the recovered index), and beside them ``--rag``
+    alone (the plain index); each must exit 0 and print the reference's
+    lines. A ``--device cpu`` child at the first run's arguments runs
+    beside them too; the card's recall@10 must be within SERVE_RECALL_TOL
+    of it."""
     phase_t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.serve"]
@@ -5943,39 +6199,50 @@ def phase_launch_serve() -> dict:
     runs = (("durable", size + ["--data-dir", data],
              ("ingest+build:", "vector search:", "hybrid search (2 hops):",
               "ingest-while-search:", "snapshot:")),
-            ("recover", size + ["--data-dir", data, "--recover"],
+            ("recover_rag", size + ["--data-dir", data, "--recover",
+                                    "--rag"],
              ("recover:", "vector search:", "ingest-while-search:",
-              "snapshot:")),
-            ("rag", ["--rag"], ("ingest+build:", "vector search:",
-                                "RAG generated:")))
+              "snapshot:", "RAG generated:")))
+    rag_want = ("ingest+build:", "vector search:", "RAG generated:")
     out = {}
-    cpu = subprocess.Popen(cmd + size + ["--device", "cpu"], env=env,
-                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                           text=True)
+
+    def start(args):
+        return subprocess.Popen(cmd + args, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def record(name, args, want, rc, stdout, stderr, t0):
+        lines = stdout.splitlines()
+        missing = [w for w in want
+                   if not any(ln.startswith(w) for ln in lines)]
+        check(rc == 0 and not missing,
+              f"launch_serve {name}: exit {rc}, missing lines {missing}, "
+              f"stdout {stdout[-800:]!r}, stderr {stderr[-1500:]!r}")
+        out[name] = dict(args=" ".join(args), exit=rc,
+                         wall_s=time.perf_counter() - t0,
+                         recall=serve_recall(stdout), lines=lines)
+
+    cpu = start(size + ["--device", "cpu"])
+    rag_t0 = time.perf_counter()
+    rag = start(["--rag"])
     try:
         for name, args, want in runs:
             t0 = time.perf_counter()
             r = subprocess.run(cmd + args, env=env, capture_output=True,
                                text=True, timeout=300)
-            lines = r.stdout.splitlines()
-            missing = [w for w in want
-                       if not any(ln.startswith(w) for ln in lines)]
-            check(r.returncode == 0 and not missing,
-                  f"launch_serve {name}: exit {r.returncode}, missing lines "
-                  f"{missing}, stdout {r.stdout[-800:]!r}, stderr "
-                  f"{r.stderr[-1500:]!r}")
-            out[name] = dict(args=" ".join(args), exit=r.returncode,
-                             wall_s=time.perf_counter() - t0,
-                             recall=serve_recall(r.stdout), lines=lines)
+            record(name, args, want, r.returncode, r.stdout, r.stderr, t0)
+        rag_stdout, rag_stderr = rag.communicate(timeout=300)
+        record("rag", ["--rag"], rag_want, rag.returncode, rag_stdout,
+               rag_stderr, rag_t0)
         t0 = time.perf_counter()
         cpu_stdout, cpu_stderr = cpu.communicate(timeout=600)
         check(cpu.returncode == 0, f"launch_serve: the --device cpu child "
                                    f"exited {cpu.returncode}: "
                                    f"{cpu_stderr[-1500:]!r}")
     finally:
-        if cpu.poll() is None:
-            cpu.kill()
-            cpu.wait()
+        for child in (cpu, rag):
+            if child.poll() is None:
+                child.kill()
+                child.wait()
         shutil.rmtree(root, ignore_errors=True)
     cpu_recall = serve_recall(cpu_stdout)
     gap = abs(out["durable"]["recall"] - cpu_recall)
@@ -6084,20 +6351,22 @@ def _dryrun_compare(cell: str, pred: dict, how: str) -> dict:
     return res
 
 
-def phase_dryrun(child: dict) -> dict:
+def phase_dryrun(child: dict, sweep: subprocess.Popen) -> dict:
     """(a)-(e) of the dryrun phase (the module docstring): the GNN cells'
     probes on the card, the background child's records, the checks. The
-    durable phase's crash harness sweep runs beside the probes, which are
-    counted and not timed."""
+    durable phase's crash harness sweep (``sweep``, started before the
+    launch_serve phase) runs beside the probes, which are counted and not
+    timed."""
     phase_t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    sweep = start_harness_sweep()
-    try:
-        return _phase_dryrun(child, sweep, phase_t0)
-    finally:
-        if sweep.poll() is None:
-            os.killpg(sweep.pid, signal.SIGKILL)
-            sweep.wait()
+    return _phase_dryrun(child, sweep, phase_t0)
+
+
+def stop_harness_sweep(sweep: subprocess.Popen) -> None:
+    """Stops the sweep's process group if it still runs (a failed phase)."""
+    if sweep.poll() is None:
+        os.killpg(sweep.pid, signal.SIGKILL)
+        sweep.wait()
 
 
 def _phase_dryrun(child: dict, sweep, phase_t0: float) -> dict:
@@ -6171,6 +6440,9 @@ def _phase_dryrun(child: dict, sweep, phase_t0: float) -> dict:
         line("dryrun.cell", **row)
     check(sum(statuses.values()) == 40,
           f"dryrun: {sum(statuses.values())} h100 records, not 40")
+    # the decode kernel takes decode_32k's 2^32-element caches
+    check(statuses == DRYRUN_STATUSES,
+          f"dryrun: h100 statuses {statuses}, not {DRYRUN_STATUSES}")
     grids = {}
     for (mesh, arch, name), rec in recs.items():
         if mesh != "h100" and rec["status"] == "ok":
@@ -6231,6 +6503,7 @@ def run_phases(child: dict) -> None:
             # slot histories as the RAG phase's prompts make them
             "decode": measure_decode(np.random.default_rng(13).integers(
                 132, 1601, RAG_SLOTS))}
+    measure_decode_extents()
     small_seg_err = measure_segment_small()
     ops.probe_scan.launches = 0
     ops.shared_scan.launches = 0
@@ -6267,6 +6540,8 @@ def run_phases(child: dict) -> None:
     seg_read("sharded.hybrid")
     facade = phase_facade(index, corpus)
     seg_read("facade", phase_durable_hybrid(index, corpus))
+    race = phase_racecheck()
+    seg_read("racecheck")
     launches = {"probe": ops.probe_scan.launches,
                 "shared": ops.shared_scan.launches}
     check(launches["probe"] > 0 and launches["shared"] > 0,
@@ -6313,8 +6588,14 @@ def run_phases(child: dict) -> None:
                                                   rec_kern["tables"]}
     kern["accumulate"]["widths"]["xdeepfm_1"] = {"linear_w":
                                                  rec_kern["linear_w"]}
-    phase_launch_serve()
-    phase_dryrun(child)
+    # the crash harness sweep (the durable phase's, ~2-3 min of child
+    # start-ups) runs from here beside launch_serve and the dryrun probes
+    sweep = start_harness_sweep()
+    try:
+        phase_launch_serve()
+        phase_dryrun(child, sweep)
+    finally:
+        stop_harness_sweep(sweep)
     line("launches", vector=dict(zip(("probe", "shared"), after_vector)),
          maint={"probe": after_maint[0] - after_vector[0],
                 "shared": after_maint[1] - after_vector[1]},
@@ -6327,7 +6608,7 @@ def run_phases(child: dict) -> None:
          sharded_hybrid={
              "probe": after_sharded_hybrid[0] - after_hybrid[0],
              "shared": after_sharded_hybrid[1] - after_hybrid[1]},
-         facade=facade, rag=rag, rag_dsv2=dsv2,
+         facade=facade, racecheck=race, rag=rag, rag_dsv2=dsv2,
          lm_mixtral={"decode": mixtral_decode},
          gnn={"segment_sum": gnn_launches},
          gnn_train={"segment_sum": train_launches,

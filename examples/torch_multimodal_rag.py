@@ -14,7 +14,6 @@ import numpy as np
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import HMGIIndex
 from repro_torch.data.synthetic import make_corpus
-from repro_torch.launch.serve import SMOKE_HEAD_DIM
 from repro_torch.models import lm
 from repro_torch.query import Q
 from repro_torch.serving.engine import EngineConfig, RAGEngine
@@ -67,9 +66,8 @@ def main(device):
         print("plan:", index.explain(p))
         index.query(p)
 
-    # 2. a small LM (reduced phi4-family config) as the generator, at the
-    #    serving launcher's head dim (the decode kernel takes 64 and 128)
-    lm_cfg = smoke_config("phi4-mini-3.8b").replace(head_dim=SMOKE_HEAD_DIM)
+    # 2. a small LM (reduced phi4-family config) as the generator
+    lm_cfg = smoke_config("phi4-mini-3.8b")
     params = lm.init_lm(lm_cfg, seed=0, device=device)
     engine = RAGEngine(lm_cfg, params, index,
                        EngineConfig(n_slots=8, max_seq=96, retrieve_k=4,

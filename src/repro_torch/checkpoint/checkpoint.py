@@ -338,6 +338,7 @@ class CheckpointManager:
         next save/wait/restore_latest, instead of disappearing in the pool)."""
         if self._pending is not None:
             try:
+                # staticcheck: disable=HMG202 (this drain IS the join point: save/wait/restore must not proceed past an in-flight write, the single-slot pool means at most one writer blocks here, and the background write never takes _lock)
                 self._pending.result()
             except BaseException as e:  # noqa: BLE001 — surface, don't classify
                 self._error = e

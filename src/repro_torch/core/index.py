@@ -330,6 +330,7 @@ class HMGIIndex:
         under ``_cache_lock`` and is published as a single reference
         assignment; the replica is never modified once published."""
         m = self.modalities[modality]
+        # staticcheck: disable=HMG201 (double-checked fast path: a published replica is never written in place and is assigned atomically; a stale None just falls through to the locked build)
         sh = m.ivf_sharded
         if sh is not None and len(sh) == n_shards:
             return sh
@@ -367,6 +368,7 @@ class HMGIIndex:
         built lazily once per (modality, corpus size); double-checked under
         ``_cache_lock``."""
         m = self.modalities[modality]
+        # staticcheck: disable=HMG201 (double-checked fast path: a published rows tensor is never written in place and is assigned atomically; a stale None just falls through to the locked build)
         rows = m.id_rows
         if rows is not None and rows.shape[0] == self.n_nodes:
             return rows
@@ -501,8 +503,8 @@ class HMGIIndex:
 
         ids: (B,) global node ids; vectors: (B, d_m) — L2-normalised here.
         Existing ids are superseded (MVCC update path): the stable row is
-        hidden, the fp32 master row is rewritten in place, and the new
-        version lands in the delta. When the delta lacks room (or crosses
+        hidden, the fp32 master rows are published anew with the row
+        rewritten, and the new version lands in the delta. When the delta lacks room (or crosses
         the compaction threshold), ``cfg.maint_auto`` routes the work
         through ``maintain`` — bounded incremental drains instead of a
         stop-the-world ``compact`` — growing the delta only if maintenance
@@ -535,18 +537,25 @@ class HMGIIndex:
         pos_c = np.minimum(pos, max(existing_np.size - 1, 0))
         upd_mask = (sorted_ids[pos_c] == ids_np) if existing_np.size \
             else np.zeros(ids_np.shape, bool)
+        upd = torch.as_tensor(upd_mask, device=self.device)
+        grow = bool((~upd_mask).any())
         if upd_mask.any():
-            upd = torch.as_tensor(upd_mask, device=self.device)
             m.has_dead = True
             self._record_dead(m, ids32[upd])
             m.delta = delta_mod.supersede(m.delta, ids32[upd])
-            rows = torch.as_tensor(order[pos_c[upd_mask]], device=self.device)
-            # in place: the master copy is this modality's own tensor
-            m.vectors.index_copy_(0, rows, v[upd])
-        if (~upd_mask).any():
-            sel = torch.as_tensor(~upd_mask, device=self.device)
-            m.vectors = torch.cat([m.vectors, v[sel]], dim=0)
-            m.ids = torch.cat([m.ids, ids32[sel]])
+        if upd_mask.size:
+            # the master rows as one new tensor (one copy of the old rows),
+            # published by assignment: lock-free searchers may hold the old
+            # one (cross-modal rescoring reads it)
+            vectors = (torch.cat([m.vectors, v[~upd]], dim=0) if grow
+                       else m.vectors.clone())
+            if upd_mask.any():
+                rows = torch.as_tensor(order[pos_c[upd_mask]],
+                                       device=self.device)
+                vectors.index_copy_(0, rows, v[upd])
+            m.vectors = vectors
+        if grow:
+            m.ids = torch.cat([m.ids, ids32[~upd]])
             with self._cache_lock:
                 m.id_rows = None    # new ids -> the row cache is stale
         # never drop writes: insert_grow widens the store if the (already
@@ -727,9 +736,8 @@ class HMGIIndex:
     # snapshot through the same ``restore_state``. "key" holds this index's
     # torch.Generator state. Derived caches (id_rows, ivf_sharded) are left
     # out: they rebuild lazily and deterministically from this state. The
-    # tensors are the index's own (an update rewrites master rows in
-    # place): copy them, under the write lock, to keep a snapshot
-    # (``persistence.snapshot.write_snapshot`` does).
+    # tensors are the index's own; a write never changes them in place
+    # (it publishes new ones), so the tree stays the state it was taken at.
 
     def state_tree(self) -> Tuple[Dict[str, object], Dict[str, object]]:
         with self._write_lock:

@@ -376,17 +376,19 @@ def shard_placement(mesh):
     mesh's device at db coordinate s. Where every shard's device is the
     layout's own (one device, repeated), the locals are views of the
     stacked leaves; otherwise each is its own copy, so the stacked layout
-    can be freed."""
-    devs = shard_devices(mesh)
+    can be freed. With no mesh every shard stays on the layout's device
+    (the reference leaves such a layout where it is)."""
+    devs = None if mesh is None else shard_devices(mesh)
 
     def place(sharded: IVFIndex) -> Tuple[IVFIndex, ...]:
         n = sharded.ids.shape[0]
-        if n != len(devs):
+        devs_ = (sharded.ids.device,) * n if devs is None else devs
+        if n != len(devs_):
             raise ValueError(f"a {n}-shard layout over a mesh of "
-                             f"{len(devs)} db shards")
-        copy = any(d != sharded.ids.device for d in devs)
+                             f"{len(devs_)} db shards")
+        copy = any(d != sharded.ids.device for d in devs_)
         return tuple(
-            IVFIndex(**{f: getattr(sharded, f)[s].to(devs[s], copy=copy)
+            IVFIndex(**{f: getattr(sharded, f)[s].to(devs_[s], copy=copy)
                         for f in _FIELDS}, bits=sharded.bits)
             for s in range(n))
     return place

@@ -36,7 +36,8 @@
 //     32-96 KB, are in flight per SM, above the ~25 KB that Little's law
 //     asks for. A tile's K and V are two commit groups, so its scores
 //     start while its V is still in flight. Each 16 B chunk of a row goes
-//     to chunk c ^ (row & 7) of its row in shared memory, so both read
+//     to chunk c ^ (row & 7) of its row in shared memory (c ^ (row &
+//     (chunks - 1)) for a row of fewer than 8 chunks), so both read
 //     patterns below are free of bank conflicts.
 //   * Scores without per-position warp reductions: thread (position r,
 //     part of hd) dots its part of the row of K with the G query rows
@@ -60,6 +61,11 @@
 // per call whatever the history (launch, three waves of blocks, the mask
 // and first-tile latency, the arrival and merge), so the tick's 38 MB
 // run at about a third of the byte bound.
+//
+// Shapes: hd 16, 64 or 128 (16 is the reference's smoke head dim), G 1..8,
+// S up to kMaxSplits * kMaxTiles * kTile. Every offset into q, K/V, the
+// mask, the workspace and out is a 64-bit size_t product, so a cache of
+// 2^31 elements or more indexes correctly.
 //
 // Plain C interface (ctypes): decode_attention(...) returns the CUDA error
 // of its launch (0 on success); it never synchronises or allocates.
@@ -90,6 +96,9 @@ struct Layout {
   static constexpr int kCE = 16 / (int)sizeof(T);          // elements per chunk
   static constexpr int kChunks = HD / kCE;                  // chunks per row
   static constexpr int kGroups = kThreads / kChunks;        // p·V position groups
+  // chunk c of row r sits at chunk c ^ (r & kSwz) of its row: a row of
+  // fewer than 8 chunks (hd 16) swizzles within itself
+  static constexpr int kSwz = (kChunks < 8 ? kChunks : 8) - 1;
   static constexpr int kTileElems = kTile * HD;
   static constexpr size_t kRing = (size_t)kStages * 2 * kTileElems * sizeof(T);
   static constexpr size_t kArena =
@@ -101,7 +110,8 @@ struct Layout {
   static constexpr size_t kStat = kProb + (size_t)G * kTile * 4;  // [2][G]
   static constexpr size_t kRedL = kStat + (size_t)2 * G * 4;  // [kGroups][G]
   static constexpr size_t kBytes = kRedL + (size_t)kGroups * G * 4;
-  static_assert(kChunks >= 8 && kChunks % kTP == 0, "swizzle and dot split");
+  static_assert((kChunks & (kChunks - 1)) == 0 && kChunks % kTP == 0,
+                "swizzle and dot split");
 };
 
 __device__ __forceinline__ float bf16_lo(uint32_t w) {
@@ -235,7 +245,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const bool ok = okm[t * kTile + r] != 0;
             const size_t off =
                 ok ? (size_t)(s0 + t * kTile + r) * pos_stride + c * CE : 0;
-            cp_async16(dst + r * HD + (c ^ (r & 7)) * CE, src + off, ok);
+            cp_async16(dst + r * HD + (c ^ (r & L::kSwz)) * CE, src + off,
+                       ok);
           }
         }
         cp_async_commit();
@@ -276,7 +287,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
             for (int cc = 0; cc < NC / kTP; ++cc) {
               const int c = pt * (NC / kTP) + cc;
               float kf[CE];
-              load_chunk(ks + r * HD + (c ^ (r & 7)) * CE, kf);
+              load_chunk(ks + r * HD + (c ^ (r & L::kSwz)) * CE, kf);
 #pragma unroll
               for (int g = 0; g < G; ++g) {
                 const float* qg = qs + g * HD + c * CE;
@@ -336,7 +347,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll 4
         for (int r = g_pv; r < kTile; r += NG) {
           float vf[CE];
-          load_chunk(vs + r * HD + (c_pv ^ (r & 7)) * CE, vf);
+          load_chunk(vs + r * HD + (c_pv ^ (r & L::kSwz)) * CE, vf);
 #pragma unroll
           for (int g = 0; g < G; ++g) {
             const float p = probs[g * kTile + r];
@@ -458,9 +469,11 @@ int dispatch(int is_bf16, int hd, int G, const Fn& fn) {
   if (is_bf16) {
     if (hd == 128) DA_G(__nv_bfloat16, 128)
     if (hd == 64) DA_G(__nv_bfloat16, 64)
+    if (hd == 16) DA_G(__nv_bfloat16, 16)
   } else {
     if (hd == 128) DA_G(float, 128)
     if (hd == 64) DA_G(float, 64)
+    if (hd == 16) DA_G(float, 16)
   }
 #undef DA_G
   return (int)cudaErrorInvalidValue;

@@ -37,7 +37,7 @@ _SRC = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 7 + [_I] * 8 + [_P]
 _DTYPES = (torch.bfloat16, torch.float32)
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (16, 64, 128)
 _MAX_G = 8
 THREADS = 128            # per block (csrc kThreads)
 TILE = 64                # positions per tile (csrc kTile)
@@ -139,7 +139,7 @@ def _check(q, k, v, valid) -> None:
         raise ValueError(f"decode_attention: the kernel takes hd in "
                          f"{_HEAD_DIMS} and 1 <= H/Hkv <= {_MAX_G}, got "
                          f"hd={hd}, H={h}, Hkv={hkv}")
-    if s <= 0 or b <= 0 or s > MAX_S or b * s * hkv * hd >= 2 ** 31:
+    if s <= 0 or b <= 0 or s > MAX_S or b > 65535:
         raise ValueError(f"decode_attention: unsupported B={b}, S={s}")
     for name, t in (("q", q), ("k", k), ("v", v), ("valid", valid)):
         if not t.is_contiguous():

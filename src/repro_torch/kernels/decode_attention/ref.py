@@ -22,3 +22,19 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     p = torch.where(torch.isfinite(scores), p, 0.0)
     return torch.einsum("bhgs,bshd->bhgd", p, vf).to(q.dtype)
+
+
+# The kernel against this plain version in bfloat16, output by output: both
+# round one fp32 result to bfloat16, so an output may differ by one bf16 ulp
+# of itself (at most 2^-7 of it), plus what the fp32 summation order moves
+# an output near 0 by (far under 2^-16). A bound scaled to each output:
+# outputs of long histories are small (|out| ~ 0.01 over 32k positions).
+BF16_RTOL, BF16_FLOOR = 2.0 ** -7, 2.0 ** -16
+
+
+def bf16_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """max over outputs of |got - ref| / (BF16_RTOL |ref| + BF16_FLOOR):
+    at most 1 where the kernel agrees with its plain version."""
+    r = ref.float()
+    return float(((got.float() - r).abs()
+                  / (BF16_RTOL * r.abs() + BF16_FLOOR)).max())

@@ -8,9 +8,8 @@ maintenance paced between decode steps.
 ``python -m repro_torch.launch.serve --n-nodes 2000 --queries 64 [--rag]
 [--device cuda|cpu]``
 
-``--rag`` generates with the reference's smoke phi4-mini at a head dim of
-``SMOKE_HEAD_DIM`` (64, not the smoke config's 16, which the decode
-kernel has no instance for), on either device.
+``--rag`` generates with the reference's smoke phi4-mini (head dim 16),
+on either device.
 
 On the card unless ``--device`` says otherwise. Durability: ``--data-dir
 DIR`` makes the index durable (write-ahead op log + periodic snapshots
@@ -38,8 +37,6 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import HMGIIndex
 from repro_torch.data.synthetic import (ground_truth_topk, make_corpus,
                                         recall_at_k)
-
-SMOKE_HEAD_DIM = 64
 
 
 def _wait(device: torch.device) -> None:
@@ -158,8 +155,7 @@ def main(argv=None) -> dict:
     if args.rag:
         from repro_torch.models import lm
         from repro_torch.serving.engine import EngineConfig, RAGEngine
-        lcfg = smoke_config("phi4-mini-3.8b").replace(
-            head_dim=SMOKE_HEAD_DIM)
+        lcfg = smoke_config("phi4-mini-3.8b")
         params = lm.init_lm(lcfg, 0, device=device)
         eng = RAGEngine(lcfg, params, index,
                         EngineConfig(n_slots=4, max_seq=64, retrieve_k=4,

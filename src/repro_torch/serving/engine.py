@@ -45,6 +45,7 @@ from repro_torch.serving.retrieval import RetrievalPlan, RetrievalService
 from repro_torch.serving.scheduler import (AdmissionController,
                                            ContinuousBatcher,
                                            MaintenanceDriver, Request)
+from repro_torch.sharding import Mesh
 
 
 @dataclasses.dataclass
@@ -74,11 +75,18 @@ class EngineConfig:
 class RAGEngine:
     """lm_params: from ``lm.init_lm`` or ``convert.lm_params_from_jax``, on
     ``device`` (None = the CUDA device; raises without one). index: a port
-    ``HMGIIndex`` or None (generation only)."""
+    ``HMGIIndex`` or None (generation only). mesh: an optional
+    ``repro_torch.sharding.Mesh`` that prefill and every decode step run
+    over (``lm.prefill`` / ``lm.decode_step``), as the reference's engine
+    passes its mesh."""
 
     def __init__(self, lm_cfg, lm_params, index, cfg: EngineConfig = EngineConfig(),
-                 admission: Optional[AdmissionController] = None, *,
-                 device=None):
+                 mesh=None, admission: Optional[AdmissionController] = None,
+                 *, device=None):
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a repro_torch.sharding.Mesh, got "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
         self.device = resolve_device(device, "RAGEngine")
         if lm_params["embed"].device != self.device:
             raise ValueError(f"RAGEngine: lm_params live on "
@@ -154,7 +162,7 @@ class RAGEngine:
         with obs.span("serving.prefill") as sp:
             logits, cache = lm.prefill(
                 self.lm_cfg, self.params, toks,
-                margin=self._cache[0].shape[2] - len(prompt))
+                margin=self._cache[0].shape[2] - len(prompt), mesh=self.mesh)
             sp.fence(logits)
         # copy this request's cache into its row of the shared cache, in
         # place — all leaves (K/V or latent/roped k), including the (L,
@@ -195,7 +203,7 @@ class RAGEngine:
                 logits, self._cache = lm.decode_step(
                     self.lm_cfg, self.params, self._cache,
                     torch.as_tensor(self._tokens, device=self.device),
-                    torch.as_tensor(pos, device=self.device))
+                    torch.as_tensor(pos, device=self.device), mesh=self.mesh)
                 # the argmax's copy to the host waits for the step, so the
                 # span holds the step's device time without sync-spans
                 nxt = torch.argmax(logits, dim=-1).cpu().numpy().astype(np.int32)

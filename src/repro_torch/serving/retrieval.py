@@ -217,7 +217,7 @@ class MicroBatcher:
                             p.ready = True
                         self._cv.notify_all()
                     continue
-                # Condition.wait releases _lock while blocking
+                # staticcheck: disable=HMG202 (Condition.wait releases _lock while blocking; parked followers stall nobody)
                 self._cv.wait(timeout=0.1)
 
     def _execute_unlocked(self, batch: List[_Pending]) -> None:

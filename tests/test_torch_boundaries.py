@@ -2,12 +2,15 @@
 its entry points default to the CUDA device, and calls that need an
 unported part raise ``NotImplementedError`` instead of running something
 else."""
+import pytest
+
+pytest.importorskip("torch")
+
 import os
 import subprocess
 import sys
 
 import numpy as np
-import pytest
 import torch
 
 from repro_torch.configs import get_config

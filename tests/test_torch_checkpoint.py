@@ -6,6 +6,10 @@ key paths.
 
 Checkpoint substrate hardening: exotic dtypes, retention, tmp-dir GC,
 async-failure surfacing, structured validation errors (docs/DESIGN.md §7.1)."""
+import pytest
+
+pytest.importorskip("torch")
+
 import json
 import os
 import shutil
@@ -14,7 +18,6 @@ import threading
 from typing import NamedTuple
 
 import numpy as np
-import pytest
 import torch
 
 from repro_torch.checkpoint import (CheckpointError, CheckpointManager,

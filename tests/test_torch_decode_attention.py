@@ -11,9 +11,12 @@ Tolerances: fp32 1e-5 absolute (the same fp32 sums in another order);
 bf16 2e-2 relative (+ 2e-2 absolute near 0) — the two packages round the
 bf16 inputs and the output the same way, but sum in another order.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import numpy as np
 import jax.numpy as jnp
-import pytest
 import torch
 
 from repro.kernels.decode_attention import decode_attention as j_decode

@@ -11,10 +11,13 @@ the bonds spread (``driver.spread_bonds``: 1.7 to 4.8 long) both stay
 within 1e-4 and the port's logits match the reference's within 1e-5 ·
 max(1, max |want|).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.configs import get_config as j_get_config

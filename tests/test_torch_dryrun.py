@@ -27,13 +27,16 @@ mid-size run within 2%; the ``fits`` answers match ``PERF.md`` §4 for the
 cells listed there that this host counts in the time (``FITS``); the recsys
 ``param_count`` gap of the reference is pinned; the records' layout.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import json
 import os
 import subprocess
 import sys
 
 import numpy as np
-import pytest
 import torch
 
 from repro_torch.common.tree import leaves
@@ -234,8 +237,10 @@ def test_reference_recsys_param_count_gap_is_pinned():
 
 def test_records_layout(tmp_path):
     """One record per cell under ``<out>/<mesh>/``: a skipped LM shape with
-    its reason, a cell the card's kernel check refuses as failed with the
-    check's message, and an ok cell with its roofline terms."""
+    its reason, an ok cell with its roofline terms, decode_32k (a cache of
+    2^32 elements, which the decode kernel takes) counted, and a cell the
+    card's kernel check refuses recorded as failed with the check's
+    message."""
     rc = dryrun.main(["--arch", "mixtral-8x7b", "--out", str(tmp_path),
                       "--cells", "traced", "--shape", "long_500k"])
     assert rc == 0
@@ -249,9 +254,11 @@ def test_records_layout(tmp_path):
     phi = {s.name: s for s in get_shapes("phi4-mini-3.8b")}
     skip = dryrun.run_cell("phi4-mini-3.8b", phi["long_500k"], "h100")
     assert skip["status"] == "skipped" and skip["skip_reason"]
-    with pytest.raises(ValueError, match="decode_attention: unsupported B="):
-        dryrun.run_cell("phi4-mini-3.8b", phi["decode_32k"], "h100")
+    d32 = dryrun.run_cell("phi4-mini-3.8b", phi["decode_32k"], "h100")
+    assert d32["status"] == "ok"
+    assert d32["kernels"]["decode_attention"]["launches"] == \
+        get_config("phi4-mini-3.8b").n_layers
     fail = dryrun.failed_record("phi4-mini-3.8b", phi["decode_32k"], "h100",
                                 ValueError("decode_attention: unsupported "
-                                           "B=128, S=32768"))
+                                           "B=70000, S=32768"))
     assert dryrun.refused_by_kernel(fail)

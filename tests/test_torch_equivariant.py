@@ -13,9 +13,12 @@ l 6 the rotations and float64 Wigner-D blocks its constraint matrix is
 built from (the same code on the same inputs gives the same bits; the
 SVDs of all paths up to l 6 take minutes).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import numpy as np
 import jax.numpy as jnp
-import pytest
 import torch
 
 from repro.equivariant import bessel as j_bessel

@@ -10,8 +10,11 @@ probe implementations (fused kernel / legacy einsum), across selectivities
 from "almost nothing passes" to "almost everything passes" (both sides of
 the prefilter-vs-oversample planning crossover).
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config

@@ -8,12 +8,15 @@ the segment-sum kernel's plain version; the reference runs ``jax.ops``.
 Tolerance of logits and loss sums: max |Δ| ≤ 1e-5 · max(1, max |logits|):
 fp32 matmuls and sums in another order over 2-4 layers.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 import torch
 
 from repro.configs import get_config as j_get_config

@@ -14,12 +14,15 @@ are each summed in another order than the reference's einsums); the
 triplet arrays exactly; the rotation invariance 1e-4 relative, as
 ``tests/test_gnn.py`` holds the reference to it.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 import torch
 
 from repro.configs import get_config as j_get_config

@@ -8,9 +8,12 @@ chunk budget. The reference's steps are computed once per module.
 Tolerance: new params, moments, loss and metrics within 1e-5 ·
 max(1, max |want|) (fp32 sums in another order over two layers).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import jax
 import numpy as np
-import pytest
 import torch
 
 from repro.configs import smoke_config as j_smoke_config

@@ -10,11 +10,14 @@ sparse product, the reference per query with ``segment_sum``); vector and
 fused scores to 1e-5 absolute; ids exactly where scores are distinct
 (``assert_topk_match``); ``explain`` strings identical.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
-import pytest
 import torch
 
 from repro.configs import get_config as jget_config

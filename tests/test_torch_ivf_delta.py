@@ -7,10 +7,13 @@ the port. Layouts, codes and MVCC state are compared exactly; scores to
 1e-5 absolute (fp32 sums in another order over unit-norm rows); ids exactly
 where scores are distinct (``assert_topk_match``).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 import torch
 
 from repro.core import delta as jdelta

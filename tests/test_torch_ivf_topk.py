@@ -11,9 +11,12 @@ O(1) terms, summed in another order); ids agree exactly wherever scores
 are distinct, and as sets within a run of tied scores (``torch.topk`` makes
 no promise about tie order).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import numpy as np
 import jax.numpy as jnp
-import pytest
 import torch
 
 from repro.core.quantization import quantize as jquantize

@@ -49,8 +49,11 @@ argmaxes agree. Against the plain emulation of their limb arithmetic
 plain version make the same fp32 adds in the same order and round once, so
 they must agree bitwise.
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 
 from repro_torch.kernels.ivf_topk import ops, ref
@@ -506,7 +509,7 @@ _DECODE_SHAPES = [(3, 1), (2, 63), (2, 64), (3, 65), (1, 513), (5, 1000),
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("grp", [1, 2, 3, 4, 5, 6, 7, 8])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [16, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_kernel_matches_plain_version(dtype, hd, grp):
     """Every (B, S) of ``_DECODE_SHAPES`` under prefix, shuffled (row 0
@@ -1813,3 +1816,93 @@ def test_counter_reads_the_same_on_the_card_and_on_meta():
         readings[dev] = (dict(c.flops), c.bytes, c.peak,
                          c.kernels["segment_sum_csr_accumulate"])
     assert readings["cuda"] == readings["meta"]
+
+
+@pytest.mark.gpu
+def test_decode_kernel_past_2_31_elements():
+    """A bf16 cache of B 72, S 32,768, Hkv 8, hd 128: 2.42e9 elements
+    (9.7 GB of K and V), past 2^31, so rows 64-71 sit at offsets a 32-bit
+    index cannot reach. Against the plain version, 8 rows at a time,
+    within one bf16 ulp of each output (``bf16_excess``); the plain
+    version of rows 64-71 without their first 64-position tile is outside
+    that bound."""
+    _need_card()
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention.ref import (
+        bf16_excess, decode_attention_ref)
+    b, s, hkv, grp, hd = 72, 32768, 8, 3, 128
+    assert b * s * hkv * hd > 2 ** 31
+    g = torch.Generator(device="cuda").manual_seed(31)
+    q = torch.randn((b, hkv * grp, hd), device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    k = torch.randn((b, s, hkv, hd), device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    v = torch.randn((b, s, hkv, hd), device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    lens = torch.randint(s // 2, s + 1, (b,), device="cuda", generator=g)
+    lens[-1] = s
+    valid = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    out = dops.decode_attention(q, k, v, valid)
+
+    def plain(lo, mask):
+        return decode_attention_ref(
+            q[lo:lo + 8].reshape(-1, hkv, grp, hd), k[lo:lo + 8],
+            v[lo:lo + 8], mask[lo:lo + 8]).reshape(-1, hkv * grp, hd)
+
+    for lo in range(0, b, 8):
+        ref = plain(lo, valid)
+        assert bf16_excess(out[lo:lo + 8], ref) <= 1.0, lo
+    assert 64 * s * hkv * hd == 2 ** 31
+    dropped = valid.clone()
+    dropped[:, :64] = False
+    assert bf16_excess(plain(64, dropped), plain(64, valid)) > 1.0
+
+
+@pytest.mark.gpu
+def test_racecheck_canonical_workload_on_the_card():
+    """The port's racecheck on the card: the canonical workload at two
+    seeds bitwise the card's single-threaded oracle, with no lockset
+    warning and no in-place write to the published state, and free-running
+    searchers beside the writer; the scans run their kernels."""
+    _need_card()
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from tools import racecheck_torch as rc
+    from repro_torch.kernels.ivf_topk import ops as iops
+    wl = rc.Workload("cuda")
+    before = (iops.probe_scan.launches, iops.shared_scan.launches)
+    for seed in (0, 1):
+        r = rc.canonical_workload(seed, workload=wl)
+        assert r["ok"], (r["warnings"], r["mismatches"][:3],
+                         r["version_changes"][:3])
+    assert iops.probe_scan.launches > before[0]
+    assert iops.shared_scan.launches > before[1]
+    assert rc.free_running(wl, n_searchers=8, rounds=2)["ok"]
+
+
+@pytest.mark.gpu
+def test_rag_engine_over_a_mesh_on_the_card():
+    """``RAGEngine(mesh=)`` on the card: the smoke phi4-mini's token
+    streams over a one-controller (1, 2) mesh of cuda:0 equal the engine's
+    without a mesh."""
+    _need_card()
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import EngineConfig, RAGEngine
+    from repro_torch.sharding import Mesh
+    cfg = smoke_config("phi4-mini-3.8b")
+    params = lm.init_lm(cfg, 0, device="cuda")
+    mesh = Mesh(np.array(["cuda:0"] * 2).reshape(1, 2), ("data", "model"))
+    rng = np.random.default_rng(4)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(n)), 6)
+            for n in rng.integers(3, 20, 5)]
+    streams = []
+    for m in (None, mesh):
+        eng = RAGEngine(cfg, params, None, EngineConfig(n_slots=2,
+                                                        max_seq=64), m,
+                        device="cuda")
+        for i, (pr, n) in enumerate(reqs):
+            eng.submit(i, pr, max_new_tokens=n)
+        streams.append(eng.run_to_completion())
+    assert streams[0] == streams[1]

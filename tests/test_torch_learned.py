@@ -7,8 +7,11 @@ bit (tolerance 0). ``TestLearned`` is the twin of
 ``tests/test_infra.py::TestLearned``: the forest's fit, and the cost
 model's (``repro_torch.core.cost_model``).
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 
 from repro.core import learned as jlearned
 from repro_torch.core import learned as plearned

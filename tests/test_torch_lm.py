@@ -16,13 +16,16 @@ are within 1e-6 (the fp32 router matmuls differ in the last bit); a step
 whose routing (``moe_routings``) shows such a near-tie is not compared, and
 the test says so with a warning.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import warnings
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 import torch
 
 from repro.configs import get_config as jget_config, smoke_config as jsmoke

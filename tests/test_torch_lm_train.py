@@ -25,13 +25,16 @@ and their backward). MoE routing can flip where a token's k-th and
 (k+1)-th router probabilities are within 1e-6 (the fp32 router matmuls
 differ in the last bit); such a case is not compared, with a warning.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import warnings
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 import torch
 
 from repro.configs import smoke_config as jsmoke

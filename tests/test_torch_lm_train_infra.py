@@ -8,6 +8,10 @@ ids included) with the twins of ``tests/test_infra.py``'s
 (``repro_torch.launch.train``: the LM and EGNN branches run on the CPU,
 recsys is refused naming ROADMAP Step 10).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import json
 import os
 import subprocess
@@ -15,7 +19,6 @@ import sys
 
 import numpy as np
 import jax.numpy as jnp
-import pytest
 import torch
 
 from repro.data import pipeline as j_pipe

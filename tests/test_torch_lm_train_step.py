@@ -19,13 +19,16 @@ is held elsewhere: the in-place update equals ``adamw_update`` bit for bit
 (``test_torch_lm_train_update.py``), which ``test_torch_train.py`` holds
 against the reference's.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import warnings
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 import torch
 
 from repro.configs import smoke_config as jsmoke

@@ -7,8 +7,11 @@ before its update leaves the params and the state as they were; the twin
 of ``tests/test_lm.py``'s ``test_training_reduces_loss``; the ``Trainer``'s
 restart with the LM step is bitwise.
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 
 from repro_torch.common.tree import leaves, tree_map

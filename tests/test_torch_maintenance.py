@@ -26,8 +26,11 @@ Tolerances:
 - reports are equal strings; scores agree to 1e-5, ids exactly where
   scores are distinct (``assert_topk_match``).
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 
 from repro_torch.configs import get_config
 from repro_torch.core import HMGIIndex

@@ -20,10 +20,13 @@ same meshes as ``Mesh(["cpu"] * n, ...)``.
   reads zeros for an id outside ``[0, V)`` where its unsharded one clips;
   its ``moe_ffn`` needs a "model" axis.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import pickle
 
 import numpy as np
-import pytest
 import torch
 
 from repro_torch.common.tree import leaves, tree_map

@@ -22,12 +22,15 @@ parameters (``convert.gnn_params_from_jax``, ``ring_graph_from_jax``).
   triplet ring keeps other in-edges than its local triplets when the cap
   binds.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import os
 import subprocess
 import sys
 
 import numpy as np
-import pytest
 import torch
 
 from repro_torch.common.tree import leaves, tree_map

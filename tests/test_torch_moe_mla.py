@@ -27,6 +27,10 @@ matmuls may differ in the last bit, which can flip a token whose k-th and
 the capacity ranking of every later token. So the comparison stops at the
 first near-tie token, with a warning that names it.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import math
 import warnings
@@ -34,7 +38,6 @@ import warnings
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 import torch
 
 from repro.configs import get_config as jget_config, get_shapes as jget_shapes

@@ -12,8 +12,11 @@ These pin two bugs the reference once had:
      overflow mask, and ``compact`` silently truncated overflow beyond the
      fresh delta's capacity.
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config

@@ -19,10 +19,13 @@ NSW refine lane against the reference's ``repro.core.nsw``.
   query, and with ``ref_scatter=False`` the port on every query (ids
   exactly, scores within 1e-6). The 4-node graph pins the difference.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 import torch
 
 from repro.core import nsw as jnsw

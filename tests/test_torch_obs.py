@@ -11,10 +11,13 @@ Prometheus exposition round-trip, and the integration points (facade
 ``trace=``, ``metrics()["obs"]``, the progressive rounds and the rerank
 lane's span).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import json
 
 import numpy as np
-import pytest
 
 from repro_torch import obs
 from repro_torch.obs import metrics as obs_metrics

@@ -8,6 +8,10 @@ Durable index lifecycle: WAL framing + torn tails, snapshot round-trips,
 crash recovery bit-identity, graceful degradation, fault-point sweep
 (in-process ``mode="raise"``; the subprocess ``kill -9`` sweep is the
 harness's ``--sweep``)."""
+import pytest
+
+pytest.importorskip("torch")
+
 import os
 import shutil
 import subprocess
@@ -15,7 +19,6 @@ import sys
 import tempfile
 
 import numpy as np
-import pytest
 import torch
 
 from repro_torch.checkpoint import CheckpointError

@@ -26,6 +26,10 @@ Repairs:
   levels for the clusters, one CSR sum for the out-weights); on the CPU
   the bits equal the former ``index_add_`` ones.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import json
 import os
@@ -35,7 +39,6 @@ import zlib
 
 import ml_dtypes
 import numpy as np
-import pytest
 import torch
 
 from repro.checkpoint.checkpoint import restore_checkpoint as j_restore

@@ -10,10 +10,13 @@ layout. ``test_delta_tie_order_matches_reference`` pins the tie order of
 input on which ``torch.topk``'s unspecified tie order once failed the
 delta property.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 import torch
 
 pytest.importorskip("hypothesis")

@@ -6,9 +6,12 @@ the same fp32 steps. 16-bit, ``dequantize`` and ``quantized_scores`` agree
 to fp32 tolerance (1e-6 relative on dequantized values, 1e-5 absolute on
 scores of unit-norm rows, whose matmuls sum in another order).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import numpy as np
 import jax.numpy as jnp
-import pytest
 import torch
 
 from repro.core import quantization as jq

@@ -9,8 +9,11 @@ exhaustive numpy interpreter (stable + delta rows, boosted edge weights).
 The facade wrappers (``search`` / ``hybrid_search``) must stay bit-identical
 with the plans they compile to. Also the edge_type_mask test coverage:
 masked edge types must route no traversal mass, in every spelling."""
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config

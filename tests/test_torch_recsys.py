@@ -23,12 +23,15 @@ and sums with ``jax.ops.segment_sum``.
   ``tests/test_infra.py::TestRecsys``; the mesh paths refuse a mesh that
   is not a ``Mesh``.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 import torch
 
 from repro import configs as j_configs

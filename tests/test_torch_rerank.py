@@ -10,11 +10,14 @@ reranked ``hybrid_search`` ids up to ties of its RRF values and values
 within 1e-6, on an index carried from the reference with
 ``convert.index_from_jax_state`` (sparse documents included).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
-import pytest
 import torch
 
 from repro.core import rerank as jrerank

@@ -19,10 +19,13 @@ the reference's ``repro.roofline.analysis`` (which imports no JAX).
 - ``analyse_record`` on a hand-made record gives the reference's three
   terms scaled by the ratio of the peaks.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import json
 
 import numpy as np
-import pytest
 import torch
 
 from repro_torch.configs import smoke_config

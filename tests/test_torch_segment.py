@@ -12,9 +12,12 @@ Tolerances are the reference test's own: fp32 1e-5 (sums of O(1) terms in
 another order), bf16 0.1 (the Pallas kernel accumulates bf16 across edge
 blocks in bf16; the port rounds once from fp32).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import numpy as np
 import jax.numpy as jnp
-import pytest
 import torch
 
 from repro.kernels.segment_reduce import segment_sum_mm

@@ -17,10 +17,13 @@ built on it, on the CPU.
 Tolerance against the float64 oracle: 1e-5 relative to max(1, |want|),
 fp32 sums of a few O(1) terms in another order.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 from collections import Counter
 
 import numpy as np
-import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 

@@ -2,10 +2,13 @@
 a durable run, a ``--recover`` run on its directory and a ``--rag`` run,
 each printing the reference launcher's lines, and the reference launcher
 at the same arguments beside it."""
+import pytest
+
+pytest.importorskip("torch")
+
 import re
 import sys
 
-import pytest
 
 from repro.launch import serve as j_serve
 from repro_torch.launch import serve

@@ -11,12 +11,15 @@ token streams are compared for equality with the JAX engine's. Retrieval
 scores agree to 1e-5 absolute (fp32 sums in another order) and ids match
 up to score ties (``assert_topk_match``).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import threading
 
 import numpy as np
 import jax
-import pytest
 import torch
 
 from repro import obs as jobs
@@ -39,6 +42,7 @@ from repro_torch.serving.retrieval import (MicroBatcher, RetrievalPlan,
 from repro_torch.serving.scheduler import (AdmissionController,
                                            ContinuousBatcher, Request,
                                            TenantQuota)
+from repro_torch.sharding import Mesh
 from test_torch_ivf_topk import assert_topk_match
 
 MAX_SEQ = 48
@@ -174,6 +178,33 @@ def test_engine_streams_equal_reference_engine(lm_setup):
     assert p.run_to_completion() == j.run_to_completion()
     assert p.stats["ticks"] == j.stats["ticks"]
     assert p.stats["tokens"] == j.stats["tokens"]
+
+
+def test_engine_over_a_mesh_equals_no_mesh_and_reference(lm_setup):
+    """``RAGEngine(mesh=)`` passes the mesh to prefill and every decode
+    step, as the reference's engine does: over a one-controller (1, 2)
+    mesh the token streams equal the engine's without a mesh and the
+    reference engine's (same smoke config and weights)."""
+    jcfg, jp, cfg, params = lm_setup
+    mesh = Mesh(np.array(["cpu"] * 2).reshape(1, 2), ("data", "model"))
+    rng = np.random.default_rng(9)
+    reqs = [(rng.integers(0, cfg.vocab_size, int(L)).astype(np.int32), int(n))
+            for L, n in zip(rng.integers(2, 14, 5), rng.integers(1, 8, 5))]
+    j = JRAGEngine(jcfg, jp, None, JEngineConfig(n_slots=2, max_seq=MAX_SEQ))
+    plain = _engine(cfg, params, n_slots=2)
+    meshed = RAGEngine(cfg, params, None,
+                       EngineConfig(n_slots=2, max_seq=MAX_SEQ), mesh,
+                       device="cpu")
+    assert meshed.mesh is mesh
+    for eng in (j, plain, meshed):
+        for i, (pr, n) in enumerate(reqs):
+            eng.submit(i, pr, max_new_tokens=n)
+    want = j.run_to_completion()
+    assert plain.run_to_completion() == want
+    assert meshed.run_to_completion() == want
+    with pytest.raises(TypeError, match="Mesh"):
+        RAGEngine(cfg, params, None, EngineConfig(), mesh="cpu",
+                  device="cpu")
 
 
 def test_embed_queries_matches_reference(lm_setup):

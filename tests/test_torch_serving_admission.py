@@ -7,8 +7,11 @@ progress — no starvation — and the shed load lands in the per-tenant obs
 counters), and the ContinuousBatcher integration: bounded-queue rejection
 at the door and the per-tenant queue-wait histogram.
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 
 from repro_torch import obs
 from repro_torch.serving.scheduler import (AdmissionController, ContinuousBatcher,

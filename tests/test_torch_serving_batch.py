@@ -15,10 +15,13 @@ requests byte-identical. One case is also pinned to the brute-force
 ``query_ref`` oracle so the whole stack stays semantically grounded, not
 just self-consistent.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import threading
 
 import numpy as np
-import pytest
 
 from repro_torch import obs
 from repro_torch.configs import get_config

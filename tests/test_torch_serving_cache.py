@@ -9,8 +9,11 @@ flushing the cache on every idle tick would make it useless); eviction is
 LRU-ordered; signature collisions (same fp16 key, different fp32 bytes)
 miss instead of serving a nearby query's results.
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 
 from repro_torch import obs
 from repro_torch.configs import get_config

@@ -17,6 +17,10 @@ leaf by leaf, byte for byte; sharded scores agree with the reference's
 within rtol 1e-6 / atol 1e-6 (the two packages sum the same fp32 products
 in another order), ids exactly except at ties.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import sys
 import threading
@@ -24,7 +28,6 @@ import threading
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 import torch
 from jax.sharding import Mesh as JMesh
 

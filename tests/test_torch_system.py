@@ -4,8 +4,11 @@ of its cases.
 End-to-end behaviour tests for the HMGI system (the paper's claims at
 laptop scale): recall, hybrid fusion, dynamic updates, compaction,
 workload-aware repartitioning, progressive execution, plan selection."""
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config

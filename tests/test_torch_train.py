@@ -21,12 +21,15 @@ Tolerance of new params, losses, gradients and metrics: max |Δ| ≤ 1e-5 ·
 max(1, max |want|), as ``test_torch_gnn.py`` holds the forward: fp32
 matmuls and sums in another order over 2-4 layers and their backward.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 import torch
 
 from repro.common import tree as j_tree
