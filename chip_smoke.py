@@ -3874,6 +3874,61 @@ def measure_segment_small() -> float:
     return worst
 
 
+def measure_accumulate_routes() -> dict:
+    """The in-place kernel once on each route (``ops.acc_plan``: team,
+    medium, wide) and each load it takes (a vector, and one element where
+    the output starts off a 16-byte boundary), fp32 and bf16, at small
+    shapes: listed rows with a perm (a hub of 40 entries among ~1.5) and a
+    range from ``seg_lo`` without one (empty segments among ~6), each bit
+    for bit against its plain version. Its launches are not counted.
+    Returns the count of cases run by "route/dtype/vec"."""
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.kernels.segment_reduce.ref import (
+        segment_sum_csr_accumulate_ref)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    saved = sops.segment_sum_csr_accumulate.launches
+    ran = {}
+    for d in (1, 10, 67, 128, 291, 3_072):         # team, medium, wide
+        for dtype in (torch.float32, torch.bfloat16):
+            for listed, off in ((True, False), (False, False), (True, True)):
+                n = 1_000
+                deg = torch.randint(0, 4 if listed else 12, (n,),
+                                    device="cuda", generator=gen)
+                deg[n // 2] = 40 if listed else 0
+                rowptr = torch.zeros(n + 1, dtype=torch.int32, device="cuda")
+                rowptr[1:] = deg.cumsum(0)
+                e = int(rowptr[-1])
+                msg = torch.randn((e, d), device="cuda",
+                                  generator=gen).to(dtype)
+                perm = (torch.randperm(e, device="cuda", generator=gen).int()
+                        if listed else None)
+                rows = (torch.randperm(2 * n, device="cuda",
+                                       generator=gen)[:n].int()
+                        if listed else None)
+                flat = torch.randn(2 * n * d + 1, device="cuda",
+                                   generator=gen).to(dtype)
+                out = (flat[1:] if off else flat[:-1]).view(2 * n, d)
+                kw = dict(rows=rows, seg_lo=0 if listed else n // 3)
+                want = segment_sum_csr_accumulate_ref(msg, rowptr, perm,
+                                                      out=out.clone(), **kw)
+                plan = sops.accumulate_plan(msg, rowptr, perm, out)
+                got = sops.segment_sum_csr_accumulate(msg, rowptr, perm,
+                                                      out=out, **kw)
+                check(torch.equal(got, want),
+                      f"in-place kernel, {plan}, {dtype}, listed {listed}: "
+                      f"not bitwise equal to its plain version")
+                key = f"{plan.route}/{str(dtype)[6:]}/vec {plan.vec}"
+                ran[key] = ran.get(key, 0) + 1
+    torch.cuda.synchronize()
+    sops.segment_sum_csr_accumulate.launches = saved
+    check({k.split("/")[0] for k in ran} == {"team", "medium", "wide"},
+          f"in-place kernel: routes run {sorted(ran)}")
+    line("kernel.segment_sum_accumulate.routes", bitwise=True,
+         cases_by_plan=ran, s=time.perf_counter() - t0)
+    return ran
+
+
 def layer0_messages(cfg, params, g, ex) -> torch.Tensor:
     """EGNN layer 0's messages (E, d_hidden + 4) in the kernel's
     destination-sorted order, built block by block as ``push`` builds
@@ -4210,8 +4265,7 @@ def inplace_side(tag: str, cot, e: int, rowptr, perm, rows, seg_lo: int,
     lms = cuda_ms(lambda: lib.index_add_(0, idx, cot[:e]), 10, flush)
     res = dict(shape=dict(E=e, d=d, rows=r, n=n, dtype="float32",
                           perm=perm is not None),
-               group=sops.group_size(r, e if perm is not None
-                                     else cot.shape[0]),
+               plan=sops.accumulate_plan(cot, rowptr, perm, out)._asdict(),
                max_abs_err=err, bitwise=same, ms=kms, plain_ms=pms,
                library_ms=lms,
                library="index_add_(0, idx, cot) into the same buffer, "
@@ -5560,7 +5614,8 @@ def inplace_reading(tag: str, flat: torch.Tensor, d: int, n_rows: int,
     res = dict(shape=dict(E=e, d=d, rows=r, n=n_rows,
                           dtype=str(dtype).removeprefix("torch."),
                           perm=True),
-               group=sops.group_size(r, e), max_abs_err=err, bitwise=same,
+               plan=sops.accumulate_plan(cot, rowptr, perm, out)._asdict(),
+               max_abs_err=err, bitwise=same,
                ms=kms, plain_ms=pms, library_ms=lms, library=lib_name,
                library_max_abs_diff=lib_err, bound_ms=bms, bound_by=bby,
                gbytes=nbytes / 1e9,
@@ -6505,6 +6560,7 @@ def run_phases(child: dict) -> None:
                 132, 1601, RAG_SLOTS))}
     measure_decode_extents()
     small_seg_err = measure_segment_small()
+    measure_accumulate_routes()
     ops.probe_scan.launches = 0
     ops.shared_scan.launches = 0
     # the index path runs the segment sum too (k-means sums, hop weights):

@@ -44,32 +44,66 @@
 // the fp32 sum, from 0, one add per entry in increasing j, of msg[perm ?
 // perm[j] : j] over j in [rowptr[i], rowptr[i+1]), added to the row once in
 // fp32 and rounded once to out's dtype; row_i = rows[i], or seg_lo + i
-// without a rows list. The rows must be distinct (one warp owns each row:
-// no atomics), and only they are read or written.
+// without a rows list. The rows must be distinct (one warp, or one team of
+// lanes, owns each row's columns: no atomics), and only they are read or
+// written. A segment's entries are never split: each is summed by one lane
+// per column in its own order, so every route and every plan gives the
+// same bits.
 //
 // What bounds it: bytes, each cotangent row read once and each touched row
-// read and written once. A block's sources are ~1.2 entries a segment, its
-// destinations ~25, at d = 67 fp32: a 268-byte row, which is no multiple
-// of 16, so neither a 16-byte vector nor TMA's bulk copy moves one row.
-// The design keeps the loads on the register path with many in flight:
-//   * a warp walks each row once at any width: lane l owns columns l,
-//     l + 32, l + 64, ... (NC fp32 accumulators, NC = ceil(d / 32) up to 8;
-//     wider rows take column tiles of 256);
-//   * a warp takes a group of G consecutive segments (G up to 31, chosen by
-//     the caller from the mean segment length so that a warp walks ~32
-//     entries): lane l holds rowptr[s0 + l] and the group's output rows,
-//     each loaded once, and perm comes 32 entries at a time in one
-//     coalesced load, handed out with __shfl_sync;
-//   * kAccUnroll entries' rows are loaded before any is added, then added
-//     in order; the output rows of the next kPrefetch segments are loaded
-//     ahead of their flush, so the read-modify-write of a short segment's
-//     row overlaps the loads of the ones before it;
-//   * few rows a warp and many warps: a block's sources are gathered
-//     rows, and the latency of those random reads, not their bytes, is
-//     what holds the kernel back (4 rows in flight at 32 warps an SM beat
-//     8 at 24; see the constants below).
-// G changes no bit: each segment is summed in its own order and added to
-// its row once.
+// read and written once. The rows are gathered (perm) or streamed, so what
+// holds a route back is how many of those bytes are in flight: latency,
+// not bandwidth. The caller (ops.acc_plan) picks the route from the row's
+// bytes, the vector its pointers allow and the CSR's sizes:
+//   * the vector: 16-, 8- or 4-byte loads (uint4 is 4 fp32 or 8 bf16) where
+//     the row's bytes and both base pointers allow, else one element. TMA
+//     cannot take the rows that refuse a vector either (its global strides
+//     are multiples of 16 bytes: EGNN's 268-byte, NequIP's 1,164-byte and
+//     Equiformer-v2's 25,100-byte fp32 rows are not);
+//   * rows (segment_accumulate_kernel), for rows over 64 bytes: a warp owns
+//     a (group of G consecutive segments, column slice). Lane l holds
+//     rowptr[s0 + l] and the group's output rows, each loaded once; perm
+//     comes 32 entries at a time in one coalesced load, handed out with
+//     __shfl_sync; the output rows of the next kPrefetch segments are
+//     loaded ahead of their flush. Entries' rows are loaded ahead of their
+//     adds: gathered one-element fp32 rows through a shared-memory ring of
+//     kRing entries by 4-byte cp.async (kRing - 1 always in flight, no
+//     registers held), the others kAccUnroll at a time in registers.
+//     "medium": the row fits one slice at NC * (a vector's registers) <= 4
+//     a lane (EGNN's 67 fp32, DimeNet's 128 as one uint4 a lane). "wide":
+//     balanced slices at <= 3 registers (or one vector) a lane, each slice
+//     its own warp on the grid (groups x slices warps), neighbouring warps
+//     on neighbouring slices of one group's rows;
+//   * team (segment_accumulate_kernel_team), for rows of 64 bytes or less:
+//     a warp splits into teams of d / vec lanes (1 at d = 1, 5 with 8-byte
+//     vectors at d = 10 fp32), and team t walks its own run of G / teams
+//     consecutive segments as the row kernel walks a group (kAccUnroll
+//     entries ahead, kPrefetch output rows ahead), so 32 / team segments
+//     walk at once, each in its own order.
+// G and the slices change no bit: each segment is summed in its own order
+// and added to its row once.
+//
+// Measured (kernels/segment_reduce/sweep.py, CUDA events, L2 flushed, on
+// "NVIDIA H100 80GB HBM3, 700.00 W"; ms, the one-warp-a-group kernel that
+// walked 256-column tiles in series before it, then this one): EGNN's 67
+// block, source 0.437 -> 0.347, destination 0.131 -> 0.131; NequIP's 291,
+// 2.60 -> 0.70 and 1.09 -> 0.25; Equiformer-v2's 6,275 (65,536 edges),
+// 7.29 -> 1.81 and 14.45 -> 1.94; the LM token's 3,072 bf16, 0.283 ->
+// 0.038; DimeNet's 128, 0.070 -> 0.026; xDeepFM's 10 and 1 (2,555,904
+// entries into 1,874,716 rows), 0.340 -> 0.177 and 0.246 -> 0.051. The old
+// kernel's destination side at 6,275 was twice its source side because a
+// minibatch union's destinations are tree heads (15 and 10 edges) between
+// runs of empty leaves: ~400 groups held every entry, each one warp
+// walking 25 tiles in series (on one edge a row it took 7.48). Tried and
+// dropped: slices of 4 registers a lane (512 bytes of fp32) spill 16 bytes
+// at the 64-register cap, 6,275's source 2.69 against 2.15 at 2
+// registers; 3 registers (96 columns) beat 2 and 4 once staged (1.81,
+// 1.87, 1.91); staging streamed (no perm) rows, EGNN's destination 0.1356
+// against 0.1343 in registers; the team route as one segment a team in
+// rounds without look-ahead, 0.203 at d = 10, and with a rolling
+// two-stage pipeline (each added row loads the one kAccUnroll on), 0.204
+// and 0.056; 2 or 8 entries in flight, 2 or 8 output rows ahead, a ring of
+// 8, or 3 or 5 blocks an SM: none better at every shape.
 //
 // Plain C interface (ctypes): each entry returns the CUDA error of its
 // launch (0 on success); neither synchronises or allocates.
@@ -188,7 +222,7 @@ int launch(const void* msg, const int* rowptr, const int* perm, void* out,
   return (int)cudaGetLastError();
 }
 
-// The in-place kernel is bound by how many rows are in flight, so by
+// The in-place kernels are bound by how many rows are in flight, so by
 // occupancy: 4 entries' rows and 4 output rows ahead in 64 registers (4
 // blocks of 8 warps an SM) beat 8 or 16 rows at 24 or 16 warps an SM, and
 // fewer registers spill. The macros let kernels/segment_reduce/sweep.py
@@ -202,54 +236,121 @@ int launch(const void* msg, const int* rowptr, const int* perm, void* out,
 #ifndef SEG_ACC_MIN_BLOCKS
 #define SEG_ACC_MIN_BLOCKS 4
 #endif
+#ifndef SEG_ACC_STAGES
+#define SEG_ACC_STAGES 4
+#endif
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kAccUnroll = SEG_ACC_UNROLL;    // entries' rows in flight
 constexpr int kPrefetch = SEG_ACC_PREFETCH;   // output rows loaded ahead
 constexpr int kAccBlocksCap = 1 << 20;
+// SEG_ACC_STAGES > 1: gathered (perm) one-element fp32 rows of the row
+// kernel come through a shared-memory ring of that many entries by 4-byte
+// cp.async instead of kAccUnroll entries in registers
+constexpr int kRing = SEG_ACC_STAGES > 1 ? SEG_ACC_STAGES : 1;
+template <typename T, int V, bool PERM>
+constexpr bool kStaged =
+    kRing > 1 && PERM && std::is_same<T, float>::value && V == 1;
 
-template <typename T>
-__device__ __forceinline__ float load_elem(const T* __restrict__ p) {
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The warp's ring: kRing entries of NC * 32 fp32 columns.
+template <int NC>
+__device__ __forceinline__ float* stage_ring() {
+  __shared__ float ring[kWarps * kRing * NC * 32];
+  return ring + (threadIdx.x >> 5) * kRing * NC * 32;
+}
+
+// Issues entry i's (i < cnt) copies of the 32-entry chunk at jb into its
+// ring slot, and commits a group (empty past cnt).
+template <int NC, bool PERM>
+__device__ __forceinline__ void stage_entry(float* ring,
+                                            const float* __restrict__ msg,
+                                            int d, int c0, int c_hi, int lane,
+                                            int pj, int jb, int i, int cnt) {
+  if (i < cnt) {
+    const int e = PERM ? __shfl_sync(kFull, pj, i) : jb + i;
+    const float* src = msg + (size_t)e * d;
+    float* dst = ring + (i % kRing) * NC * 32 + lane;
+#pragma unroll
+    for (int q = 0; q < NC; ++q)
+      if (c0 + q * 32 < c_hi) cp_async4(dst + q * 32, src + c0 + q * 32);
+  }
+  cp_commit();
+}
+
+// V elements of T as one raw vector, kept packed in registers until added.
+template <typename T, int V>
+using Raw = typename Vec<(int)(V * sizeof(T))>::type;
+
+// The most vectors a lane holds of one row: NC * (the vector's 32-bit
+// registers) <= 4, so kAccUnroll entries and kPrefetch output rows fit.
+template <typename T, int V>
+constexpr int kMaxNC = (V * sizeof(T) > 4) ? 4 / (int)(V * sizeof(T) / 4) : 4;
+
+template <typename T, int V>
+__device__ __forceinline__ Raw<T, V> ld_msg(const T* __restrict__ p) {
+  return __ldg(reinterpret_cast<const Raw<T, V>*>(p));
+}
+
+template <typename T, int V>
+__device__ __forceinline__ Raw<T, V> ld_out(const T* p) {
+  return *reinterpret_cast<const Raw<T, V>*>(p);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ float elem(const Raw<T, V>& w, int e) {
   if constexpr (std::is_same<T, float>::value) {
-    return __ldg(p);
+    return reinterpret_cast<const float*>(&w)[e];
   } else {
-    return bf16_bits_to_float(
-        __ldg(reinterpret_cast<const unsigned short*>(p)));
+    return bf16_bits_to_float(reinterpret_cast<const uint16_t*>(&w)[e]);
   }
 }
 
-template <typename T>
-__device__ __forceinline__ float read_out(const T* p) {
-  if constexpr (std::is_same<T, float>::value) {
-    return *p;
-  } else {
-    return bf16_bits_to_float(*reinterpret_cast<const unsigned short*>(p));
-  }
+template <typename T, int V>
+__device__ __forceinline__ void add_raw(float (&acc)[V], const Raw<T, V>& w) {
+#pragma unroll
+  for (int e = 0; e < V; ++e) acc[e] += elem<T, V>(w, e);
 }
 
-template <typename T>
-__device__ __forceinline__ void write_out(T* p, float v) {
-  if constexpr (std::is_same<T, float>::value) {
-    *p = v;
-  } else {
-    *p = __float2bfloat16(v);                                  // RNE
-  }
+// p[0 .. V) = o + acc, added in fp32 and rounded once to T.
+template <typename T, int V>
+__device__ __forceinline__ void store_sum(T* p, const Raw<T, V>& o,
+                                          const float (&acc)[V]) {
+  float s[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) s[e] = elem<T, V>(o, e) + acc[e];
+  store_vec<T, V>(p, s);
 }
 
 // Adds acc to segment cur's row (loaded ahead in o[0]) and zeroes acc,
 // moves the prefetched rows down and loads segment cur + kPrefetch's, then
-// steps to the next segment of the group.
-template <typename T, int NC>
+// steps to the next segment of the group. The lane's columns are c0 + q *
+// 32 * V (q < NC), those below c_hi its own.
+template <typename T, int V, int NC>
 __device__ __forceinline__ void flush_row(T* __restrict__ out, int d, int c0,
-                                          int lane, int orow, int rp, int ns,
+                                          int c_hi, int orow, int rp, int ns,
                                           int& cur, int& cur_end,
-                                          float (&acc)[NC],
-                                          float (&o)[kPrefetch][NC]) {
+                                          float (&acc)[NC][V],
+                                          Raw<T, V> (&o)[kPrefetch][NC]) {
   const int r = __shfl_sync(kFull, orow, cur);
 #pragma unroll
   for (int q = 0; q < NC; ++q) {
-    const int col = c0 + q * 32 + lane;
-    if (col < d) write_out(out + (size_t)r * d + col, o[0][q] + acc[q]);
-    acc[q] = 0.f;
+    const int col = c0 + q * 32 * V;
+    if (col < c_hi) store_sum<T, V>(out + (size_t)r * d + col, o[0][q], acc[q]);
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[q][e] = 0.f;
   }
 #pragma unroll
   for (int p = 0; p + 1 < kPrefetch; ++p)
@@ -259,20 +360,21 @@ __device__ __forceinline__ void flush_row(T* __restrict__ out, int d, int c0,
   const int rn = __shfl_sync(kFull, orow, nxt & 31);
 #pragma unroll
   for (int q = 0; q < NC; ++q) {
-    const int col = c0 + q * 32 + lane;
-    o[kPrefetch - 1][q] =
-        (nxt < ns && col < d) ? read_out(out + (size_t)rn * d + col) : 0.f;
+    const int col = c0 + q * 32 * V;
+    o[kPrefetch - 1][q] = (nxt < ns && col < c_hi)
+                              ? ld_out<T, V>(out + (size_t)rn * d + col)
+                              : Raw<T, V>();
   }
   ++cur;
   cur_end = __shfl_sync(kFull, rp, (cur + 1) & 31);
 }
 
 // Entries jb + u0 .. jb + u0 + kAccUnroll - 1 (those below cnt) of the
-// 32-entry chunk at jb: their rows' columns of this lane, 0 past cnt.
-template <typename T, int NC, bool PERM>
-__device__ __forceinline__ void load_rows(float (&x)[kAccUnroll][NC],
+// 32-entry chunk at jb: their rows' vectors of this lane, 0 past cnt.
+template <typename T, int V, int NC, bool PERM>
+__device__ __forceinline__ void load_rows(Raw<T, V> (&x)[kAccUnroll][NC],
                                           const T* __restrict__ msg, int d,
-                                          int c0, int lane, int pj, int jb,
+                                          int c0, int c_hi, int pj, int jb,
                                           int u0, int cnt) {
 #pragma unroll
   for (int u = 0; u < kAccUnroll; ++u) {
@@ -280,27 +382,34 @@ __device__ __forceinline__ void load_rows(float (&x)[kAccUnroll][NC],
     const T* src = msg + (size_t)e * d;
 #pragma unroll
     for (int q = 0; q < NC; ++q) {
-      const int col = c0 + q * 32 + lane;
-      x[u][q] = (u0 + u < cnt && col < d) ? load_elem(src + col) : 0.f;
+      const int col = c0 + q * 32 * V;
+      x[u][q] = (u0 + u < cnt && col < c_hi) ? ld_msg<T, V>(src + col)
+                                             : Raw<T, V>();
     }
   }
 }
 
-// One warp per group of `group` consecutive segments (see the note at the
-// top). NC column groups of 32 per lane; a row wider than 32 * NC columns
-// takes several column tiles, each a walk of the group's entries.
-template <typename T, int NC, bool PERM>
+// The medium and wide routes: one warp per (group of `group` consecutive
+// segments, slice of `width` columns); warp w takes group w / slices and
+// slice w % slices. NC vectors of V elements a lane cover the slice.
+template <typename T, int V, int NC, bool PERM>
 __global__ void __launch_bounds__(kWarps * 32, SEG_ACC_MIN_BLOCKS)
 segment_accumulate_kernel(const T* __restrict__ msg,
                           const int* __restrict__ rowptr,
                           const int* __restrict__ perm,
                           const int* __restrict__ rows, T* __restrict__ out,
-                          int n_seg, int d, int seg_lo, int group) {
+                          int n_seg, int d, int seg_lo, int group, int width,
+                          int slices) {
+  using W = Raw<T, V>;
   const int lane = threadIdx.x & 31;
-  const int n_groups = (n_seg + group - 1) / group;
-  const int warp_stride = gridDim.x * kWarps;
-  for (int g = blockIdx.x * kWarps + (threadIdx.x >> 5); g < n_groups;
-       g += warp_stride) {
+  const long long n_work = (long long)((n_seg + group - 1) / group) * slices;
+  const long long warp_stride = (long long)gridDim.x * kWarps;
+  for (long long w = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       w < n_work; w += warp_stride) {
+    const int g = (int)(w / slices);
+    const int lo = (int)(w - (long long)g * slices) * width;
+    const int c_hi = min(d, lo + width);
+    const int c0 = lo + lane * V;               // this lane's first column
     const int s0 = g * group;
     const int ns = min(group, n_seg - s0);       // segments of this group
     // lane l <= ns: rowptr[s0 + l]; lane l < ns: segment s0 + l's row
@@ -309,80 +418,222 @@ segment_accumulate_kernel(const T* __restrict__ msg,
     if (lane < ns) orow = rows ? __ldg(rows + s0 + lane) : seg_lo + s0 + lane;
     const int beg = __shfl_sync(kFull, rp, 0);
     const int end = __shfl_sync(kFull, rp, ns);
-    for (int c0 = 0; c0 < d; c0 += 32 * NC) {
-      float acc[NC];
-      float o[kPrefetch][NC];                   // rows of segments cur, ...
+    float acc[NC][V];
+    W o[kPrefetch][NC];                          // rows of segments cur, ...
 #pragma unroll
-      for (int q = 0; q < NC; ++q) acc[q] = 0.f;
+    for (int q = 0; q < NC; ++q)
 #pragma unroll
-      for (int p = 0; p < kPrefetch; ++p) {
-        const int r = __shfl_sync(kFull, orow, p & 31);
+      for (int e = 0; e < V; ++e) acc[q][e] = 0.f;
 #pragma unroll
-        for (int q = 0; q < NC; ++q) {
-          const int col = c0 + q * 32 + lane;
-          o[p][q] = (p < ns && col < d)
-                        ? read_out(out + (size_t)r * d + col) : 0.f;
-        }
+    for (int p = 0; p < kPrefetch; ++p) {
+      const int r = __shfl_sync(kFull, orow, p & 31);
+#pragma unroll
+      for (int q = 0; q < NC; ++q) {
+        const int col = c0 + q * 32 * V;
+        o[p][q] = (p < ns && col < c_hi) ? ld_out<T, V>(out + (size_t)r * d + col)
+                                         : W();
       }
-      int cur = 0;                              // the segment being summed
-      int cur_end = __shfl_sync(kFull, rp, 1);
-      for (int jb = beg; jb < end; jb += 32) {
-        const int cnt = min(32, end - jb);
-        int pj = 0;
-        if (PERM && lane < cnt) pj = __ldg(perm + jb + lane);
+    }
+    int cur = 0;                                // the segment being summed
+    int cur_end = __shfl_sync(kFull, rp, 1);
+    for (int jb = beg; jb < end; jb += 32) {
+      const int cnt = min(32, end - jb);
+      int pj = 0;
+      if (PERM && lane < cnt) pj = __ldg(perm + jb + lane);
+      if constexpr (kStaged<T, V, PERM>) {   // the ring, kRing - 1 ahead
+        float* ring = stage_ring<NC>();
+        const float* m = reinterpret_cast<const float*>(msg);
+        for (int i = 0; i + 1 < kRing; ++i)
+          stage_entry<NC, PERM>(ring, m, d, c0, c_hi, lane, pj, jb, i, cnt);
+        for (int i = 0; i < cnt; ++i) {
+          stage_entry<NC, PERM>(ring, m, d, c0, c_hi, lane, pj, jb,
+                                i + kRing - 1, cnt);
+          cp_wait<kRing - 1>();
+          while (jb + i == cur_end)
+            flush_row<T, V, NC>(out, d, c0, c_hi, orow, rp, ns, cur,
+                                cur_end, acc, o);
+          const float* x = ring + (i % kRing) * NC * 32 + lane;
+#pragma unroll
+          for (int q = 0; q < NC; ++q)
+            if (c0 + q * 32 < c_hi) acc[q][0] += x[q * 32];
+        }
+      } else {
         for (int u0 = 0; u0 < cnt; u0 += kAccUnroll) {
-          float x[kAccUnroll][NC];
-          load_rows<T, NC, PERM>(x, msg, d, c0, lane, pj, jb, u0, cnt);
+          W x[kAccUnroll][NC];
+          load_rows<T, V, NC, PERM>(x, msg, d, c0, c_hi, pj, jb, u0, cnt);
 #pragma unroll
           for (int u = 0; u < kAccUnroll; ++u) {
             if (u0 + u < cnt) {
               // entry j opens the next non-empty segment: flush the ones
               // it passes (the finished one and any empty ones)
               while (jb + u0 + u == cur_end)
-                flush_row<T, NC>(out, d, c0, lane, orow, rp, ns, cur, cur_end,
-                                 acc, o);
+                flush_row<T, V, NC>(out, d, c0, c_hi, orow, rp, ns, cur,
+                                    cur_end, acc, o);
 #pragma unroll
-              for (int q = 0; q < NC; ++q) acc[q] += x[u][q];
+              for (int q = 0; q < NC; ++q) add_raw<T, V>(acc[q], x[u][q]);
             }
           }
         }
       }
-      while (cur < ns)                          // the last, and empty ones
-        flush_row<T, NC>(out, d, c0, lane, orow, rp, ns, cur, cur_end, acc, o);
     }
+    while (cur < ns)                            // the last, and empty ones
+      flush_row<T, V, NC>(out, d, c0, c_hi, orow, rp, ns, cur, cur_end, acc,
+                          o);
   }
 }
 
-template <typename T, int NC>
-int launch_acc(const void* msg, const int* rowptr, const int* perm,
-               const int* rows, void* out, int n_seg, int d, int seg_lo,
-               int group, cudaStream_t stream) {
-  const long long groups = ((long long)n_seg + group - 1) / group;
-  const long long blocks = (groups + kWarps - 1) / kWarps;
-  const dim3 grid((unsigned)(blocks < kAccBlocksCap ? blocks : kAccBlocksCap));
-  if (perm)
-    segment_accumulate_kernel<T, NC, true><<<grid, kWarps * 32, 0, stream>>>(
-        static_cast<const T*>(msg), rowptr, perm, rows, static_cast<T*>(out),
-        n_seg, d, seg_lo, group);
+// The team route's flush: segment cur's row (loaded ahead in o[0]) gets
+// o[0] + acc, acc is zeroed, the prefetched rows move down and segment cur
+// + kPrefetch's is loaded, then the team steps to its next segment.
+template <typename T, int V>
+__device__ __forceinline__ void flush_team(
+    T* __restrict__ out, const int* __restrict__ rowptr,
+    const int* __restrict__ rows, int d, int col, int seg_lo, int b,
+    int& cur, int& cur_end, float (&acc)[V], Raw<T, V> (&o)[kPrefetch]) {
+  const int r = rows ? __ldg(rows + cur) : seg_lo + cur;
+  store_sum<T, V>(out + (size_t)r * d + col, o[0], acc);
+#pragma unroll
+  for (int e = 0; e < V; ++e) acc[e] = 0.f;
+#pragma unroll
+  for (int p = 0; p + 1 < kPrefetch; ++p) o[p] = o[p + 1];
+  const int nxt = cur + kPrefetch;
+  if (nxt < b) {
+    const int rn = rows ? __ldg(rows + nxt) : seg_lo + nxt;
+    o[kPrefetch - 1] = ld_out<T, V>(out + (size_t)rn * d + col);
+  }
+  ++cur;
+  if (cur < b) cur_end = __ldg(rowptr + cur + 1);
+}
+
+// The team route, rows of d = team * V elements (team <= 32 lanes): a
+// warp takes `group` consecutive segments, a whole number per team; team
+// t walks its run of consecutive segments as the row kernel walks a
+// group (kAccUnroll entries' rows loaded before any is added, the rows of
+// the next kPrefetch segments loaded ahead of their flush), lane u of it
+// owning columns u * V .. u * V + V - 1. Lanes past 32 / team * team idle.
+template <typename T, int V, bool PERM>
+__global__ void __launch_bounds__(kWarps * 32, SEG_ACC_MIN_BLOCKS)
+segment_accumulate_kernel_team(const T* __restrict__ msg,
+                               const int* __restrict__ rowptr,
+                               const int* __restrict__ perm,
+                               const int* __restrict__ rows,
+                               T* __restrict__ out, int n_seg, int d,
+                               int seg_lo, int group) {
+  using W = Raw<T, V>;
+  const int lane = threadIdx.x & 31;
+  const int team = d / V;
+  const int teams = 32 / team;
+  const int t = lane / team;
+  if (t >= teams) return;                       // no shuffles below
+  const int col = (lane - t * team) * V;
+  const int per = group / teams;                // segments a team
+  const int n_groups = (n_seg + group - 1) / group;
+  const int warp_stride = gridDim.x * kWarps;
+  for (int g = blockIdx.x * kWarps + (threadIdx.x >> 5); g < n_groups;
+       g += warp_stride) {
+    const int a = g * group + t * per;          // the team's [a, b)
+    const int b = min(n_seg, a + per);
+    if (a >= b) continue;
+    W o[kPrefetch];                             // rows of segments cur, ...
+#pragma unroll
+    for (int p = 0; p < kPrefetch; ++p) {
+      const int s = a + p;
+      const int r = s < b ? (rows ? __ldg(rows + s) : seg_lo + s) : 0;
+      o[p] = s < b ? ld_out<T, V>(out + (size_t)r * d + col) : W();
+    }
+    float acc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = 0.f;
+    const int end = __ldg(rowptr + b);
+    int cur = a;                                // the segment being summed
+    int cur_end = __ldg(rowptr + a + 1);
+    for (int j0 = __ldg(rowptr + a); j0 < end; j0 += kAccUnroll) {
+      W x[kAccUnroll];
+#pragma unroll
+      for (int u = 0; u < kAccUnroll; ++u) {
+        const int j = j0 + u;
+        const size_t e = j < end ? (PERM ? (size_t)__ldg(perm + j) : (size_t)j)
+                                 : 0;
+        x[u] = j < end ? ld_msg<T, V>(msg + e * d + col) : W();
+      }
+#pragma unroll
+      for (int u = 0; u < kAccUnroll; ++u) {
+        if (j0 + u < end) {
+          while (j0 + u == cur_end)             // passed: flush
+            flush_team<T, V>(out, rowptr, rows, d, col, seg_lo, b, cur,
+                             cur_end, acc, o);
+          add_raw<T, V>(acc, x[u]);
+        }
+      }
+    }
+    while (cur < b)                             // the last, and empty ones
+      flush_team<T, V>(out, rowptr, rows, d, col, seg_lo, b, cur, cur_end,
+                       acc, o);
+  }
+}
+
+struct AccArgs {
+  const void* msg;
+  const int* rowptr;
+  const int* perm;
+  const int* rows;
+  void* out;
+  int n_seg, d, seg_lo, group, width, slices, grid;
+  cudaStream_t stream;
+};
+
+template <typename T, int V, int NC>
+int launch_rows(const AccArgs& a) {
+  if (a.perm)
+    segment_accumulate_kernel<T, V, NC, true><<<a.grid, kWarps * 32, 0,
+                                                a.stream>>>(
+        static_cast<const T*>(a.msg), a.rowptr, a.perm, a.rows,
+        static_cast<T*>(a.out), a.n_seg, a.d, a.seg_lo, a.group, a.width,
+        a.slices);
   else
-    segment_accumulate_kernel<T, NC, false><<<grid, kWarps * 32, 0, stream>>>(
-        static_cast<const T*>(msg), rowptr, nullptr, rows,
-        static_cast<T*>(out), n_seg, d, seg_lo, group);
+    segment_accumulate_kernel<T, V, NC, false><<<a.grid, kWarps * 32, 0,
+                                                 a.stream>>>(
+        static_cast<const T*>(a.msg), a.rowptr, nullptr, a.rows,
+        static_cast<T*>(a.out), a.n_seg, a.d, a.seg_lo, a.group, a.width,
+        a.slices);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_acc(const void* msg, const int* rowptr, const int* perm,
-                 const int* rows, void* out, int n_seg, int d, int seg_lo,
-                 int group, cudaStream_t st) {
-  const int nc = (d + 31) / 32;
-  switch (nc) {
-    case 1: return launch_acc<T, 1>(msg, rowptr, perm, rows, out, n_seg, d, seg_lo, group, st);
-    case 2: return launch_acc<T, 2>(msg, rowptr, perm, rows, out, n_seg, d, seg_lo, group, st);
-    case 3: return launch_acc<T, 3>(msg, rowptr, perm, rows, out, n_seg, d, seg_lo, group, st);
-    case 4: return launch_acc<T, 4>(msg, rowptr, perm, rows, out, n_seg, d, seg_lo, group, st);
-    default: return launch_acc<T, 8>(msg, rowptr, perm, rows, out, n_seg, d, seg_lo, group, st);
+template <typename T, int V>
+int launch_team(const AccArgs& a) {
+  if (a.perm)
+    segment_accumulate_kernel_team<T, V, true><<<a.grid, kWarps * 32, 0,
+                                                 a.stream>>>(
+        static_cast<const T*>(a.msg), a.rowptr, a.perm, a.rows,
+        static_cast<T*>(a.out), a.n_seg, a.d, a.seg_lo, a.group);
+  else
+    segment_accumulate_kernel_team<T, V, false><<<a.grid, kWarps * 32, 0,
+                                                  a.stream>>>(
+        static_cast<const T*>(a.msg), a.rowptr, nullptr, a.rows,
+        static_cast<T*>(a.out), a.n_seg, a.d, a.seg_lo, a.group);
+  return (int)cudaGetLastError();
+}
+
+// route 0: the team kernel (d / V <= 32 lanes); route 1: the row kernel,
+// NC = ceil(width / (32 V)) vectors a lane, at most kMaxNC<T, V>.
+template <typename T, int V>
+int dispatch_acc(const AccArgs& a, int route) {
+  if (route == 0)                               // whole teams to a warp
+    return a.d / V <= 32 && a.group % (32 / (a.d / V)) == 0
+               ? launch_team<T, V>(a)
+               : (int)cudaErrorInvalidValue;
+  const int nc = (a.width / V + 31) / 32;
+  if (nc == 1) return launch_rows<T, V, 1>(a);
+  if constexpr (kMaxNC<T, V> >= 2) {
+    if (nc == 2) return launch_rows<T, V, 2>(a);
   }
+  if constexpr (kMaxNC<T, V> >= 3) {
+    if (nc == 3) return launch_rows<T, V, 3>(a);
+  }
+  if constexpr (kMaxNC<T, V> >= 4) {
+    if (nc == 4) return launch_rows<T, V, 4>(a);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -419,21 +670,45 @@ extern "C" int segment_sum_csr(const void* msg, const void* rowptr,
 // msg (E, d) fp32 or bf16 (is_bf16), contiguous; rowptr (n_seg + 1,) int32;
 // perm (E',) int32 or null; rows (n_seg,) int32 distinct row ids or null
 // (then rows seg_lo .. seg_lo + n_seg - 1); out (R, d) contiguous, msg's
-// dtype, updated in place; group: segments per warp, 1..31.
+// dtype, updated in place. The plan, chosen by the caller (ops.acc_plan):
+// route 0 (team: d / vec lanes a segment) or 1 (rows: a warp a (group,
+// slice)); vec, the elements per lane load (1, 2 or 4 fp32, 1, 2, 4 or 8
+// bf16; d % vec == 0, msg and out aligned to vec elements); group, the
+// segments a warp (1..31 on route 1, a multiple of 32 / (d / vec) teams
+// on route 0); slices, the column slices of
+// route 1, each ceil(d / vec / slices) vectors wide; grid, the blocks of
+// 8 warps (a grid-stride loop covers the rest).
 extern "C" int segment_sum_csr_accumulate(const void* msg, const void* rowptr,
                                           const void* perm, const void* rows,
                                           void* out, int n_seg, int d,
-                                          int seg_lo, int group, int is_bf16,
-                                          void* stream) {
-  if (n_seg <= 0 || d <= 0 || group < 1 || group > 31)
+                                          int seg_lo, int is_bf16, int route,
+                                          int vec, int group, int slices,
+                                          int grid, void* stream) {
+  if (n_seg <= 0 || d <= 0 || vec < 1 || d % vec || group < 1 || grid < 1 ||
+      grid > kAccBlocksCap || (route != 0 && route != 1) ||
+      (route == 1 && (group > 31 || slices < 1 || slices > d / vec)))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* rp = static_cast<const int*>(rowptr);
-  const int* pm = static_cast<const int*>(perm);
-  const int* rw = static_cast<const int*>(rows);
-  if (is_bf16)
-    return dispatch_acc<__nv_bfloat16>(msg, rp, pm, rw, out, n_seg, d, seg_lo,
-                                       group, st);
-  return dispatch_acc<float>(msg, rp, pm, rw, out, n_seg, d, seg_lo, group,
-                             st);
+  const int n_vec = d / vec;
+  const int width = route == 1 ? (n_vec + slices - 1) / slices * vec : d;
+  if (route == 1 && (long long)(slices - 1) * width >= d)
+    return (int)cudaErrorInvalidValue;           // an empty slice
+  const AccArgs a{msg, static_cast<const int*>(rowptr),
+                  static_cast<const int*>(perm), static_cast<const int*>(rows),
+                  out, n_seg, d, seg_lo, group, width, slices, grid,
+                  static_cast<cudaStream_t>(stream)};
+  if (is_bf16) {
+    switch (vec) {
+      case 8: return dispatch_acc<__nv_bfloat16, 8>(a, route);
+      case 4: return dispatch_acc<__nv_bfloat16, 4>(a, route);
+      case 2: return dispatch_acc<__nv_bfloat16, 2>(a, route);
+      case 1: return dispatch_acc<__nv_bfloat16, 1>(a, route);
+    }
+  } else {
+    switch (vec) {
+      case 4: return dispatch_acc<float, 4>(a, route);
+      case 2: return dispatch_acc<float, 2>(a, route);
+      case 1: return dispatch_acc<float, 1>(a, route);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }

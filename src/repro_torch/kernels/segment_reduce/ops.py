@@ -42,7 +42,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -54,7 +54,8 @@ from repro_torch.roofline import trace
 _SRC = Path(__file__).resolve().parent / "csrc" / "segment_reduce.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
-_ACC_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_ACC_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                 _P]
 _DTYPES = (torch.float32, torch.bfloat16)
 _INT32_LIMIT = 2 ** 31 - 2 ** 20     # rows, segments and entries (int32)
 
@@ -285,6 +286,17 @@ def segment_sum(messages: torch.Tensor, seg_ids: torch.Tensor,
 # the in-place kernel's warps at least, where the segments allow: 16 a
 # streaming multiprocessor of the H100's 132
 _ACC_MIN_WARPS = 2048
+# the in-place kernel's plan (csrc/segment_reduce.cu, whose note has the
+# measurements behind each number): rows of at most ACC_TEAM_BYTES take
+# the team route; a row whose vectors fit 32 lanes at ACC_LANE_REGS 32-bit
+# registers a lane is one slice (medium); a wider row is cut into slices
+# of ACC_SLICE_REGS registers a lane, or one vector where a vector is
+# wider (wide); 8 warps a block, at most 2^20 blocks
+ACC_TEAM_BYTES = 64
+ACC_LANE_REGS = 4
+ACC_SLICE_REGS = 3
+_ACC_BLOCK_WARPS = 8
+_ACC_BLOCKS_CAP = 1 << 20
 
 
 def group_size(n_seg: int, n_entries: int) -> int:
@@ -299,6 +311,68 @@ def group_size(n_seg: int, n_entries: int) -> int:
     return min(g, max(1, -(-n_seg // _ACC_MIN_WARPS)))
 
 
+class AccPlan(NamedTuple):
+    """One launch of the in-place kernel: ``route`` "team" (a team of
+    ``d / vec`` lanes a segment), "medium" (a warp a group of segments, the
+    whole row) or "wide" (a warp a (group, column slice)); ``group``
+    segments a warp; ``slices`` column slices of ``width`` columns (the
+    last may be narrower); ``vec`` elements a lane load; ``warps`` the
+    work items; ``grid`` the blocks launched (a grid-stride loop covers
+    warps past the cap)."""
+    route: str
+    group: int
+    slices: int
+    width: int
+    vec: int
+    warps: int
+    grid: int
+
+
+def acc_plan(n_seg: int, n_entries: int, d: int, elem_size: int,
+             ptrs=()) -> AccPlan:
+    """The in-place kernel's launch plan for ``n_seg`` segments over
+    ``n_entries`` entries of rows of ``d`` elements of ``elem_size``
+    bytes, the messages' and the output's base pointers in ``ptrs``:
+    the vector is the widest of 16/8/4/2 bytes that divides a row and
+    aligns them (``_vector_width``). Rows of ``ACC_TEAM_BYTES`` or less go
+    to the team route, whose warp takes ``group_size`` segments rounded up
+    to whole teams. Wider rows go to the row kernel at ``group_size``
+    segments a warp: in one slice where 32 lanes hold the row within
+    ``ACC_LANE_REGS`` registers each (medium), else in column slices of
+    balanced widths, each within ``ACC_SLICE_REGS`` registers (or one
+    vector) a lane (wide). No plan changes a bit."""
+    vec = _vector_width(d, elem_size, *ptrs)
+    g = group_size(n_seg, n_entries)
+    n_vec = d // vec
+    regs = max(1, vec * elem_size // 4)          # a vector's registers
+    if d * elem_size <= ACC_TEAM_BYTES:
+        teams = 32 // n_vec
+        group = -(-g // teams) * teams
+        route, slices, width = "team", 1, d
+    elif -(-n_vec // 32) * regs <= ACC_LANE_REGS:
+        group, route, slices, width = g, "medium", 1, d
+    else:
+        group, route = g, "wide"
+        lane_vecs = max(1, ACC_SLICE_REGS // regs)
+        per_slice = -(-n_vec // -(-n_vec // (32 * lane_vecs)))
+        slices = -(-n_vec // per_slice)          # balanced, none empty
+        width = per_slice * vec
+    warps = -(-n_seg // group) * slices
+    grid = min(-(-warps // _ACC_BLOCK_WARPS), _ACC_BLOCKS_CAP)
+    return AccPlan(route, group, slices, width, vec, warps, grid)
+
+
+def accumulate_plan(messages: torch.Tensor, rowptr: torch.Tensor,
+                    perm: Optional[torch.Tensor], out: torch.Tensor
+                    ) -> AccPlan:
+    """The plan ``segment_sum_csr_accumulate`` launches for these
+    arguments (a CUDA call's; on the CPU the same pointers' plan)."""
+    return acc_plan(rowptr.numel() - 1,
+                    messages.shape[0] if perm is None else perm.numel(),
+                    messages.shape[1], messages.element_size(),
+                    (messages.data_ptr(), out.data_ptr()))
+
+
 def segment_sum_csr_accumulate(messages: torch.Tensor, rowptr: torch.Tensor,
                                perm: Optional[torch.Tensor] = None, *,
                                out: torch.Tensor,
@@ -309,10 +383,11 @@ def segment_sum_csr_accumulate(messages: torch.Tensor, rowptr: torch.Tensor,
     from 0 in increasing j, added once in fp32 and rounded once to
     ``out``'s dtype), where ``r_i = rows[i]`` (int32, distinct) or
     ``seg_lo + i``; returns ``out``. Only the listed rows are read or
-    written, each by one warp: no atomics, the same bits on every run
-    (and for every ``group_size``). The offsets and the rows are trusted:
-    reading them to check would wait for the device. It takes no gradient
-    (it is a backward's accumulation)."""
+    written, each column of a row by one lane: no atomics, the same bits
+    on every run and for every plan (``acc_plan``, ``group_size``). The
+    offsets and the rows are trusted: reading them to check would wait
+    for the device. It takes no gradient (it is a backward's
+    accumulation)."""
     if rowptr.dim() != 1 or rowptr.numel() < 1:
         raise ValueError(f"segment_sum_csr_accumulate: rowptr must be "
                          f"(n+1,), got {tuple(rowptr.shape)}")
@@ -345,13 +420,15 @@ def _accumulate_route(messages, rowptr, perm, out, rows, seg_lo, n):
                          "contiguous int32 on the messages' device")
     if n == 0 or messages.device.type == "meta":
         return out
-    g = group_size(n, messages.shape[0] if perm is None else perm.numel())
+    plan = accumulate_plan(messages, rowptr, perm, out)
     stream = torch.cuda.current_stream(messages.device).cuda_stream
     err = _acc_lib()(messages.data_ptr(), rowptr.data_ptr(),
                      None if perm is None else perm.data_ptr(),
                      None if rows is None else rows.data_ptr(),
-                     out.data_ptr(), n, messages.shape[1], seg_lo, g,
-                     int(messages.dtype == torch.bfloat16), stream)
+                     out.data_ptr(), n, messages.shape[1], seg_lo,
+                     int(messages.dtype == torch.bfloat16),
+                     int(plan.route != "team"), plan.vec, plan.group,
+                     plan.slices, plan.grid, stream)
     if err:
         raise RuntimeError(f"segment_sum_csr_accumulate: kernel launch failed "
                            f"with CUDA error {err}")

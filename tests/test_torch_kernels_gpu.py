@@ -922,12 +922,15 @@ def test_gather_transpose_on_the_card_equals_index_add():
     torch.testing.assert_close(a, want, rtol=0, atol=1e-4)
 
 
-def _acc_case(g, n_rows, n_seg, d, dtype, with_perm, mean_deg):
+def _acc_case(g, n_rows, n_seg, d, dtype, with_perm, mean_deg, hub=0):
     """A CSR of n_seg segments of 0..2·mean_deg entries (a perm over the
-    messages, or the messages in order), distinct rows of an (n_rows, d)
-    output, and that output's random start."""
+    messages, or the messages in order), the middle one a hub of ``hub``
+    entries when given, distinct rows of an (n_rows, d) output, and that
+    output's random start."""
     deg = torch.randint(0, 2 * mean_deg + 1, (n_seg,), device="cuda",
                         generator=g)
+    if hub:
+        deg[n_seg // 2] = hub
     rowptr = torch.zeros(n_seg + 1, dtype=torch.int32, device="cuda")
     rowptr[1:] = deg.cumsum(0)
     e = int(rowptr[-1]) + 5
@@ -939,22 +942,44 @@ def _acc_case(g, n_rows, n_seg, d, dtype, with_perm, mean_deg):
     return msg, rowptr, perm, rows, out0
 
 
+def _off_16_bytes(t):
+    """A contiguous copy of ``t`` whose base is one element past a 16-byte
+    boundary (so no row can take a vector load wider than one element)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == t.element_size()
+    return out
+
+
+# the widths of every route and the edges between them (ops.acc_plan): the
+# team route to 64 bytes, the row kernel's one slice (medium) to 512 bytes,
+# column slices (wide) past it; NequIP's 291, the token's 3,072 bf16 and
+# Equiformer-v2's 6,275
+_ACC_WIDTHS = [1, 2, 5, 10, 16, 17, 33, 64, 67, 68, 128, 129, 255, 256, 257,
+               291, 300, 3072, 6275]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [1, 5, 33, 67, 68, 129, 300])
+@pytest.mark.parametrize("d", _ACC_WIDTHS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_accumulate_kernel_matches_plain_version(d, dtype, monkeypatch):
     """The in-place kernel against its plain version bit for bit: the
-    compacted-source form (perm, listed rows, ~1.2 entries a segment) and
-    the destination-range form (no perm, ``seg_lo``, ~25 entries, empty
-    segments); every group size gives the same bits; rows not listed keep
-    theirs; one launch a call."""
+    compacted-source form (perm, listed rows, ~1.2 entries a segment, one
+    hub of 100 entries: across 32-entry chunks and every column slice)
+    and the destination-range form (no perm, ``seg_lo``, ~25 entries,
+    empty segments); every group size gives the same bits; rows not
+    listed keep theirs; one launch a call; an output whose rows start off
+    a 16-byte boundary takes one-element loads and the same bits."""
     _need_card()
     from repro_torch.kernels.segment_reduce import ops as sops
     from repro_torch.kernels.segment_reduce.ref import (
         segment_sum_csr_accumulate_ref)
     g = torch.Generator(device="cuda").manual_seed(40 + d)
-    msg, rowptr, perm, rows, out0 = _acc_case(g, 9_000, 4_000, d, dtype,
-                                              True, 1)
+    n_seg = min(4_000, max(300, 2_000_000 // d))   # fewer at the widest
+    n_rows = 9 * n_seg // 4
+    msg, rowptr, perm, rows, out0 = _acc_case(g, n_rows, n_seg, d, dtype,
+                                              True, 1, hub=100)
     want = segment_sum_csr_accumulate_ref(msg, rowptr, perm,
                                           out=out0.clone(), rows=rows)
     auto = sops.group_size
@@ -966,21 +991,31 @@ def test_accumulate_kernel_matches_plain_version(d, dtype, monkeypatch):
                                               out=out0.clone(), rows=rows)
         assert sops.segment_sum_csr_accumulate.launches == before + 1
         assert torch.equal(got, want), group
-    keep = torch.ones(9_000, dtype=torch.bool, device="cuda")
+    monkeypatch.setattr(sops, "group_size", auto)
+    keep = torch.ones(n_rows, dtype=torch.bool, device="cuda")
     keep[rows.long()] = False
     assert torch.equal(want[keep], out0[keep])
-    msg, rowptr, _, _, out0 = _acc_case(g, 3_000, 1_500, d, dtype, False, 25)
-    rowptr[100:201] = rowptr[100]                  # 100 empty segments
+    off = _off_16_bytes(out0)
+    assert sops.accumulate_plan(msg, rowptr, perm, off).vec == 1
+    got = sops.segment_sum_csr_accumulate(msg, rowptr, perm, out=off,
+                                          rows=rows)
+    assert torch.equal(got, want)
+    n_dst = n_seg * 3 // 8
+    msg, rowptr, _, _, out0 = _acc_case(g, 2 * n_dst, n_dst, d, dtype, False,
+                                        25)
+    e0, e1 = n_dst // 10, n_dst // 10 + n_dst // 15
+    rowptr[e0:e1 + 1] = rowptr[e0]                 # empty segments
+    lo = n_dst // 2
     want = segment_sum_csr_accumulate_ref(msg, rowptr, out=out0.clone(),
-                                          seg_lo=700)
+                                          seg_lo=lo)
     for group in (None, 2, 31):
         monkeypatch.setattr(sops, "group_size", auto if group is None
                             else lambda n, e, group=group: group)
         got = sops.segment_sum_csr_accumulate(msg, rowptr, out=out0.clone(),
-                                              seg_lo=700)
+                                              seg_lo=lo)
         assert torch.equal(got, want), group
-    assert torch.equal(want[:700], out0[:700])
-    assert torch.equal(want[2_200:], out0[2_200:])
+    assert torch.equal(want[:lo], out0[:lo])
+    assert torch.equal(want[lo + n_dst:], out0[lo + n_dst:])
     torch.cuda.synchronize()
 
 

@@ -130,6 +130,70 @@ def test_group_size(n_seg, n_entries, want):
     assert ops.group_size(n_seg, n_entries) == want
 
 
+# 256-byte aligned pointers (the caching allocator's), and an output whose
+# base is one element off 16 bytes
+_ALIGNED = (1 << 20, 1 << 21)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((852_959, 1 << 20, 67, 4), ("medium", 26, 1, 67, 1)),     # EGNN source
+    ((41_464, 1 << 20, 67, 4), ("medium", 1, 1, 67, 1)),       # destination
+    ((248_606, 524_288, 291, 4), ("wide", 15, 4, 73, 1)),      # NequIP
+    ((65_536, 65_536, 6_275, 4), ("wide", 31, 66, 96, 1)),     # Equiformer-v2
+    ((4_056, 4_096, 3_072, 2), ("wide", 2, 12, 256, 8)),       # LM token
+    ((10_312, 41_008, 128, 4), ("medium", 6, 1, 128, 4)),      # DimeNet m[ts]
+    ((1_874_493, 2_555_904, 10, 4), ("team", 24, 1, 10, 2)),   # xDeepFM tables
+    ((1_874_493, 2_555_904, 1, 4), ("team", 32, 1, 1, 1)),     # linear_w
+])
+def test_acc_plan_at_the_main_paths(shape, want):
+    """The route, group, slices, slice width and vector the in-place kernel
+    runs at each main path's shape (``PERF.md`` §6), with 16-byte aligned
+    pointers; the grid covers the warps in blocks of 8."""
+    plan = ops.acc_plan(*shape, _ALIGNED)
+    assert (plan.route, plan.group, plan.slices, plan.width, plan.vec) == want
+    assert plan.grid == -(-plan.warps // 8)
+
+
+@pytest.mark.parametrize("d", [1, 2, 10, 16, 17, 64, 128, 255, 256, 257, 291,
+                               3_072, 6_275])
+@pytest.mark.parametrize("elem_size", [4, 2])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_acc_plan_is_one_the_kernel_takes(d, elem_size, aligned):
+    """Every plan meets the C entry's terms: the vector divides the row and
+    aligns both pointers; rows of 64 bytes or less run in teams of d / vec
+    lanes, whole teams to a warp; wider rows run at most 31 segments a warp
+    in non-empty slices of whole vectors: one slice where 32 lanes hold
+    the row within 4 registers each, else as few balanced slices as hold
+    it within 3 registers, or one vector, a lane."""
+    ptrs = _ALIGNED if aligned else (_ALIGNED[0], _ALIGNED[1] + elem_size)
+    for n_seg, n_entries in ((100_000, 130_000), (700, 50_000), (5, 5)):
+        plan = ops.acc_plan(n_seg, n_entries, d, elem_size, ptrs)
+        vbytes = plan.vec * elem_size
+        assert d % plan.vec == 0 and all(p % vbytes == 0 for p in ptrs)
+        assert plan.vec == 1 or vbytes <= 16
+        if not aligned:
+            assert plan.vec == 1
+        if d * elem_size <= ops.ACC_TEAM_BYTES:
+            team = d // plan.vec
+            assert plan.route == "team" and team <= 32
+            assert plan.group % (32 // team) == 0
+        else:
+            assert plan.route == ("medium" if plan.slices == 1 else "wide")
+            assert 1 <= plan.group <= 31
+            assert plan.width % plan.vec == 0
+            assert (plan.slices - 1) * plan.width < d <= plan.slices * plan.width
+            lanes = -(-plan.width // plan.vec)
+            regs = max(1, vbytes // 4)
+            assert -(-lanes // 32) * regs <= ops.ACC_LANE_REGS
+            n_vec = d // plan.vec
+            if -(-n_vec // 32) * regs <= ops.ACC_LANE_REGS:
+                assert plan.route == "medium"
+            else:
+                fewest = -(-n_vec // (32 * max(1, ops.ACC_SLICE_REGS // regs)))
+                assert plan.width == -(-n_vec // fewest) * plan.vec
+        assert plan.warps == -(-n_seg // plan.group) * plan.slices
+
+
 # ------------------------------------------------------ the transposes' forms
 def _exec(n=300, e=1000, block=64, budget=200, seed=3):
     g = gd.make_flat_graph(n, e, 4, seed=seed, device="cpu")
