@@ -34,12 +34,23 @@ Phases (each prints one line; any failure exits non-zero):
                 measured again after phase 4 at the delta size those
                 searches scanned, when ingest overflow grew the delta.
                 The probe kernel is also held against its plain version
-                on each shard of the sharded phase's S = 4 layout.
+                on each shard of the sharded phase's S = 4 layout. The
+                segment sums run each route of their plans (team, medium,
+                wide) at small shapes, bit for bit and uncounted: the
+                summing kernel ([kernel.segment_sum.routes], with
+                [kernel.segment_sum.small]'s unsorted ids) and the
+                in-place one; every summing check is bitwise and every
+                summing line prints its plan.
   4. vector   — ingest → search → filtered search → update → delete at the
                 serve_1m shape (1,048,576 × 384, batch 256) under the
                 default config (get_config("hmgi"): maint_auto on),
                 recall@10 against an exact top-10 computed on the card,
-                and 16 queries re-run on a CPU copy of the index.
+                and 16 queries re-run on a CPU copy of the index. Then,
+                uncounted, the summing kernel as k-means' cluster sums
+                (run_sums' two launches of a Lloyd iteration) over this
+                index's rows by their centroids, beside its bound and
+                index_add_ ([kernel.segment_sum.kmeans_runs],
+                [...kmeans_clusters]).
      maint    — adaptive maintenance on the same index: recluster, merge
                 and split through maintain(), a merge by deletes, a split
                 by maybe_repartition, drains past the delta's watermark;
@@ -90,6 +101,8 @@ Phases (each prints one line; any failure exits non-zero):
                 needs 10 GB free under the temp dir.
   5. hybrid   — ingest with a graph, hybrid_search (plain, typed, filtered)
                 at 131,072 nodes, checked against a CPU copy of the index;
+                the summing kernel as the hop operator's out-degrees on
+                its graph, uncounted ([kernel.segment_sum.hop_degrees]);
                 then [sharded.hybrid]: the same index over 4 shards
                 (layout forced: its 100 MB slab is under the budget),
                 hybrid_search and one RAGEngine.retrieve batch equal to
@@ -176,7 +189,9 @@ Phases (each prints one line; any failure exits non-zero):
                 launches a step: the summing kernel's in the forward,
                 layers x chunks, and the in-place kernel's in the
                 backward's gather transposes, layers x 2 x blocks; one
-                profiled step with its aten::add* device time); a step,
+                profiled step with its aten::add* device time and each
+                segment kernel's launches the profiler saw beside the
+                wrappers' counts); a step,
                 its parts and half the chunk budget from the same state
                 give the same bits; a run whose step 3 fails restores the
                 step-2 checkpoint and equals the uninterrupted run at step
@@ -230,7 +245,8 @@ Phases (each prints one line; any failure exits non-zero):
                 edges/s, peak memory, the segment-sum and in-place
                 launches per forward and per step held to their formulas,
                 the Wigner-D launches (Equiformer-v2), one profiled
-                forward or step per cell that trains (the forward-only
+                forward or step per cell that trains, with each segment
+                kernel's launches seen beside counted (the forward-only
                 cells are not profiled: the dryrun phase took their
                 time). Checks per arch: (a) 8
                 molecules at full width and depth, logits and one step's
@@ -273,7 +289,8 @@ Phases (each prints one line; any failure exits non-zero):
                 state bit for bit; (c) train_batch (65,536 rows): step
                 p50/p99 after a warm-up, examples/s, the FLOP share of 67
                 TFLOP/s fp32 (the dry run's formula), peak memory, one
-                profiled step, two in-place launches a step; (d)
+                profiled step (the segment kernels' launches seen beside
+                counted), two in-place launches a step; (d)
                 serve_p99 (512) and serve_bulk (262,144) forwards
                 p50/p99 and peak memory, the 512 rows against the same
                 rows inside the bulk batch (1e-5); (e) retrieval_cand
@@ -440,10 +457,6 @@ MIXTRAL_PROMPT, MIXTRAL_STEPS = 4608, 8
 # (~11 GB of per-edge temporaries), and the molecule shape
 GNN_CHUNK_EDGES = 1 << 22
 GNN_REPS = 5
-# segment-sum kernel vs its plain version: the same fp32 adds in the same
-# order, so 0 is expected; fp32 allows sums of ≤ 55 O(1) terms in another
-# order, bf16 one bf16 ulp of the output (both round one fp32 sum)
-SEG_FP32_ATOL = 1e-4
 # EGNN, card vs CPU (same weights, fp32, TF32 off): matmuls and sums in
 # another order over 4 layers, relative to max(1, max |logit|)
 GNN_CPU_RTOL = 1e-3
@@ -692,10 +705,14 @@ def profile_window(fn, top: int = 6, share_of="",
     return profile_once(fn, top, share_of, ops_top)[1]
 
 
+PROFILE_LEAD_S = 0.02
+
+
 def profile_once(fn, top: int = 6, share_of="", ops_top: int = 0,
                  op_sum: str = ""):
     """(fn's result, its profile): device time by kernel over one
-    synchronised call of ``fn`` (torch.profiler / CUPTI): the ``top``
+    synchronised call of ``fn`` (torch.profiler / CUPTI; the window opens
+    ``PROFILE_LEAD_S`` before the call, outside its wall time): the ``top``
     kernels by self device time, the device-busy sum, the host wall time,
     the device's idle share, with ``share_of`` (a name or a tuple of
     names) the device time, launches and share of busy time of the kernels
@@ -705,6 +722,10 @@ def profile_once(fn, top: int = 6, share_of="", ops_top: int = 0,
     same summed over the operators whose names start with it."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the profiler can miss the kernels launched in the first
+        # milliseconds of its window (tools/profile_drops_torch.py): the
+        # host waits PROFILE_LEAD_S before fn's first launch
+        time.sleep(PROFILE_LEAD_S)
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -860,10 +881,12 @@ def phase_build():
     ptxas = _ptxas_report(log, r"scan_mma_kernelILi(\d+)E")
     dptxas = _ptxas_report(
         dlog, r"decode_kernelI(?:13__nv_)?(f|bfloat16)Li(\d+)ELi(\d+)E")
-    # segment sum: "<dtype>/<elements per lane load>/<perm>" (the EGNN
-    # layers run f/4/0)
+    # segment sums: "<sum|accumulate>[/_team]/<dtype>/<elements per lane
+    # load>[/<vectors a lane>]/<perm>" (the EGNN layers' sums run
+    # sum/f/4/1/0)
     sptxas = _ptxas_report(
-        slog, r"segment_sum_kernelI(?:13__nv_)?(f|bfloat16)Li(\d+)ELb(\d)E")
+        slog, r"segment_(sum|accumulate)_kernel(_team)?I(?:13__nv_)?"
+              r"(f|bfloat16)Li(\d+)E(?:Li(\d+)E)?Lb(\d)E")
     line("build", nvcc_s={"ivf_topk": secs, "decode_attention": dsecs,
                           "segment_reduce": ssecs},
          load_s=time.perf_counter() - t0, arch="sm_90a", ptxas=ptxas,
@@ -3840,20 +3863,22 @@ def phase_lm_mixtral() -> int:
     return launches
 
 
-def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
-    """One bf16 ulp (8 significant bits) at the magnitude of each of x."""
-    mag = x.float().abs().clamp_min(2.0 ** -126)
-    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+def plan_of(msgs, rowptr, perm, out, seg_lo: int = 0) -> dict:
+    """The summing kernel's plan for a call (``ops.summing_plan``)."""
+    from repro_torch.kernels.segment_reduce import ops as sops
+    return sops.summing_plan(msgs, rowptr, perm, out, seg_lo)._asdict()
 
 
 def measure_segment_small() -> float:
-    """segment_sum against its plain version at small fp32/bf16 shapes:
-    unsorted ids, dropped ids (-1 and >= n), empty segments, widths that
-    take each load width. Returns the largest error (0 is expected)."""
+    """segment_sum against its plain version at small fp32/bf16 shapes,
+    bit for bit: unsorted ids, dropped ids (-1 and >= n), empty segments,
+    widths that take each load width. Returns the largest error (0: the
+    check is bitwise)."""
     from repro_torch.kernels.segment_reduce import ops as sops
-    from repro_torch.kernels.segment_reduce.ref import segment_sum_ref
+    from repro_torch.kernels.segment_reduce.ref import (
+        csr_from_ids, segment_sum_ref)
     gen = torch.Generator(device="cuda").manual_seed(5)
-    worst = 0.0
+    worst, plans = 0.0, {}
     for e, n, d in ((20_000, 3_000, 68), (5_000, 900, 3), (8_192, 2_000, 129),
                     (1, 4, 16), (0, 5, 8)):
         ids = torch.randint(-1, n + 3, (e,), device="cuda", generator=gen,
@@ -3863,15 +3888,71 @@ def measure_segment_small() -> float:
             got = sops.segment_sum(msg, ids, n)
             want = segment_sum_ref(msg, ids, n)
             err = (got.float() - want.float()).abs()
-            tol = (SEG_FP32_ATOL if dtype == torch.float32
-                   else bf16_ulp(want))
-            check(bool((err <= tol).all()),
-                  f"segment_sum {dtype} E={e} n={n} d={d}: max |d| "
-                  f"{float(err.max()) if err.numel() else 0.0}")
+            check(torch.equal(got, want),
+                  f"segment_sum {dtype} E={e} n={n} d={d}: not bitwise equal "
+                  f"to its plain version (max |d| "
+                  f"{float(err.max()) if err.numel() else 0.0})")
             worst = max(worst, float(err.max()) if err.numel() else 0.0)
+            plan = plan_of(msg, *csr_from_ids(ids, n), got)
+            plans[f"{e}x{d}/{str(dtype)[6:]}"] = (
+                f"{plan['route']} vec {plan['vec']} group {plan['group']} "
+                f"slices {plan['slices']}")
     torch.cuda.synchronize()
-    line("kernel.segment_sum.small", cases=10, max_abs_err=worst)
+    line("kernel.segment_sum.small", cases=10, bitwise=True,
+         max_abs_err=worst, plans=plans)
     return worst
+
+
+def measure_sum_routes() -> dict:
+    """The summing kernel once on each route (``ops.sum_plan``: team,
+    medium, wide) and each load it takes (a vector, and one element where
+    the output starts off a 16-byte boundary), fp32 and bf16, at small
+    shapes: with a perm (a hub of 40 entries among ~1.5) and without one
+    into rows from ``seg_lo`` (empty segments among ~6), each bit for bit
+    against its plain version, into a NaN-filled buffer: every row of the
+    range written, no other. Its launches are not counted. Returns the
+    count of cases run by "route/dtype/vec"."""
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.kernels.segment_reduce.ref import segment_sum_csr_ref
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    saved = sops.segment_sum_csr.launches
+    ran = {}
+    for d in (1, 10, 67, 128, 289, 3_072):         # team, medium, wide
+        for dtype in (torch.float32, torch.bfloat16):
+            for listed, off in ((True, False), (False, False), (True, True)):
+                n = 1_000
+                deg = torch.randint(0, 4 if listed else 12, (n,),
+                                    device="cuda", generator=gen)
+                deg[n // 2] = 40 if listed else 0
+                rowptr = torch.zeros(n + 1, dtype=torch.int32, device="cuda")
+                rowptr[1:] = deg.cumsum(0)
+                e = int(rowptr[-1])
+                msg = torch.randn((e, d), device="cuda",
+                                  generator=gen).to(dtype)
+                perm = (torch.randperm(e, device="cuda", generator=gen).int()
+                        if listed else None)
+                flat = torch.full((2 * n * d + 1,), float("nan"),
+                                  device="cuda", dtype=dtype)
+                out = (flat[1:] if off else flat[:-1]).view(2 * n, d)
+                lo = 0 if listed else n // 3
+                want = segment_sum_csr_ref(msg, rowptr, perm)
+                plan = sops.summing_plan(msg, rowptr, perm, out, lo)
+                sops.segment_sum_csr(msg, rowptr, perm, out=out, seg_lo=lo)
+                check(torch.equal(out[lo:lo + n], want)
+                      and bool(out[:lo].isnan().all())
+                      and bool(out[lo + n:].isnan().all()),
+                      f"summing kernel, {plan}, {dtype}, perm {listed}: not "
+                      f"bitwise equal to its plain version")
+                key = f"{plan.route}/{str(dtype)[6:]}/vec {plan.vec}"
+                ran[key] = ran.get(key, 0) + 1
+    torch.cuda.synchronize()
+    sops.segment_sum_csr.launches = saved
+    check({k.split("/")[0] for k in ran} == {"team", "medium", "wide"},
+          f"summing kernel: routes run {sorted(ran)}")
+    line("kernel.segment_sum.routes", bitwise=True, cases_by_plan=ran,
+         s=time.perf_counter() - t0)
+    return ran
 
 
 def measure_accumulate_routes() -> dict:
@@ -3955,8 +4036,9 @@ def measure_segment(cfg, params, g, ex, small_err: float) -> dict:
     want = segment_sum_csr_ref(msgs, ex.rowptr)
     torch.cuda.synchronize()
     err = float((out - want).abs().max())
-    check(err <= SEG_FP32_ATOL,
-          f"segment_sum at the layer shape: max |d| {err} > {SEG_FP32_ATOL}")
+    check(torch.equal(out, want),
+          f"segment_sum at the layer shape: not bitwise equal to its plain "
+          f"version (max |d| {err})")
     del want
     # each message read once, each output row written once, rowptr read
     nbytes = e * d * 4 + n * d * 4 + (n + 1) * 4
@@ -3973,9 +4055,11 @@ def measure_segment(cfg, params, g, ex, small_err: float) -> dict:
     torch.cuda.synchronize()
     lib_err = float((lib - out).abs().max())
     lms = cuda_ms(lambda: lib.index_add_(0, dst, msgs), 10, flush)
+    plan = plan_of(msgs, ex.rowptr, None, out)
     line("kernel.segment_sum", shape=dict(E=e, d=d, n=n, dtype="float32",
                                           perm=False),
-         max_abs_err=err, small_cases_max_abs_err=small_err, ms=kms,
+         plan=plan, bitwise=True, max_abs_err=err,
+         small_cases_max_abs_err=small_err, ms=kms,
          plain_ms=pms, library_ms=lms,
          library="Tensor.index_add_(0, dst, msgs) (atomics)",
          library_max_abs_diff=lib_err, bound_ms=bms, bound_by=bby,
@@ -3983,7 +4067,7 @@ def measure_segment(cfg, params, g, ex, small_err: float) -> dict:
     del msgs, out, lib
     torch.cuda.empty_cache()
     return dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
-                bound_by=bby, max_abs_err=max(err, small_err))
+                bound_by=bby, max_abs_err=max(err, small_err), plan=plan)
 
 
 def phase_gnn(small_err: float):
@@ -4125,6 +4209,23 @@ def seg_counts():
     from repro_torch.kernels.segment_reduce import ops as sops
     return (sops.segment_sum_csr.launches,
             sops.segment_sum_csr_accumulate.launches)
+
+
+SEG_KERNELS = ("segment_sum_kernel", "segment_accumulate_kernel")
+
+
+def profile_segments(fn, **kw):
+    """``profile_once(fn, share_of=SEG_KERNELS, ...)``, its profile also
+    holding ``segment_launches``: each mode's kernel launches the profiler
+    saw (each mode's kernels have their own names) beside the wrappers'
+    counts over the same call."""
+    c0 = seg_counts()
+    out, prof = profile_once(fn, share_of=SEG_KERNELS, **kw)
+    counted = [b - a for a, b in zip(c0, seg_counts())]
+    seen = [prof.get(k, {}).get("launches") for k in SEG_KERNELS]
+    prof["segment_launches"] = dict(profiled=seen, counted=counted,
+                                    equal=seen == counted)
+    return out, prof
 
 
 def seg_zero() -> None:
@@ -4307,7 +4408,9 @@ def measure_transpose(ex) -> dict:
     want = segment_sum_csr_ref(cot, rowptr, perm)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    check(err <= SEG_FP32_ATOL, f"segment_sum transpose: max |d| {err}")
+    check(torch.equal(got, want), f"segment_sum transpose: not bitwise "
+                                  f"equal to its plain version (max |d| "
+                                  f"{err})")
     nbytes = e * d * 4 + e * 4 + (n + 1) * 4 + n * d * 4
     bms, bby = bound(float(e * d), nbytes)
     kms = cuda_ms(lambda: sops.segment_sum_csr(cot, rowptr, perm), 10, flush)
@@ -4320,7 +4423,7 @@ def measure_transpose(ex) -> dict:
                "autograd's (N, d) add", shape=dict(E=e, d=d, n=n,
                                                    dtype="float32",
                                                    perm=True),
-         max_abs_err=err, ms=kms, plain_ms=pms, library_ms=lms,
+         plan=plan_of(cot, rowptr, perm, got), bitwise=True, max_abs_err=err, ms=kms, plain_ms=pms, library_ms=lms,
          library="zero_ + index_add_(0, src, cot) (atomics)",
          bound_ms=bms, bound_by=bby, gbytes=nbytes / 1e9)
     del got, want, lib, keys, perm, rowptr
@@ -4456,10 +4559,9 @@ def phase_gnn_train(params, g, ex, forward_ms: float) -> int:
         del firsts
         # a profiled step from the same params and state, then the step's
         # parts (forward, backward, AdamW), with the launches of each
-        prof_out, prof = profile_once(
+        prof_out, prof = profile_segments(
             lambda: gd.make_train_step(cfg, "full_graph")(params, opt0,
                                                           batch), top=10,
-            share_of=("segment_sum_kernel", "segment_accumulate_kernel"),
             op_sum="aten::add")
         peaks = {}
         _, grads, fwd_l, bwd_l = grads_of(cfg, "full_graph", params, batch,
@@ -5017,7 +5119,6 @@ def model_cell(cfg, cell: str, kind: str, batch, params, ex, train: bool,
                edges_per_s=ex.n_edges / (f50 * 1e-3),
                launches_per_forward=dict(summing=fl[0], in_place=fl[1]),
                launch_formula=want["formula"])
-    share = ("segment_sum_kernel", "segment_accumulate_kernel")
     if train:
         profile_step = cfg.model != "equiformer_v2"
         step = gd.make_train_step(cfg, kind)
@@ -5038,9 +5139,8 @@ def model_cell(cfg, cell: str, kind: str, batch, params, ex, train: bool,
         s50, s99 = timed_ms(lambda: step(params, opt0, batch),
                             min(reps, MODEL_STEP_REPS))
         prof_t0 = time.perf_counter()
-        _, prof = profile_once((lambda: step(params, opt0, batch))
-                               if profile_step else forward, top=8,
-                               share_of=share)
+        _, prof = profile_segments((lambda: step(params, opt0, batch))
+                                   if profile_step else forward, top=8)
         res.update(step_ms=dict(p50=s50, p99=s99),
                    launches_per_step=dict(summing=sl[0], in_place=sl[1]),
                    profiled="one train step" if profile_step
@@ -5088,10 +5188,11 @@ def wigner_launches(l_max: int, rows: int) -> dict:
 
 
 def summing_width(tag: str, msgs, rowptr, perm, flush) -> dict:
-    """The summing kernel at one call's shape of a new model: against its
-    plain version, timed beside its byte bound, the plain version and
-    ``index_add_`` of each message by its segment (a message no segment
-    reads goes to an extra row). Prints the ``tag`` line; returns it."""
+    """The summing kernel at one call's shape (fp32): against its plain
+    version bit for bit, timed beside its byte bound, the plain version
+    and ``index_add_`` of each message by its segment (a message no
+    segment reads goes to an extra row). Prints the ``tag`` line, with
+    the call's plan; returns it."""
     from repro_torch.kernels.segment_reduce import ops as sops
     from repro_torch.kernels.segment_reduce.ref import segment_sum_csr_ref
     e, d = msgs.shape
@@ -5100,7 +5201,8 @@ def summing_width(tag: str, msgs, rowptr, perm, flush) -> dict:
     want = segment_sum_csr_ref(msgs, rowptr, perm)
     torch.cuda.synchronize()
     err = float((out - want).abs().max())
-    check(err <= SEG_FP32_ATOL, f"{tag}: max |d| {err} > {SEG_FP32_ATOL}")
+    check(torch.equal(out, want), f"{tag}: not bitwise equal to its plain "
+                                  f"version (max |d| {err})")
     del want
     deg = (rowptr[1:] - rowptr[:-1]).long()
     pos = torch.repeat_interleave(torch.arange(n, device="cuda"), deg)
@@ -5121,6 +5223,7 @@ def summing_width(tag: str, msgs, rowptr, perm, flush) -> dict:
     lms = cuda_ms(lambda: lib.index_add_(0, ids, msgs), 10, flush)
     res = dict(shape=dict(E=e, d=d, n=n, dtype="float32",
                           perm=perm is not None),
+               plan=plan_of(msgs, rowptr, perm, out), bitwise=True,
                max_abs_err=err, ms=kms, plain_ms=pms, library_ms=lms,
                library="index_add_(0, ids, msgs) (atomics)",
                library_max_abs_diff=lib_err, bound_ms=bms, bound_by=bby,
@@ -5366,6 +5469,49 @@ def model_rotation(cfg, arch, params, mb) -> dict:
           f"gnn_models {arch}: rotating the molecules moves the logits by "
           f"{rel} (relative) > {MODEL_ROT_RTOL}")
     return dict(out, rel_err=rel)
+
+
+def measure_run_sums(index) -> dict:
+    """The summing kernel as k-means' cluster sums at serve_1m
+    (``partitioner.run_sums``, two launches a Lloyd iteration of every
+    ``fit``): the phase-4 index's rows (1,048,576 × 384 fp32) by their
+    nearest centroid, in runs of ``RUN_ROWS`` (perm), then the runs into
+    the clusters; each through ``summing_width``. Its launches are not
+    counted. Returns the two readings."""
+    from repro_torch.core import partitioner
+    from repro_torch.kernels.segment_reduce import ops as sops
+    saved = sops.segment_sum_csr.launches
+    m = index.modalities["text"]
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda").zero_
+    a = partitioner.assign(m.vectors, m.ivf.centroids)
+    starts, perm, run_ptr = partitioner.run_csr(a, m.ivf.centroids.shape[0])
+    res = {"runs": summing_width("kernel.segment_sum.kmeans_runs", m.vectors,
+                                 starts, perm, flush)}
+    partials = sops.segment_sum_csr(m.vectors, starts, perm)
+    res["clusters"] = summing_width("kernel.segment_sum.kmeans_clusters",
+                                    partials, run_ptr, None, flush)
+    torch.cuda.synchronize()
+    sops.segment_sum_csr.launches = saved
+    del a, starts, perm, partials
+    return res
+
+
+def measure_hop_degrees(index) -> dict:
+    """The summing kernel as the hop operator's out-degrees on the hybrid
+    graph (``traversal._push_operator``: each source's edge weights, d 1,
+    summed in edge order over the graph's CSR), through ``summing_width``.
+    Its launches are not counted."""
+    from repro_torch.core import traversal
+    from repro_torch.kernels.segment_reduce import ops as sops
+    saved = sops.segment_sum_csr.launches
+    g = index.graph
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda").zero_
+    ew = traversal._edge_weights(g, None)[:, None].contiguous()
+    res = summing_width("kernel.segment_sum.hop_degrees", ew, g.indptr, None,
+                        flush)
+    torch.cuda.synchronize()
+    sops.segment_sum_csr.launches = saved
+    return res
 
 
 def phase_gnn_models(g_ogb, ex_ogb, mb_batch) -> dict:
@@ -6108,9 +6254,8 @@ def phase_recsys() -> tuple:
     check(bitwise, "recsys: two train steps from one state differ in their "
                    "bits")
     del a, b
-    _, prof = profile_once(lambda: step(params, state, batches[-1]), top=8,
-                           share_of=("segment_accumulate_kernel",),
-                           ops_top=8)
+    _, prof = profile_segments(lambda: step(params, state, batches[-1]),
+                               top=8, ops_top=8)
     timed = steps_ms[1:]
     p50 = float(np.percentile(timed, 50))
     counted_run("xdeepfm-train-batch", lambda: step(params, state,
@@ -6560,6 +6705,7 @@ def run_phases(child: dict) -> None:
                 132, 1601, RAG_SLOTS))}
     measure_decode_extents()
     small_seg_err = measure_segment_small()
+    sum_routes = measure_sum_routes()
     measure_accumulate_routes()
     ops.probe_scan.launches = 0
     ops.shared_scan.launches = 0
@@ -6576,6 +6722,8 @@ def run_phases(child: dict) -> None:
     index, corpus, delta_cap, delta_live = phase_vector()
     after_vector = (ops.probe_scan.launches, ops.shared_scan.launches)
     seg_read("vector")
+    index_sums = {f"kmeans_384_{k}": v
+                  for k, v in measure_run_sums(index).items()}
     phase_maint(index, corpus)
     after_maint = (ops.probe_scan.launches, ops.shared_scan.launches)
     seg_read("maint")
@@ -6591,6 +6739,7 @@ def run_phases(child: dict) -> None:
     index, corpus = phase_hybrid()
     after_hybrid = (ops.probe_scan.launches, ops.shared_scan.launches)
     seg_read("hybrid")
+    index_sums["hop_degrees_1"] = measure_hop_degrees(index)
     phase_sharded_hybrid(index, corpus)
     after_sharded_hybrid = (ops.probe_scan.launches, ops.shared_scan.launches)
     seg_read("sharded.hybrid")
@@ -6632,7 +6781,8 @@ def run_phases(child: dict) -> None:
     check(min(models["launches"]) > 0,
           f"a segment kernel was not launched by gnn_models: "
           f"{models['launches']}")
-    kern["segment"]["widths"] = models["segment_widths"]
+    kern["segment"]["widths"] = dict(models["segment_widths"], **index_sums)
+    kern["segment"]["routes"] = sum_routes
     kern["accumulate"]["widths"] = models["accumulate_widths"]
     del g_ogb, ex_ogb, mb_batch
     torch.cuda.empty_cache()

@@ -53,7 +53,7 @@ from repro_torch.roofline import trace
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "segment_reduce.cu"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _ACC_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                  _P]
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -249,13 +249,14 @@ def _segment_sum_route(messages, rowptr, perm, out, seg_lo, n):
     if n == 0 or messages.device.type == "meta":
         return out
     d = messages.shape[1]
-    es = messages.element_size()
-    dst = out.data_ptr() + seg_lo * d * es
-    vec = _vector_width(d, es, messages.data_ptr(), dst)
+    plan = summing_plan(messages, rowptr, perm, out, seg_lo)
     stream = torch.cuda.current_stream(messages.device).cuda_stream
     err = _lib()(messages.data_ptr(), rowptr.data_ptr(),
-                 None if perm is None else perm.data_ptr(), dst, n, d,
-                 int(messages.dtype == torch.bfloat16), vec, stream)
+                 None if perm is None else perm.data_ptr(),
+                 out.data_ptr() + seg_lo * d * messages.element_size(), n, d,
+                 int(messages.dtype == torch.bfloat16),
+                 int(plan.route != "team"), plan.vec, plan.group,
+                 plan.slices, plan.grid, stream)
     if err:
         raise RuntimeError(f"segment_sum: kernel launch failed with CUDA "
                            f"error {err}")
@@ -286,7 +287,15 @@ def segment_sum(messages: torch.Tensor, seg_ids: torch.Tensor,
 # the in-place kernel's warps at least, where the segments allow: 16 a
 # streaming multiprocessor of the H100's 132
 _ACC_MIN_WARPS = 2048
-# the in-place kernel's plan (csrc/segment_reduce.cu, whose note has the
+# the summing kernel's group rule (csrc/segment_reduce.cu's note has the
+# sweep behind it): about SUM_GROUP_ENTRIES entries a warp, not 32 as in
+# place (Equiformer-v2's mostly empty segments 0.734 ms at 8 a warp, 0.755
+# at 31; DimeNet's gathered ~4-entry segments 0.0178 at 2 a warp, 0.0185
+# at 1), but at least SUM_MIN_WARPS (groups x slices) where the segments
+# allow
+SUM_GROUP_ENTRIES = 8
+SUM_MIN_WARPS = 4096
+# both kernels' routes (csrc/segment_reduce.cu, whose note has the
 # measurements behind each number): rows of at most ACC_TEAM_BYTES take
 # the team route; a row whose vectors fit 32 lanes at ACC_LANE_REGS 32-bit
 # registers a lane is one slice (medium); a wider row is cut into slices
@@ -299,21 +308,37 @@ _ACC_BLOCK_WARPS = 8
 _ACC_BLOCKS_CAP = 1 << 20
 
 
+def _entry_group(n_seg: int, n_entries: int, entries: int = 32) -> int:
+    """About ``entries`` entries a warp (32: one coalesced ``perm``
+    load), 1 to 31 segments."""
+    return max(1, min(31, int(entries * n_seg / max(n_entries, 1))))
+
+
 def group_size(n_seg: int, n_entries: int) -> int:
-    """Segments per warp of the in-place kernel: about 32 entries a warp
-    (one coalesced ``perm`` load), 1 to 31 segments, but not so many that
-    fewer than ``_ACC_MIN_WARPS`` warps share the entries (a small launch,
-    such as an LM micro-batch's ~4,050 tokens, would otherwise run on ~130
-    warps). It changes no bit."""
-    g = max(1, min(31, int(32 * n_seg / max(n_entries, 1))))
+    """Segments per warp of the in-place kernel: about 32 entries a warp,
+    but not so many that fewer than ``_ACC_MIN_WARPS`` warps share the
+    entries (a small launch, such as an LM micro-batch's ~4,050 tokens,
+    would otherwise run on ~130 warps). It changes no bit."""
+    g = _entry_group(n_seg, n_entries)
     if not n_entries:
         return g
     return min(g, max(1, -(-n_seg // _ACC_MIN_WARPS)))
 
 
+def sum_group_size(n_seg: int, n_entries: int, slices: int = 1) -> int:
+    """Segments per warp of the summing kernel: about
+    ``SUM_GROUP_ENTRIES`` entries a warp, but not so many that fewer than
+    ``SUM_MIN_WARPS`` warps (groups x column slices) share the entries. It
+    changes no bit."""
+    g = _entry_group(n_seg, n_entries, SUM_GROUP_ENTRIES)
+    if not n_entries:
+        return g
+    return min(g, max(1, -(-n_seg * slices // SUM_MIN_WARPS)))
+
+
 class AccPlan(NamedTuple):
-    """One launch of the in-place kernel: ``route`` "team" (a team of
-    ``d / vec`` lanes a segment), "medium" (a warp a group of segments, the
+    """One launch of either kernel: ``route`` "team" (a team of ``d /
+    vec`` lanes a segment), "medium" (a warp a group of segments, the
     whole row) or "wide" (a warp a (group, column slice)); ``group``
     segments a warp; ``slices`` column slices of ``width`` columns (the
     last may be narrower); ``vec`` elements a lane load; ``warps`` the
@@ -328,38 +353,76 @@ class AccPlan(NamedTuple):
     grid: int
 
 
+def _route(d: int, elem_size: int, ptrs) -> tuple:
+    """(route, slices, width, vec) of a row of ``d`` elements of
+    ``elem_size`` bytes: the vector is the widest of 16/8/4/2 bytes that
+    divides a row and aligns ``ptrs`` (``_vector_width``). Rows of
+    ``ACC_TEAM_BYTES`` or less go to the team route; wider rows to the row
+    kernel, in one slice where 32 lanes hold the row within
+    ``ACC_LANE_REGS`` registers each (medium), else in column slices of
+    balanced widths, each within ``ACC_SLICE_REGS`` registers (or one
+    vector) a lane (wide)."""
+    vec = _vector_width(d, elem_size, *ptrs)
+    n_vec = d // vec
+    regs = max(1, vec * elem_size // 4)          # a vector's registers
+    if d * elem_size <= ACC_TEAM_BYTES:
+        return "team", 1, d, vec
+    if -(-n_vec // 32) * regs <= ACC_LANE_REGS:
+        return "medium", 1, d, vec
+    lane_vecs = max(1, ACC_SLICE_REGS // regs)
+    per_slice = -(-n_vec // -(-n_vec // (32 * lane_vecs)))
+    return "wide", -(-n_vec // per_slice), per_slice * vec, vec
+
+
+def _launch(n_seg: int, d: int, route: str, g: int, slices: int, width: int,
+            vec: int) -> AccPlan:
+    """The plan of ``route`` at ``g`` segments a warp (rounded up to whole
+    teams on the team route), its warps and grid."""
+    if route == "team":
+        teams = 32 // (d // vec)
+        g = -(-g // teams) * teams
+    warps = -(-n_seg // g) * slices
+    grid = min(-(-warps // _ACC_BLOCK_WARPS), _ACC_BLOCKS_CAP)
+    return AccPlan(route, g, slices, width, vec, warps, grid)
+
+
 def acc_plan(n_seg: int, n_entries: int, d: int, elem_size: int,
              ptrs=()) -> AccPlan:
     """The in-place kernel's launch plan for ``n_seg`` segments over
     ``n_entries`` entries of rows of ``d`` elements of ``elem_size``
     bytes, the messages' and the output's base pointers in ``ptrs``:
-    the vector is the widest of 16/8/4/2 bytes that divides a row and
-    aligns them (``_vector_width``). Rows of ``ACC_TEAM_BYTES`` or less go
-    to the team route, whose warp takes ``group_size`` segments rounded up
-    to whole teams. Wider rows go to the row kernel at ``group_size``
-    segments a warp: in one slice where 32 lanes hold the row within
-    ``ACC_LANE_REGS`` registers each (medium), else in column slices of
-    balanced widths, each within ``ACC_SLICE_REGS`` registers (or one
-    vector) a lane (wide). No plan changes a bit."""
-    vec = _vector_width(d, elem_size, *ptrs)
-    g = group_size(n_seg, n_entries)
-    n_vec = d // vec
-    regs = max(1, vec * elem_size // 4)          # a vector's registers
-    if d * elem_size <= ACC_TEAM_BYTES:
-        teams = 32 // n_vec
-        group = -(-g // teams) * teams
-        route, slices, width = "team", 1, d
-    elif -(-n_vec // 32) * regs <= ACC_LANE_REGS:
-        group, route, slices, width = g, "medium", 1, d
-    else:
-        group, route = g, "wide"
-        lane_vecs = max(1, ACC_SLICE_REGS // regs)
-        per_slice = -(-n_vec // -(-n_vec // (32 * lane_vecs)))
-        slices = -(-n_vec // per_slice)          # balanced, none empty
-        width = per_slice * vec
-    warps = -(-n_seg // group) * slices
-    grid = min(-(-warps // _ACC_BLOCK_WARPS), _ACC_BLOCKS_CAP)
-    return AccPlan(route, group, slices, width, vec, warps, grid)
+    ``_route``'s route at ``group_size`` segments a warp. No plan changes
+    a bit."""
+    route, slices, width, vec = _route(d, elem_size, ptrs)
+    return _launch(n_seg, d, route, group_size(n_seg, n_entries), slices,
+                   width, vec)
+
+
+def sum_plan(n_seg: int, n_entries: int, d: int, elem_size: int,
+             ptrs=()) -> AccPlan:
+    """The summing kernel's launch plan (the in-place kernel's routes,
+    writing each row once and reading none): ``_route``'s route at
+    ``sum_group_size`` segments a warp. No plan changes a bit."""
+    route, slices, width, vec = _route(d, elem_size, ptrs)
+    return _launch(n_seg, d, route, sum_group_size(n_seg, n_entries, slices),
+                   slices, width, vec)
+
+
+def _n_entries(messages, perm) -> int:
+    return messages.shape[0] if perm is None else perm.numel()
+
+
+def summing_plan(messages: torch.Tensor, rowptr: torch.Tensor,
+                 perm: Optional[torch.Tensor], out: torch.Tensor,
+                 seg_lo: int = 0) -> AccPlan:
+    """The plan ``segment_sum_csr`` launches for these arguments (a CUDA
+    call's; on the CPU the same pointers' plan): the output's pointer is
+    that of row ``seg_lo``."""
+    es = messages.element_size()
+    return sum_plan(rowptr.numel() - 1, _n_entries(messages, perm),
+                    messages.shape[1], es,
+                    (messages.data_ptr(),
+                     out.data_ptr() + seg_lo * messages.shape[1] * es))
 
 
 def accumulate_plan(messages: torch.Tensor, rowptr: torch.Tensor,
@@ -367,8 +430,7 @@ def accumulate_plan(messages: torch.Tensor, rowptr: torch.Tensor,
                     ) -> AccPlan:
     """The plan ``segment_sum_csr_accumulate`` launches for these
     arguments (a CUDA call's; on the CPU the same pointers' plan)."""
-    return acc_plan(rowptr.numel() - 1,
-                    messages.shape[0] if perm is None else perm.numel(),
+    return acc_plan(rowptr.numel() - 1, _n_entries(messages, perm),
                     messages.shape[1], messages.element_size(),
                     (messages.data_ptr(), out.data_ptr()))
 

@@ -1,44 +1,64 @@
-"""Sweep of the in-place segment-sum kernel's plans and build settings on
-the card.
+"""Sweep of the segment-sum kernels' plans and build settings on the card.
 
-    python -m repro_torch.kernels.segment_reduce.sweep [--out FILE]
-        [--baseline DIR] [--shapes NAME,...]
+    python -m repro_torch.kernels.segment_reduce.sweep [--mode acc|sum]
+        [--out FILE] [--baseline DIR] [--shapes NAME,...]
 
-Builds ``csrc/segment_reduce.cu`` once per setting of ``SEG_ACC_UNROLL``
-(entries' rows in flight), ``SEG_ACC_PREFETCH`` (output rows loaded ahead),
-``SEG_ACC_MIN_BLOCKS`` (blocks an SM the registers must allow) and
-``SEG_ACC_STAGES`` (one-element fp32 rows staged through a shared-memory
-ring of that many entries by ``cp.async``; 0: in registers), all at
-once, into ``build/repro_torch_kernels/sweep/``, and reports ptxas'
-registers and spills of every in-place instance of each build. Then, at
-the main paths' shapes (``SHAPES``: EGNN's 67 fp32 block of the
-ogbn-products graph (``LocalExec`` over ``make_flat_graph(2,449,029,
-61,859,140)``, block 0's 1,048,576 edges), NequIP's 291 on that graph's
-first 524,288 edges, Equiformer-v2's 6,275 fp32 on a 65,536-edge block
-of its minibatch union (distinct sources; destinations in trees of 1 +
-15 + 150 nodes, the root taking 15 edges, each first-hop node 10, the
-leaves none) and on its molecule cell's one block (the engine over 128
-molecules of 30 nodes and 64 edges, ``driver.make_molecule_batch``),
-DimeNet's 128, phi4-mini's 4,096 tokens of 3,072 bf16, xDeepFM's 39
-fields of 65,536 rows at widths 10 and 1, each side as the transposes
-run it: distinct rows with a perm, or a range from ``seg_lo``), it holds
-every plan against the plain version bit for bit and times it (CUDA
-events, L2 flushed, median of 10) beside a bound that counts each entry,
-index and row once and each touched row read and written once, and
-``index_add_`` into the same buffer in place:
+Builds ``csrc/segment_reduce.cu`` once per build setting, all at once,
+into ``build/repro_torch_kernels/sweep/``, and reports ptxas' registers and
+spills of every instance of each build (keyed
+"team|rows/<dtype>/v<V>[/nc<NC>]/<perm>/<add|sum>"). Then, at the main
+paths' shapes, it holds every plan against the plain version bit for bit
+and times it (CUDA events, L2 flushed, median of 10) beside a bound that
+counts each entry, index and row once, and beside one ``index_add_``.
 
-- ``ops.acc_plan``'s plan, and its neighbours: the wide route at each
-  other slice count the instances allow (and twice the plan's), the
-  team route at 1, 2, 4, 8 and 16 segments a team;
-- the plan under each build setting, and EGNN's at other group sizes.
+``--mode acc`` (the default), the in-place kernel: the settings of
+``SEG_ACC_UNROLL`` (entries' rows in flight), ``SEG_ACC_PREFETCH`` (output
+rows loaded ahead), ``SEG_ACC_MIN_BLOCKS`` (blocks an SM the registers must
+allow) and ``SEG_ACC_STAGES`` (gathered one-element fp32 rows staged
+through a shared-memory ring of that many entries by ``cp.async``; 0: in
+registers), at ``shapes``: EGNN's 67 fp32 block of the ogbn-products graph
+(``LocalExec`` over ``make_flat_graph(2,449,029, 61,859,140)``, block 0's
+1,048,576 edges), NequIP's 291 on that graph's first 524,288 edges,
+Equiformer-v2's 6,275 fp32 on a 65,536-edge block of its minibatch union
+(distinct sources; destinations in trees of 1 + 15 + 150 nodes, the root
+taking 15 edges, each first-hop node 10, the leaves none) and on its
+molecule cell's one block (the engine over 128 molecules of 30 nodes and
+64 edges, ``driver.make_molecule_batch``), DimeNet's 128, phi4-mini's
+4,096 tokens of 3,072 bf16, xDeepFM's 39 fields of 65,536 rows at widths
+10 and 1, each side as the transposes run it: distinct rows with a perm,
+or a range from ``seg_lo``. The bound counts each touched row read and
+written once; ``index_add_`` adds into the same buffer in place. Plans:
+``ops.acc_plan``'s, and its neighbours (the wide route at each other slice
+count the instances allow and twice the plan's, the team route at 1, 2,
+4, 8 and 16 segments a team); the plan under each build setting, and
+EGNN's at other group sizes.
 
-``--baseline DIR`` also builds ``DIR``'s ``segment_reduce.cu``, a checkout
-whose in-place entry is the kernel before the routes (one warp a group of
-segments, the row in 256-column tiles walked in series; ``(msg, rowptr,
-perm, rows, out, n_seg, d, seg_lo, group, is_bf16, stream)``), and times
-it at each shape at its ``group_size``, in turns with the plan (baseline,
-plan, plan, baseline). Prints one JSON line per shape (and writes them
-all to ``--out`` if given). Needs a CUDA device and nvcc.
+``--mode sum``, the summing kernel: the settings of ``SEG_SUM_UNROLL``,
+``SEG_SUM_MIN_BLOCKS`` and ``SEG_SUM_STAGES`` (the entries of the ring
+that gathered rows of 4-byte or wider vectors and streamed rows of
+16-byte vectors come through; 0: in registers), at ``sum_shapes``: one
+EGNN layer (all
+61,859,140 edges of that graph × 68 fp32, no perm), NequIP's push chunk
+(that graph's first 36,709 rows × 289), Equiformer-v2's ``push_attn``
+chunk (42,790 tree-shaped edges × 6,272), DimeNet's triplets into edges
+(41,008 × 128 into 10,556 rows, perm), xDeepFM's EmbeddingBag (65,536 bags
+of 1-40 rows × 10, sorted bag ids: a near-identity perm), k-means'
+``run_sums`` at serve_1m (1,048,576 × 384 in runs of 256 over 64 clusters,
+perm; then the runs into the clusters) and the hop operator's
+out-degrees (131,072 nodes of 0-16 edges × 1). Each row is written once
+into a NaN-filled buffer; ``index_add_`` adds into a zeroed one. Plans:
+``ops.sum_plan``'s, its neighbours (the wide route at other slice
+counts, other groups on every route, narrower loads), each under every
+setting.
+
+``--baseline DIR`` also builds ``DIR``'s ``segment_reduce.cu`` (a
+checkout such as the parent commit unpacked under ``build/``) and times
+its kernel at each shape in turns with the plan (baseline, plan, plan,
+baseline): in acc mode its in-place entry, which takes the same plan; in
+sum mode its summing entry, where it is the first, one-warp-a-segment
+kernel, ``(msg, rowptr, perm, out, n_seg, d, is_bf16, vec, stream)``.
+Prints one JSON line per shape (and writes them all to ``--out`` if
+given). Needs a CUDA device and nvcc.
 """
 from __future__ import annotations
 
@@ -57,22 +77,25 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.segment_reduce import ops
 from repro_torch.kernels.segment_reduce.ref import (
-    segment_sum_csr_accumulate_ref)
+    csr_from_ids, segment_sum_csr_accumulate_ref, segment_sum_csr_ref)
 from repro_torch.sparse.segment import csr_by_row
 
 # (unroll, prefetch, min blocks, stages); the first is the source's default
 SETTINGS = ((4, 4, 4, 4), (4, 4, 4, 0), (2, 4, 4, 4), (8, 4, 3, 4),
             (8, 8, 2, 4), (4, 4, 4, 8))
+# the summing mode's (unroll, min blocks, stages); the first is the
+# source's default
+SUM_SETTINGS = ((4, 4, 8), (4, 4, 4), (4, 4, 0), (8, 4, 8), (4, 5, 8))
 EGNN_GROUPS = {"source": (4, 8, 16, 31), "destination": (1, 2, 4)}
 N_NODES, N_EDGES = 2_449_029, 61_859_140
-_INSTANCE = re.compile(r"segment_accumulate_kernel(_team)?I(f|13__nv_bfloat16)"
-                       r"Li(\d+)E(?:Li(\d+)E)?Lb([01])E")
-_BASELINE_ARGTYPES = [ops._P] * 5 + [ops._I] * 5 + [ops._P]
+_INSTANCE = re.compile(r"segment_(sum|accumulate)_kernel(_team)?I"
+                       r"(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?Lb([01])E")
+_BASELINE_SUM_ARGTYPES = [ops._P] * 4 + [ops._I] * 4 + [ops._P]
 
 
 def _ptxas(stderr: str) -> dict:
-    """{"team|rows/<dtype>/v<V>[/nc<NC>]/<perm>": (registers, spill store
-    bytes, spill load bytes)} of every in-place instance."""
+    """{"team|rows/<dtype>/v<V>[/nc<NC>]/<perm>/<add|sum>": (registers,
+    spill store bytes, spill load bytes)} of every instance."""
     out, lines = {}, stderr.splitlines()
     for i, text in enumerate(lines):
         hit = _INSTANCE.search(text)
@@ -82,11 +105,12 @@ def _ptxas(stderr: str) -> dict:
         r = re.search(r"Used (\d+) registers", info)
         s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       info)
-        team, dt, v, nc, perm = hit.groups()
+        mode, team, dt, v, nc, perm = hit.groups()
         key = "/".join(["team" if team else "rows",
                         "f32" if dt == "f" else "bf16", f"v{v}"]
                        + ([] if team else [f"nc{nc}"])
-                       + ["perm" if perm == "1" else "noperm"])
+                       + ["perm" if perm == "1" else "noperm",
+                          "add" if mode == "accumulate" else "sum"])
         out[key] = (int(r.group(1)) if r else None,
                     int(s.group(1)) if s else None,
                     int(s.group(2)) if s else None)
@@ -105,27 +129,37 @@ def _build_lib(src: Path, tag: str, defines=()):
     return ctypes.CDLL(str(out)), proc.stderr, time.perf_counter() - t0
 
 
-def build(setting):
-    """(tag, the in-place C entry, ptxas' report, nvcc seconds)."""
-    u, p, m, st = setting
-    tag = f"u{u}p{p}m{m}" + (f"s{st}" if st else "")
-    lib, log, secs = _build_lib(ops._SRC, tag, (
-        f"-DSEG_ACC_UNROLL={u}", f"-DSEG_ACC_PREFETCH={p}",
-        f"-DSEG_ACC_MIN_BLOCKS={m}", f"-DSEG_ACC_STAGES={st}"))
-    fn = lib.segment_sum_csr_accumulate
-    fn.argtypes = ops._ACC_ARGTYPES
+def _entry(lib, mode: str, argtypes=None):
+    fn = (lib.segment_sum_csr_accumulate if mode == "acc"
+          else lib.segment_sum_csr)
+    fn.argtypes = argtypes or (ops._ACC_ARGTYPES if mode == "acc"
+                               else ops._ARGTYPES)
     fn.restype = ctypes.c_int
-    return tag, fn, _ptxas(log), secs
+    return fn
 
 
-def build_baseline(root: str):
+def build(setting, mode: str):
+    """(tag, the mode's C entry, ptxas' report, nvcc seconds)."""
+    if mode == "acc":
+        u, p, m, st = setting
+        tag = f"u{u}p{p}m{m}" + (f"s{st}" if st else "")
+        defines = (f"-DSEG_ACC_UNROLL={u}", f"-DSEG_ACC_PREFETCH={p}",
+                   f"-DSEG_ACC_MIN_BLOCKS={m}", f"-DSEG_ACC_STAGES={st}")
+    else:
+        u, m, r = setting
+        tag = f"sum_u{u}m{m}r{r}"
+        defines = (f"-DSEG_SUM_UNROLL={u}", f"-DSEG_SUM_MIN_BLOCKS={m}",
+                   f"-DSEG_SUM_STAGES={r}")
+    lib, log, secs = _build_lib(ops._SRC, tag, defines)
+    return tag, _entry(lib, mode), _ptxas(log), secs
+
+
+def build_baseline(root: str, mode: str):
     src = (Path(root) / "src" / "repro_torch" / "kernels" / "segment_reduce"
            / "csrc" / "segment_reduce.cu")
-    lib, _, secs = _build_lib(src, "baseline")
-    fn = lib.segment_sum_csr_accumulate
-    fn.argtypes = _BASELINE_ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn, secs
+    lib, _, secs = _build_lib(src, f"baseline_{mode}")
+    return _entry(lib, mode, None if mode == "acc"
+                  else _BASELINE_SUM_ARGTYPES), secs
 
 
 def _source(idx):
@@ -154,12 +188,17 @@ def _tree_destinations(e):
     return _destination(dst[:e].contiguous())
 
 
+def _flat_exec():
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.models.gnn.common import LocalExec
+    return LocalExec(gd.make_flat_graph(N_NODES, N_EDGES, 1, seed=0))
+
+
 def shapes(gen):
     """name -> (d, dtype, rows of the buffer, a thunk of the CSR)."""
     from repro_torch.configs import get_config
     from repro_torch.models.gnn import driver as gd
-    from repro_torch.models.gnn.common import LocalExec
-    ex = LocalExec(gd.make_flat_graph(N_NODES, N_EDGES, 1, seed=0))
+    ex = _flat_exec()
     e, en = ex.block, 524_288
     mol = gd.engine(get_config("equiformer-v2"), gd.disjoint_union(
         gd.make_molecule_batch(128, 30, 64, seed=0)[0]))
@@ -201,6 +240,59 @@ def shapes(gen):
     }
 
 
+def sum_shapes(gen):
+    """name -> (d, a thunk of (messages, rowptr, perm)), fp32."""
+    ex = _flat_exec()
+
+    def msgs(e, d):
+        return torch.randn((e, d), device="cuda", generator=gen)
+
+    def egnn():
+        return msgs(ex.n_edges, 68), ex.rowptr, None
+
+    def nequip():
+        rp = ex.rowptr[:36_710].contiguous()
+        return msgs(int(rp[-1]), 289), rp, None
+
+    def equiformer():
+        rp = _tree_destinations(42_790)[0]
+        return msgs(42_790, 6272), rp, None
+
+    def dimenet():
+        ids = torch.randint(0, 10_556, (41_008,), device="cuda",
+                            generator=gen, dtype=torch.int32)
+        return (msgs(41_008, 128), *csr_from_ids(ids, 10_556))
+
+    def bag():
+        sizes = torch.randint(1, 41, (65_536,), device="cuda", generator=gen)
+        bags = torch.repeat_interleave(torch.arange(65_536, device="cuda"),
+                                       sizes).to(torch.int32)
+        return (msgs(bags.numel(), 10), *csr_from_ids(bags, 65_536))
+
+    def kmeans(side):
+        from repro_torch.core.partitioner import run_csr
+        x = msgs(1 << 20, 384)
+        x /= x.norm(dim=1, keepdim=True)
+        a = torch.randint(0, 64, (1 << 20,), device="cuda", generator=gen)
+        starts, perm, run_ptr = run_csr(a, 64)
+        if side == "runs":
+            return x, starts, perm
+        return msgs(int(run_ptr[-1]), 384), run_ptr, None
+
+    def degrees():
+        deg = torch.randint(0, 17, (131_072,), device="cuda", generator=gen)
+        rp = torch.zeros(131_073, dtype=torch.int32, device="cuda")
+        rp[1:] = deg.cumsum(0)
+        return msgs(int(rp[-1]), 1), rp, None
+
+    return {"egnn_68": (68, egnn), "nequip_289": (289, nequip),
+            "equiformer_6272": (6272, equiformer),
+            "dimenet_128": (128, dimenet), "xdeepfm_bag_10": (10, bag),
+            "kmeans_384.runs": (384, lambda: kmeans("runs")),
+            "kmeans_384.clusters": (384, lambda: kmeans("clusters")),
+            "degrees_1": (1, degrees)}
+
+
 def regrid(plan: ops.AccPlan, n_seg: int, **kw) -> ops.AccPlan:
     """``plan`` with the fields ``kw`` changed and its warps and grid
     counted again."""
@@ -210,59 +302,58 @@ def regrid(plan: ops.AccPlan, n_seg: int, **kw) -> ops.AccPlan:
                                                ops._ACC_BLOCKS_CAP))
 
 
+def _slicings(plan: ops.AccPlan, d: int, es: int) -> list:
+    """(slices, width) of every other balanced slice count the instances
+    allow (at most 4 registers a lane), and twice the plan's."""
+    n_vec = d // plan.vec
+    lane_vecs = ops.ACC_LANE_REGS // max(1, plan.vec * es // 4)
+    out = {-(-n_vec // (32 * nc)) for nc in range(1, lane_vecs + 1)}
+    out.add(min(n_vec, 2 * plan.slices))
+    cuts = []
+    for s in sorted(out - {plan.slices}):
+        per = -(-n_vec // s)
+        cuts.append((-(-n_vec // per), per * plan.vec))
+    return cuts
+
+
 def neighbours(plan: ops.AccPlan, d: int, es: int, n_seg: int) -> list:
-    """Other plans of the same route: every slice count the instances
-    allow (at most 4 registers a lane) and twice the plan's (wide); 1, 2,
-    4, 8 and 16 segments a team (team)."""
+    """Other in-place plans of the same route: the wide route's other
+    slicings; 1, 2, 4, 8 and 16 segments a team (team)."""
     if plan.route == "team":
         teams = 32 // (d // plan.vec)
         groups = sorted({m * teams for m in (1, 2, 4, 8, 16)} - {plan.group})
         return [regrid(plan, n_seg, group=g) for g in groups]
     if plan.route == "medium":
         return []
-    n_vec = d // plan.vec
-    lane_vecs = ops.ACC_LANE_REGS // max(1, plan.vec * es // 4)
-    out = set()
-    for nc in range(1, lane_vecs + 1):
-        out.add(-(-n_vec // (32 * nc)))
-    out.add(min(n_vec, 2 * plan.slices))
-    plans = []
-    for s in sorted(out - {plan.slices}):
-        per = -(-n_vec // s)
-        s = -(-n_vec // per)
-        plans.append(regrid(plan, n_seg, slices=s, width=per * plan.vec))
-    return plans
+    return [regrid(plan, n_seg, slices=s, width=w)
+            for s, w in _slicings(plan, d, es)]
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--out", default=None,
-                    help="also write the result as JSON to this file")
-    ap.add_argument("--baseline", default=None,
-                    help="a checkout whose in-place kernel is timed beside")
-    ap.add_argument("--shapes", default=None,
-                    help="comma-separated names of SHAPES to run (all)")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("sweep: needs a CUDA device")
-    jobs = [lambda s=s: build(s) for s in SETTINGS]
-    if args.baseline:
-        jobs.append(lambda: build_baseline(args.baseline))
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        built = [f.result() for f in [pool.submit(j) for j in jobs]]
-    base_fn = None
-    if args.baseline:
-        base_fn, base_secs = built.pop()
-    result = {"card": torch.cuda.get_device_name(0),
-              "builds": {tag: {"nvcc_s": secs, "ptxas": regs}
-                         for tag, _, regs, secs in built}}
-    if args.baseline:
-        result["baseline_nvcc_s"] = base_secs
-    print(json.dumps({"builds": result["builds"]}), flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(31)
+def sum_neighbours(plan: ops.AccPlan, d: int, es: int, n_seg: int) -> list:
+    """Other summing plans: 1, 2, 4 and 8 segments a team (team); 1, 2, 4,
+    8, 16 and 31 segments a warp (medium, wide); the wide route's other
+    slicings at the plan's group; the row kernel's routes at 8- and 4-byte
+    loads."""
+    if plan.route == "team":
+        teams = 32 // (d // plan.vec)
+        groups = {m * teams for m in (1, 2, 4, 8)}
+    else:
+        groups = {1, 2, 4, 8, 16, 31}
+    out = [regrid(plan, n_seg, group=g) for g in sorted(groups - {plan.group})]
+    if plan.route == "wide":
+        out += [regrid(plan, n_seg, slices=s, width=w)
+                for s, w in _slicings(plan, d, es)]
+    if plan.route != "team":                    # narrower loads' routes
+        for nbytes in (8, 4):
+            route, s, w, v = ops._route(d, es, (nbytes,))
+            if v < plan.vec and route != "team":
+                out.append(regrid(plan, n_seg, route=route, slices=s,
+                                  width=w, vec=v))
+    return out
+
+
+def _timer():
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-    default_fn = built[0][1]
 
     def timed(fn):
         fn()
@@ -278,7 +369,14 @@ def main(argv=None) -> None:
             b.synchronize()
             times.append(a.elapsed_time(b))
         return float(np.median(times))
+    return timed
 
+
+def run_acc(args, built, base_fn, result) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    stream = torch.cuda.current_stream().cuda_stream
+    default_fn = built[0][1]
+    timed = _timer()
     table = shapes(gen)
     names = args.shapes.split(",") if args.shapes else list(table)
     for name in names:
@@ -325,22 +423,9 @@ def main(argv=None) -> None:
                "index_add_in_place_ms": timed(
                    lambda: lib.index_add_(0, idx, cot))}
         if base_fn is not None:
-            group = ops.group_size(r, e)
-
-            def old(dst):
-                err = base_fn(cot.data_ptr(), ptrs[2], ptrs[3], ptrs[4],
-                              dst.data_ptr(), r, d, lo, group,
-                              int(dtype == torch.bfloat16), stream)
-                if err:
-                    raise RuntimeError(f"sweep: baseline {name}: {err}")
-
-            fresh = base.clone()
-            old(fresh)
-            same = torch.equal(fresh, want)
-            turns = [timed(lambda: old(out)), held(default_fn, plan)["ms"],
-                     held(default_fn, plan)["ms"], timed(lambda: old(out))]
-            row["baseline_vs_plan_ms"] = dict(turns=turns, group=group,
-                                              baseline_bitwise=same)
+            turns = [held(base_fn, plan)["ms"], held(default_fn, plan)["ms"],
+                     held(default_fn, plan)["ms"], held(base_fn, plan)["ms"]]
+            row["baseline_vs_plan_ms"] = dict(turns=turns)
         row["plan"] = held(default_fn, plan)
         row["neighbours"] = [held(default_fn, p)
                              for p in neighbours(plan, d, es, r)]
@@ -353,6 +438,112 @@ def main(argv=None) -> None:
         print(json.dumps({name: row}), flush=True)
         del cot, base, want, out, lib
         torch.cuda.empty_cache()
+
+
+def run_sum(args, built, base_fn, result) -> None:
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    stream = torch.cuda.current_stream().cuda_stream
+    default_fn = built[0][1]
+    timed = _timer()
+    table = sum_shapes(gen)
+    names = args.shapes.split(",") if args.shapes else list(table)
+    for name in names:
+        d, make = table[name]
+        msg, rp, perm = make()
+        e, n = msg.shape[0], rp.numel() - 1
+        want = segment_sum_csr_ref(msg, rp, perm)
+        nbytes = (int(rp[-1] - rp[0]) * d * 4 + n * d * 4 + (n + 1) * 4
+                  + (0 if perm is None else int(rp[-1] - rp[0]) * 4))
+        out = torch.empty((n, d), device="cuda")
+        pm = None if perm is None else perm.data_ptr()
+
+        def call(fn, plan, dst):
+            err = fn(msg.data_ptr(), rp.data_ptr(), pm, dst.data_ptr(), n, d,
+                     0, int(plan.route != "team"), plan.vec, plan.group,
+                     plan.slices, plan.grid, stream)
+            if err:
+                raise RuntimeError(f"sweep: {name} {plan}: CUDA error {err}")
+
+        def old(dst):
+            vec = ops._vector_width(d, 4, msg.data_ptr(), dst.data_ptr())
+            err = base_fn(msg.data_ptr(), rp.data_ptr(), pm, dst.data_ptr(),
+                          n, d, 0, vec, stream)
+            if err:
+                raise RuntimeError(f"sweep: baseline {name}: CUDA error {err}")
+
+        def held(fn, label):
+            fresh = torch.full_like(out, float("nan"))
+            fn(fresh)
+            if not torch.equal(fresh, want):
+                raise SystemExit(f"sweep: {name} {label} differs from the "
+                                 f"plain version")
+            return timed(lambda: fn(out))
+
+        def plan_ms(fn, plan):
+            ms = held(lambda dst: call(fn, plan, dst), plan)
+            return dict(plan=plan._asdict(), ms=ms,
+                        tb_s=nbytes / (ms * 1e-3) / 1e12)
+
+        deg = (rp[1:] - rp[:-1]).long()
+        pos = torch.repeat_interleave(torch.arange(n, device="cuda"), deg)
+        ids = torch.full((e,), n, dtype=torch.int64, device="cuda")
+        if perm is None:
+            ids[int(rp[0]):int(rp[0]) + pos.numel()] = pos
+        else:
+            ids[perm[int(rp[0]):int(rp[-1])].long()] = pos
+        lib = torch.zeros((n + 1, d), device="cuda")
+        plan = ops.summing_plan(msg, rp, perm, out)
+        row = {"shape": dict(E=int(rp[-1] - rp[0]), d=d, n=n, dtype="float32",
+                             perm=perm is not None),
+               "bound_ms": nbytes / 3.35e12 * 1e3, "gbytes": nbytes / 1e9,
+               "index_add_ms": timed(lambda: lib.index_add_(0, ids, msg))}
+        del lib, ids, pos
+        if base_fn is not None:
+            turns = [held(old, "baseline"), plan_ms(default_fn, plan)["ms"],
+                     plan_ms(default_fn, plan)["ms"], held(old, "baseline")]
+            row["baseline_vs_plan_ms"] = dict(turns=turns)
+        row["plan"] = plan_ms(default_fn, plan)
+        row["neighbours"] = [plan_ms(default_fn, p)
+                             for p in sum_neighbours(plan, d, 4, n)]
+        row["settings"] = {tag: plan_ms(fn, plan)["ms"]
+                           for tag, fn, _, _ in built}
+        row["grid"] = [dict(plan=p._asdict(), ms={
+            tag: plan_ms(fn, p)["ms"] for tag, fn, _, _ in built[1:]})
+            for p in sum_neighbours(plan, d, 4, n)]
+        result[name] = row
+        print(json.dumps({name: row}), flush=True)
+        del msg, want, out
+        torch.cuda.empty_cache()
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--mode", choices=("acc", "sum"), default="acc",
+                    help="the in-place kernel (acc) or the summing one (sum)")
+    ap.add_argument("--out", default=None,
+                    help="also write the result as JSON to this file")
+    ap.add_argument("--baseline", default=None,
+                    help="a checkout whose kernel is timed beside")
+    ap.add_argument("--shapes", default=None,
+                    help="comma-separated names of the shapes to run (all)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("sweep: needs a CUDA device")
+    jobs = [lambda s=s: build(s, args.mode)
+            for s in (SETTINGS if args.mode == "acc" else SUM_SETTINGS)]
+    if args.baseline:
+        jobs.append(lambda: build_baseline(args.baseline, args.mode))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = [f.result() for f in [pool.submit(j) for j in jobs]]
+    base_fn = None
+    result = {}
+    if args.baseline:
+        base_fn, result["baseline_nvcc_s"] = built.pop()
+    result.update(card=torch.cuda.get_device_name(0), mode=args.mode,
+                  builds={tag: {"nvcc_s": secs, "ptxas": regs}
+                          for tag, _, regs, secs in built})
+    print(json.dumps({"builds": result["builds"]}), flush=True)
+    (run_acc if args.mode == "acc" else run_sum)(args, built, base_fn, result)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

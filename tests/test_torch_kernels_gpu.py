@@ -1,5 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
-(the IVF scans, the flash-decode kernel and the segment sum), the facade
+(the IVF scans, the flash-decode kernel and the segment sum, the summing
+kernel on each of its routes), the facade
 (search, hybrid search, a maintenance drain, the NSW refine lane) and the
 EGNN forward on the card against the same on the CPU, ``search_bucketed``'s
 bytes batched against alone (with and without the NSW lane), the
@@ -739,7 +740,8 @@ def _seg_case(g, e, n, d, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [1, 3, 16, 64, 68, 128, 129])
+@pytest.mark.parametrize("d", [1, 3, 10, 16, 64, 68, 128, 129, 289, 384,
+                               6272])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_segment_kernel_matches_plain_version(d, dtype):
     """Unsorted ids with dropped ones (-1, >= n) and empty segments, through
@@ -768,6 +770,57 @@ def test_segment_kernel_matches_plain_version(d, dtype):
     odd = flat[1:].view(e, d)                     # 4 or 2 bytes off
     assert torch.equal(sops.segment_sum_csr(odd, rowptr, perm),
                        segment_sum_csr_ref(odd, rowptr, perm))
+    torch.cuda.synchronize()
+
+
+# the summing kernel's routes (ops.sum_plan, the in-place kernel's in
+# their write-only mode): team to 64 bytes, medium to 512, wide past it;
+# the main paths' 10, 68, 128, 289, 384 and 6,272
+_SUM_WIDTHS = [1, 2, 10, 16, 17, 64, 68, 128, 129, 255, 289, 384, 3072,
+               6272]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", _SUM_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_summing_kernel_routes_match_plain_version(d, dtype, monkeypatch):
+    """The summing kernel on each route against its plain version bit for
+    bit, into a NaN-filled buffer (every row of its range written, no
+    other): with a perm (~1.2 entries a segment, empty segments, one hub
+    of 40 entries) and without (~25 entries, a run of empty segments,
+    rows from ``seg_lo``); every group size gives the same bits; one
+    launch a call; an output one element off 16 bytes takes one-element
+    loads and the same bits."""
+    _need_card()
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.kernels.segment_reduce.ref import segment_sum_csr_ref
+    g = torch.Generator(device="cuda").manual_seed(80 + d)
+    n = min(3_000, max(300, 1_500_000 // d))
+    auto = sops.sum_group_size
+    for with_perm, mean_deg in ((True, 1), (False, 25)):
+        msg, rowptr, perm, _, _ = _acc_case(g, 1, n, d, dtype, with_perm,
+                                            mean_deg, hub=40)
+        if not with_perm:
+            rowptr[n // 10:n // 10 + n // 15 + 1] = rowptr[n // 10]
+        want = segment_sum_csr_ref(msg, rowptr, perm)
+        lo = 0 if with_perm else n // 3
+        for group in (None, 1, 7, 31):
+            monkeypatch.setattr(
+                sops, "sum_group_size", auto if group is None
+                else lambda n_seg, e, slices=1, group=group: group)
+            out = torch.full((n + n // 2, d), float("nan"), device="cuda",
+                             dtype=dtype)
+            before = sops.segment_sum_csr.launches
+            sops.segment_sum_csr(msg, rowptr, perm, out=out, seg_lo=lo)
+            assert sops.segment_sum_csr.launches == before + 1
+            assert torch.equal(out[lo:lo + n], want), (group, with_perm)
+            assert bool(out[:lo].isnan().all())
+            assert bool(out[lo + n:].isnan().all())
+        monkeypatch.setattr(sops, "sum_group_size", auto)
+        off = _off_16_bytes(torch.zeros((n, d), device="cuda", dtype=dtype))
+        assert sops.summing_plan(msg, rowptr, perm, off).vec == 1
+        assert torch.equal(sops.segment_sum_csr(msg, rowptr, perm, out=off),
+                           want)
     torch.cuda.synchronize()
 
 

@@ -50,7 +50,9 @@ def _csr_np(seg, n):
 
 
 @pytest.mark.parametrize("e,d,n", [(512, 16, 64), (3000, 48, 300),
-                                   (1024, 128, 512)])
+                                   (1024, 128, 512), (600, 1, 80),
+                                   (800, 10, 100), (400, 289, 50),
+                                   (512, 384, 64)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_segment_sum_matches_reference(e, d, n, dtype):
     jdt, tdt, tol = _DT[dtype]
