@@ -207,18 +207,30 @@ Phases (each prints one line; any failure exits non-zero):
      mesh     — the mesh bodies on one controller, their shards on this
                 card: (a) EGNN on phase 7's graph padded to 2,449,032
                 nodes through full_graph_loss(mesh=) (the ring: to_ring,
-                RingExec) at S = 4 and on a (2, 2) data x model grid: 3
-                forwards after a warm-up (one on the grid), p50/p99,
+                RingExec; each data shard's body in a thread of its own
+                on its node blocks, collectives.spmd) at S = 4 and on a
+                (2, 2) data x model grid: 3 forwards after a warm-up
+                (one on the grid), p50/p99,
                 to_ring's seconds, peak memory, the summing kernel's
                 launches held to layers x shards x rounds x chunks a
                 round, the loss sums within 1e-5 of LocalExec's, two ring
-                forwards bit for bit; (b) one make_train_step(mesh=) step
-                at S = 4: step ms, peak memory, the in-place launches
+                forwards bit for bit, one profiled S = 4 forward (its
+                profiled launches beside the wrappers'); (b) one
+                make_train_step(mesh=) step at S = 4: step ms, peak memory, the in-place launches
                 (layers x 2 x message blocks), loss and grad norm within
                 1e-4 of gnn_train's first LocalExec step; (c) a 16,384-node
                 copy at S = 4 and (2, 2), loss sums and gradients card
-                against CPU within 1e-5; (d) DimeNet's ring_loss at
-                full_graph_sm (published config, bonds spread) at S = 2
+                against CPU within 1e-5, and at S = 4 each shard's node
+                blocks (n_loc rows, on its device) and every tensor its
+                body's operators return (on its device, none with the
+                copy's 16,384 node rows), from a dispatch hook entered in
+                each shard's thread; (g) with two cards or more, EGNN at
+                ogbn-products with one data shard a card: the layout
+                check, a forward and a step against LocalExec (1e-5,
+                1e-4), each card's peak beside the one-card S = 4 peaks
+                (one card: "not run: 1 card on this host"); (d)
+                DimeNet's ring_loss at full_graph_sm (published config,
+                bonds spread) at S = 2
                 and (2, 2) against its local loss; (e) xDeepFM at its
                 published config on a (2, 2) grid: the forward at 65,536
                 rows bitwise equal to the unsharded one, retrieval over
@@ -821,12 +833,17 @@ def agree_up_to_ties(sa, ia, sb, ib, atol: float) -> bool:
     return True
 
 
-def smi_line() -> str:
-    """The first card's name and power limit, as nvidia-smi gives them."""
+def smi_lines() -> list:
+    """Each card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True,
-                          timeout=60).stdout.strip().splitlines()[0]
+                          timeout=60).stdout.strip().splitlines()
+
+
+def smi_line() -> str:
+    """The first card's name and power limit."""
+    return smi_lines()[0]
 
 
 def phase_device():
@@ -4834,6 +4851,158 @@ def mesh_rag_engine() -> dict:
                 streams_equal=True, s=time.perf_counter() - t0)
 
 
+def shard_layout(cfg, params, ring, mesh, n_nodes: int) -> dict:
+    """One ring forward of EGNN through ``run_flat`` with a dispatch hook
+    entered in each shard's thread (a ``TorchDispatchMode`` does not
+    follow into the bodies' threads by itself): the node blocks each body
+    gets (n_loc rows each, on its shard's device) and every tensor an
+    operator returns inside it (on the shard's device, none with the
+    graph's ``n_nodes`` node rows). Returns the readings and ``ok``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.models.gnn import egnn
+    from repro_torch.models.gnn.common import run_flat
+    shards = mesh.devices.size
+    n_loc = n_nodes // shards
+
+    class Rows(TorchDispatchMode):
+        def __init__(self, dev):
+            super().__init__()
+            self.dev, self.ops, self.bad, self.rows = dev, 0, [], 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in tree_flatten(out)[0]:
+                if isinstance(t, torch.Tensor) and t.dim():
+                    self.ops += 1
+                    if t.device != self.dev or t.shape[0] == n_nodes:
+                        self.bad.append([func.overloadpacket.__name__,
+                                         list(t.shape), str(t.device)])
+            return out
+
+    per = []
+
+    def apply_local(p, f, x, nm, lb, rex):
+        dev = rex.ctx.device
+        hook = Rows(dev)
+        with hook:
+            out = gd._ce_sums(egnn.node_logits(cfg, p, f, x, nm, rex), lb,
+                              nm)
+        per.append(dict(shard=rex.ctx.index, device=str(dev),
+                        block_rows=[int(t.shape[0]) for t in (f, x, nm, lb)],
+                        block_devices=sorted({str(t.device)
+                                              for t in (f, x, nm, lb)}),
+                        outputs=hook.ops, foreign_or_whole=len(hook.bad),
+                        first_bad=hook.bad[:3]))
+        return out
+
+    with torch.no_grad():
+        sums = run_flat(apply_local, ring, params, mesh)
+    per.sort(key=lambda r: r["shard"])
+    ok = (len(per) == shards and all(
+        r["block_rows"] == [n_loc] * 4 and r["block_devices"] == [r["device"]]
+        and r["foreign_or_whole"] == 0 and r["outputs"] > 0 for r in per))
+    return dict(ok=ok, nodes=n_nodes, n_loc=n_loc, per_shard=per,
+                loss_sums={k: float(v) for k, v in sums.items()})
+
+
+def mesh_cards(cfg, params, g, local: dict, local_step, one_card: dict
+               ) -> dict:
+    """EGNN at ogbn-products with one data shard a card, over every card
+    of the host (S = n): the per-shard layout (``shard_layout``), one
+    timed forward and one ``make_train_step(mesh=)`` step, the loss sums
+    within ``MESH_LOCAL_RTOL`` of ``LocalExec``'s (``local``) and the
+    step's loss and grad norm within ``MESH_STEP_RTOL`` of ``local_step``,
+    the launches held to their formulas, and each card's peak memory
+    beside the one-card S = 4 peaks (``one_card``). One card: not run.
+    Prints a ``[mesh.cards]`` line."""
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.models.gnn.common import RingExec, pad_to_shards, to_ring
+    from repro_torch.sharding import Mesh
+    from repro_torch.train.optimizer import init_adamw
+    n = torch.cuda.device_count()
+    if n < 2:
+        res = dict(run=False, reason=f"not run: {n} card on this host",
+                   cards=n)
+        line("mesh.cards", **res)
+        return res
+    devices = [f"cuda:{i}" for i in range(n)]
+
+    def sync():
+        for i in range(n):
+            torch.cuda.synchronize(i)
+
+    def peaks():
+        return [torch.cuda.max_memory_allocated(i) / 2 ** 30 for i in range(n)]
+
+    def reset():
+        for i in range(n):
+            torch.cuda.reset_peak_memory_stats(i)
+
+    t0 = time.perf_counter()
+    mesh = Mesh(devices, ("data",))
+    gp = pad_to_shards(g, n)
+    ring = to_ring(gp, n)
+    rex = RingExec.of(ring, mesh, GNN_CHUNK_EDGES)
+    rex.engines
+    sync()
+    setup_s = time.perf_counter() - t0
+    resident = [torch.cuda.memory_allocated(i) / 2 ** 30 for i in range(n)]
+    seg_zero()
+    layout = shard_layout(cfg, params, ring, mesh, gp.n_nodes)
+    check(layout["ok"], f"mesh.cards: a shard's body held rows or tensors "
+                        f"not its own: {layout['per_shard']}")
+    reset()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = gd.full_graph_loss(cfg, params, ring, mesh, ex=rex)
+    sync()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd_peaks = peaks()
+    fwd_l = seg_counts()
+    per_fwd = cfg.n_layers * rex.chunk_count()
+    check(fwd_l == (2 * per_fwd, 0),
+          f"mesh.cards: {fwd_l} launches for 2 forwards of {per_fwd}")
+    err = sums_rel(out, local)
+    check(err <= MESH_LOCAL_RTOL,
+          f"mesh.cards: ring loss sums {out} over {n} cards against "
+          f"LocalExec's {local}: {err} > {MESH_LOCAL_RTOL}")
+    reset()
+    before = seg_counts()
+    t0 = time.perf_counter()
+    _, _, m = gd.make_train_step(cfg, "full_graph", mesh)(
+        params, init_adamw(params), {"graph": ring, "exec": rex})
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step_peaks = peaks()
+    step_l = tuple(b - a for a, b in zip(before, seg_counts()))
+    want = (per_fwd, cfg.n_layers * 2 * rex.block_count())
+    check(step_l == want, f"mesh.cards step: {step_l} launches, the "
+                          f"formula {want}")
+    step_loss, step_gn = float(m["loss"]), float(m["grad_norm"])
+    loss_err = abs(step_loss - local_step[0]) / abs(local_step[0])
+    gn_err = abs(step_gn - local_step[1]) / abs(local_step[1])
+    check(loss_err <= MESH_STEP_RTOL and gn_err <= MESH_STEP_RTOL,
+          f"mesh.cards step: loss {step_loss} and grad norm {step_gn} "
+          f"against LocalExec's {local_step}")
+    res = dict(run=True, cards=n, devices=devices, smi=smi_lines(),
+               padded_nodes=gp.n_nodes, setup_s=setup_s,
+               resident_gib=resident,
+               resident_note="cuda:0 also holds the global graph, "
+                             "LocalExec's sort and the ring's arrays",
+               layout=layout, forward_ms=fwd_ms, forward_peak_gib=fwd_peaks,
+               loss_sums={k: float(v) for k, v in out.items()},
+               rel_err_vs_local=err, step_ms=step_ms,
+               step_peak_gib=step_peaks, step_launches=list(step_l),
+               loss=step_loss, grad_norm=step_gn, loss_rel_err=loss_err,
+               grad_norm_rel_err=gn_err, one_card_s4=one_card)
+    del ring, rex, m, gp
+    torch.cuda.empty_cache()
+    line("mesh.cards", **res)
+    return res
+
+
 def phase_mesh(params, g, ex, forward_ms: float, local_step) -> tuple:
     """The mesh bodies on one controller, four shards of this card: (a)
     EGNN at ogbn-products (padded to 2,449,032 nodes) through
@@ -4842,14 +5011,20 @@ def phase_mesh(params, g, ex, forward_ms: float, local_step) -> tuple:
     against the LocalExec step ``local_step`` = (loss, grad norm), (c) a
     16,384-node copy at S = 4 and (2, 2), card against the CPU, (d)
     DimeNet's ``ring_loss`` at full-graph-sm against its local loss, (e)
-    xDeepFM's row-sharded tables on a (2, 2) grid. Returns the (summing,
-    in-place) kernel launches of (a)'s and (b)'s runs."""
+    xDeepFM's row-sharded tables on a (2, 2) grid. Each data shard's body
+    runs in a thread of its own on its node blocks
+    (``collectives.spmd``); (a) also profiles one S = 4 forward (the
+    profiled launches beside the wrappers' counts), (c) also checks each
+    shard's tensors (``shard_layout``), and with two cards or more the
+    ring runs over every card (``mesh_cards``). Returns the (summing,
+    in-place) kernel launches of (a)'s, (b)'s and the cards' runs."""
     from repro_torch.configs import get_config, get_shapes
     from repro_torch.models.gnn import dimenet
     from repro_torch.models.gnn import driver as gd
     from repro_torch.models.gnn.common import (FlatGraph, RingExec,
                                                pad_to_shards, to_ring)
     from repro_torch.models.recsys import xdeepfm
+    from repro_torch.sharding import collectives as col
     from repro_torch.train.optimizer import init_adamw
     phase_t0 = time.perf_counter()
     cfg = get_config("egnn")
@@ -4895,6 +5070,16 @@ def phase_mesh(params, g, ex, forward_ms: float, local_step) -> tuple:
               f"mesh {shape}: ring loss sums {sums[-1]} against LocalExec's "
               f"{local}: {err} > {MESH_LOCAL_RTOL}")
         timed = times[1:]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = None
+        if shape == (MESH_SHARDS,):
+            # one profiled forward: the bodies' threads launch, and the
+            # profiler (CUPTI) sees every launch beside the wrappers' count
+            with torch.no_grad():
+                _, prof = profile_segments(
+                    lambda: gd.full_graph_loss(cfg, params, ring, mesh,
+                                               ex=rex), top=6)
+            launches[0] += prof["segment_launches"]["counted"][0]
         runs["x".join(map(str, shape))] = dict(
             mesh=mesh.shape, to_ring_host_s=ring_s, exec_build_s=exec_s,
             e_cap=int(ring.esrc_local.shape[2]),
@@ -4904,9 +5089,10 @@ def phase_mesh(params, g, ex, forward_ms: float, local_step) -> tuple:
             forwards=1 + reps,
             forward_ms=dict(p50=float(np.percentile(timed, 50)),
                             p99=float(np.percentile(timed, 99)), all=times),
-            peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            peak_mem_gib=peak,
             launches=got[0], launches_per_forward=per_fwd,
             formula="layers x shards x rounds x chunks a round",
+            profile=prof,
             loss_sums={k: float(v) for k, v in sums[-1].items()},
             rel_err_vs_local=err, bitwise_repeat=bitwise)
         if shape == (MESH_SHARDS,):
@@ -4920,10 +5106,12 @@ def phase_mesh(params, g, ex, forward_ms: float, local_step) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     seg_zero()
+    col.STAGGER.update(nodes=0, seconds=0.0)
     t0 = time.perf_counter()
     _, _, m = step(params, init_adamw(params), {"graph": ring4, "exec": ex4})
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
+    stagger = dict(col.STAGGER)
     step_l = seg_counts()
     launches[0] += step_l[0]
     launches[1] += step_l[1]
@@ -4954,7 +5142,16 @@ def phase_mesh(params, g, ex, forward_ms: float, local_step) -> tuple:
                    loss=step_loss, grad_norm=step_gn,
                    local_loss=local_step[0], local_grad_norm=local_step[1],
                    loss_rel_err=loss_err, grad_norm_rel_err=gn_err,
-                   tolerance_rel=MESH_STEP_RTOL))
+                   tolerance_rel=MESH_STEP_RTOL,
+                   turn_nodes=stagger["nodes"],
+                   turn_nodes_s=stagger["seconds"]))
+
+    # (g) with two cards or more: one data shard a card
+    seg_zero()
+    cards = mesh_cards(cfg, params, g, local, local_step, dict(
+        forward_peak_gib=runs[str(MESH_SHARDS)]["peak_mem_gib"],
+        step_peak_gib=step_peak))
+    launches = [a + b for a, b in zip(launches, seg_counts())]
 
     # (c) a 16,384-node copy, card against the CPU
     f = g.feats.shape[1]
@@ -4965,6 +5162,8 @@ def phase_mesh(params, g, ex, forward_ms: float, local_step) -> tuple:
     for shape in ((MESH_SHARDS,), (2, 2)):
         c_sums, c_grads = ring_grads(cfg, params, to_ring(small, shape[0]),
                                      grid(shape))
+        if shape == (MESH_SHARDS,):
+            c_sums_4 = c_sums
         h_sums, h_grads = ring_grads(cfg, cpu_p, to_ring(cpu_small, shape[0]),
                                      grid(shape, "cpu"))
         s_err, g_err = sums_rel(c_sums, h_sums), rel_err(c_grads, h_grads)
@@ -4973,6 +5172,13 @@ def phase_mesh(params, g, ex, forward_ms: float, local_step) -> tuple:
               f"{s_err}, gradients {g_err} > {MESH_CPU_RTOL}")
         cpu_checks["x".join(map(str, shape))] = dict(
             loss_sums_rel_err=s_err, grad_rel_err=g_err)
+    layout = shard_layout(cfg, params, to_ring(small, MESH_SHARDS),
+                          grid((MESH_SHARDS,)), MESH_CPU_N)
+    check(layout["ok"], f"mesh: a shard's body at {MESH_CPU_N} nodes held "
+                        f"rows or tensors not its own: {layout['per_shard']}")
+    check(sums_rel(layout["loss_sums"], c_sums_4) <= MESH_CPU_RTOL,
+          f"mesh: the hooked forward's loss sums {layout['loss_sums']} "
+          f"against the ring's {c_sums_4}")
     del small, cpu_small, cpu_p
 
     # (d) DimeNet's line-graph ring at full-graph-sm (bonds spread), a
@@ -5041,6 +5247,8 @@ def phase_mesh(params, g, ex, forward_ms: float, local_step) -> tuple:
                                          edges=MESH_CPU_N * 25,
                                          tolerance_rel=MESH_CPU_RTOL,
                                          **cpu_checks),
+         shard_layout=layout, cards=dict(run=cards["run"],
+                                         cards=cards["cards"]),
          dimenet=dict(cell="dimenet-full-graph-sm", nodes=sm["n_nodes"],
                       edges=sm["n_edges"], cap_per_edge=cap,
                       tolerance_rel=MESH_LOCAL_RTOL, **dimenet_runs),

@@ -21,7 +21,12 @@ raise ``ValueError`` for an input the kernel does not take.
 
 ``segment_sum_csr.launches`` counts the launches of the summing kernel and
 nothing else (both first entry points launch through it);
-``segment_sum_csr_accumulate.launches`` counts the in-place kernel's.
+``segment_sum_csr_accumulate.launches`` counts the in-place kernel's. Each
+count is bumped under a lock, so it stays exact when several threads
+launch (the shards of ``sharding.collectives.spmd``, autograd's device
+threads), and each launch goes onto the current stream of the messages'
+device with that device made current, whatever device the calling thread
+has current.
 
 On meta tensors (the dry run's traces) each entry point runs the CUDA
 route's checks and allocates its outputs, and computes nothing. Every
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from pathlib import Path
 from typing import NamedTuple, Optional
 
@@ -57,6 +63,8 @@ _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _ACC_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                  _P]
 _DTYPES = (torch.float32, torch.bfloat16)
+# the two launch counts' lock (a leaf: nothing else is taken under it)
+_COUNT_LOCK = threading.Lock()
 _INT32_LIMIT = 2 ** 31 - 2 ** 20     # rows, segments and entries (int32)
 
 
@@ -121,9 +129,6 @@ def _check(messages, rowptr, perm, out, seg_lo) -> None:
             or not 0 <= seg_lo <= out.shape[0] - n):
         raise ValueError(f"segment_sum: out {tuple(out.shape)} cannot take "
                          f"rows [{seg_lo}, {seg_lo + n}) of width {d}")
-    if dev.type == "cuda" and dev.index != torch.cuda.current_device():
-        raise ValueError(f"segment_sum: messages are on {dev}, the current "
-                         f"device is cuda:{torch.cuda.current_device()}")
 
 
 def _entries(messages, rowptr, perm) -> int:
@@ -250,17 +255,19 @@ def _segment_sum_route(messages, rowptr, perm, out, seg_lo, n):
         return out
     d = messages.shape[1]
     plan = summing_plan(messages, rowptr, perm, out, seg_lo)
-    stream = torch.cuda.current_stream(messages.device).cuda_stream
-    err = _lib()(messages.data_ptr(), rowptr.data_ptr(),
-                 None if perm is None else perm.data_ptr(),
-                 out.data_ptr() + seg_lo * d * messages.element_size(), n, d,
-                 int(messages.dtype == torch.bfloat16),
-                 int(plan.route != "team"), plan.vec, plan.group,
-                 plan.slices, plan.grid, stream)
+    with torch.cuda.device(messages.device):
+        stream = torch.cuda.current_stream(messages.device).cuda_stream
+        err = _lib()(messages.data_ptr(), rowptr.data_ptr(),
+                     None if perm is None else perm.data_ptr(),
+                     out.data_ptr() + seg_lo * d * messages.element_size(),
+                     n, d, int(messages.dtype == torch.bfloat16),
+                     int(plan.route != "team"), plan.vec, plan.group,
+                     plan.slices, plan.grid, stream)
     if err:
         raise RuntimeError(f"segment_sum: kernel launch failed with CUDA "
                            f"error {err}")
-    segment_sum_csr.launches += 1
+    with _COUNT_LOCK:
+        segment_sum_csr.launches += 1
     return out
 
 
@@ -483,18 +490,20 @@ def _accumulate_route(messages, rowptr, perm, out, rows, seg_lo, n):
     if n == 0 or messages.device.type == "meta":
         return out
     plan = accumulate_plan(messages, rowptr, perm, out)
-    stream = torch.cuda.current_stream(messages.device).cuda_stream
-    err = _acc_lib()(messages.data_ptr(), rowptr.data_ptr(),
-                     None if perm is None else perm.data_ptr(),
-                     None if rows is None else rows.data_ptr(),
-                     out.data_ptr(), n, messages.shape[1], seg_lo,
-                     int(messages.dtype == torch.bfloat16),
-                     int(plan.route != "team"), plan.vec, plan.group,
-                     plan.slices, plan.grid, stream)
+    with torch.cuda.device(messages.device):
+        stream = torch.cuda.current_stream(messages.device).cuda_stream
+        err = _acc_lib()(messages.data_ptr(), rowptr.data_ptr(),
+                         None if perm is None else perm.data_ptr(),
+                         None if rows is None else rows.data_ptr(),
+                         out.data_ptr(), n, messages.shape[1], seg_lo,
+                         int(messages.dtype == torch.bfloat16),
+                         int(plan.route != "team"), plan.vec, plan.group,
+                         plan.slices, plan.grid, stream)
     if err:
         raise RuntimeError(f"segment_sum_csr_accumulate: kernel launch failed "
                            f"with CUDA error {err}")
-    segment_sum_csr_accumulate.launches += 1
+    with _COUNT_LOCK:
+        segment_sum_csr_accumulate.launches += 1
     return out
 
 

@@ -53,8 +53,12 @@ optimizer bytes from ``sharding.shard_tree`` over ``param_axes`` (GNN
 parameters replicated, as the reference places them; xDeepFM under its
 ``sharding_overrides``; ``--variant`` the reference's rule variants) and
 their ``fits``. Their compute, memory and collective terms are not
-counted: the port's mesh bodies hold global tensors on one controller, so
-a count per device would describe a layout the code does not have.
+counted. The GNN full-graph cells have the layout now (``run_flat`` runs
+each data shard's body on its own device, ``sharding.collectives.spmd``),
+but counting one shard's body, as the reference's ``_ring_extrapolate``
+does, is not written yet; the other mesh bodies hold global tensors on
+one controller, so a count per device would describe a layout the code
+does not have.
 """
 from __future__ import annotations
 
@@ -83,6 +87,11 @@ GRID_NOT_COUNTED = (
     "not counted: the port's mesh bodies hold global tensors on one "
     "controller (ROADMAP.md Queue 1, the torch.distributed/NCCL backend), "
     "so a per-device count would describe a layout the code does not have")
+GRID_RING_NOT_COUNTED = (
+    "not counted yet: the GNN ring runs each data shard's body on its own "
+    "device (run_flat over sharding.collectives.spmd), but counting one "
+    "shard's body (the reference's _ring_extrapolate) is queued "
+    "(ROADMAP.md Queue 1)")
 # a failure raised by a kernel wrapper's input check: the card refuses the
 # cell's shape (a record of its own, not a fault of the dry run)
 KERNEL_CHECKS = ("decode_attention:", "segment_sum", "probe_scan:",
@@ -709,9 +718,10 @@ def grid_record(arch: str, shape: ShapeSpec, mesh_name: str,
                opt_state_bytes_per_device=obytes if train else 0,
                state_bytes_per_device=state, hbm_bytes=analysis.HBM_BYTES,
                fits=bool(state <= analysis.HBM_BYTES),
-               meta=model_meta(cfg, shape),
-               compute=GRID_NOT_COUNTED, memory=GRID_NOT_COUNTED,
-               collective=GRID_NOT_COUNTED)
+               meta=model_meta(cfg, shape))
+    text = (GRID_RING_NOT_COUNTED if shape.kind == "full_graph"
+            else GRID_NOT_COUNTED)
+    rec.update(compute=text, memory=text, collective=text)
     return rec
 
 

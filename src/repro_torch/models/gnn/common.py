@@ -64,11 +64,15 @@ the rows it touches with the in-place kernel too, so a step repeats bit
 for bit.
 
 Over a mesh the graph is a ``RingGraph`` (``to_ring``; ``pad_to_shards``
-first where N does not divide by the shards), and ``RingExec`` runs the
-reference's ring on one controller: R rotations of each shard's block of
-the payload (``sharding/collectives.py``), each (shard, round) a
-``SortedEdges`` with the machinery above, the "model" split of a round's
-edges and its ``psum``. S = 1 runs the ring too.
+first where N does not divide by the shards), and ``run_flat`` runs the
+reference's ``shard_map`` on one controller: each data shard's body in a
+thread of its own (``collectives.spmd``), on that shard's n_loc node rows
+on its device, with its ``RingShard`` (from the mesh-wide ``RingExec``
+callers build once): R rotations of its block of the
+payload (rendezvous with the other shards), each round a ``SortedEdges``
+with the machinery above, the "model" split of a round's edges and its
+``psum``; the loss sums ``psum``med over the data axes. S = 1 runs the
+ring too.
 """
 from __future__ import annotations
 
@@ -80,6 +84,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.common.tree import tree_map
 from repro_torch.kernels.segment_reduce import ops
 from repro_torch.sharding import collectives as col
 from repro_torch.sharding.rules import Mesh, data_axes, require_mesh
@@ -222,7 +227,8 @@ class SortedEdges:
     the chunk's first edge; ``block`` is the row count of every ``msg_fn``
     call: the valid edges rounded up to a power of two, at most
     ``MSG_BLOCK_EDGES`` (or ``sized``'s). ``LocalExec`` is one over a
-    graph's own nodes; ``RingExec`` keeps one for each (shard, round)."""
+    graph's own nodes; ``RingShard`` holds one for each round of its
+    shard."""
 
     def __init__(self, src: torch.Tensor, dst: torch.Tensor,
                  mask: torch.Tensor, n: int,
@@ -348,11 +354,14 @@ class SortedEdges:
     @staticmethod
     def _sink(node_payload: torch.Tensor):
         """(what the blocks read, the gradient buffer or None): under grad,
-        a payload that takes a gradient is read through a ``_GradSink``."""
+        a payload that takes a gradient is read through a ``_GradSink``.
+        The token carries its buffer (``grad_buffer``)."""
         if not (torch.is_grad_enabled() and node_payload.requires_grad):
             return node_payload, None
         buffer = _GradBuffer(node_payload)
-        return _GradSink.apply(node_payload, buffer), buffer
+        token = _GradSink.apply(node_payload, buffer)
+        token.grad_buffer = buffer
+        return token, buffer
 
     def messages(self, fn, node_payload: torch.Tensor, buffer=None,
                  src_table=None, src_buffer=None):
@@ -521,38 +530,188 @@ def to_ring(g: FlatGraph, n_shards: int, e_cap: Optional[int] = None
     return RingGraph(g.feats, g.positions, *arrays, g.node_mask, g.labels)
 
 
+def _ring_axes(mesh: Mesh) -> tuple:
+    """The data axes a ring shards nodes over (at least one)."""
+    axes = data_axes(mesh)
+    if not axes:
+        raise ValueError(f"RingExec: the mesh {mesh.shape} has no 'pod' or "
+                         "'data' axis to shard nodes over")
+    return axes
+
+
+class RingShard:
+    """The ring engine of one shard: the reference's ``RingExec`` inside
+    ``shard_map``, run by ``collectives.spmd`` (one thread a shard).
+
+    It holds the shard's own (R, cap) edge slots (its "model" piece of
+    each round on a grid), ``n_loc`` and its ``ShardCtx``. ``push``,
+    ``push_attn``, ``gather_src`` and ``dst_index`` take and return the
+    shard's own (n_loc, ·) blocks and local rows. Over R rounds the shard
+    aggregates round r's edges from the block that has rotated to it (the
+    source owner's: ``ctx.rotate`` between rounds) into its own
+    destinations, through a ``SortedEdges`` of that round (``engines``):
+    ``LocalExec``'s sort, blocks, chunks and kernels, so a round's peak
+    memory is ``LocalExec``'s and its bits do not depend on the chunk
+    budget. With a "model" axis (``split_model``) the rounds' sums are
+    ``psum``med over "model"; the rounds add in round order.
+
+    Under grad the shard reads its own block through a ``_GradSink``, so
+    every gather's transpose adds in place into a buffer. A block that
+    rotates in from a shard of the same device is the sender's token
+    itself (``rotate`` moves nothing), and its transposes add into the
+    buffer that token carries: the rotation takes no gradient, and a
+    device holds one buffer a shard, as one program over its shards
+    would. Autograd runs one device's backward in one thread, in the
+    order ``spmd``'s turns numbered it, so the sums keep their bits. A
+    block that crossed devices is a copy, read through a sink of its own
+    on the shard's device, whose gradient goes back through the
+    rotation."""
+
+    def __init__(self, esrc: torch.Tensor, edst: torch.Tensor,
+                 emask: torch.Tensor, n_loc: int, ctx: col.ShardCtx, *,
+                 split_model: bool = True,
+                 chunk_edges: Optional[int] = None,
+                 engines: Optional[List[SortedEdges]] = None):
+        self.ctx, self.axes = ctx, _ring_axes(ctx.mesh)
+        n_shards = col.size(ctx.mesh, self.axes)
+        if esrc.dim() != 2 or esrc.shape[0] != n_shards:
+            raise ValueError(f"a shard's ring takes its (R, cap) slots with "
+                             f"R = {n_shards}, got {tuple(esrc.shape)}")
+        split = split_model and ctx.mesh.shape.get("model", 1) > 1
+        self.model_axis = "model" if split else None
+        self.n, self.rounds = n_loc, esrc.shape[0]
+        self.esrc, self.edst, self.emask = esrc, edst, emask
+        self.engines = engines if engines is not None else [
+            SortedEdges(esrc[r], edst[r], emask[r], n_loc, chunk_edges)
+            for r in range(self.rounds)]
+
+    def sized(self, edge_bytes: int, row_bytes: int) -> "RingShard":
+        """This engine with every round's ``SortedEdges.sized``."""
+        ex = copy.copy(self)
+        ex.engines = [e.sized(edge_bytes, row_bytes) for e in self.engines]
+        return ex
+
+    def _rounds(self, token, buffer, fn) -> list:
+        """``fn(r, engine, src token, src buffer)`` for every round: round
+        0 reads the shard's own block (``token``, ``buffer``), round r the
+        block rotated in r steps: a token with its buffer where it stayed
+        on this device, else read through a sink of its own."""
+        held, held_buf, out = token, buffer, []
+        for r, eng in enumerate(self.engines):
+            if r:
+                held = self.ctx.rotate(held, self.axes)
+                held_buf = getattr(held, "grad_buffer", None)
+                if held_buf is None:
+                    held, held_buf = SortedEdges._sink(held)
+            out.append(fn(r, eng, held, held_buf))
+        return out
+
+    def _reduce(self, parts) -> torch.Tensor:
+        """Adds the round sums in round order and ``psum``s over
+        "model"."""
+        acc = None
+        for part in parts:
+            if acc is None:
+                acc = part
+            elif acc.requires_grad or part.requires_grad:
+                acc = acc + part
+            else:
+                acc.add_(part)
+        if self.model_axis:
+            acc = self.ctx.psum(acc, self.model_axis)
+        return acc
+
+    def push(self, node_payload: torch.Tensor, msg_fn, d_out: int
+             ) -> torch.Tensor:
+        """agg[dst] = Σ_edges msg_fn(payload[src], payload[dst]) over the
+        ring: this shard's (n_loc, Dp) block -> (n_loc, d_out)."""
+        token, buffer = SortedEdges._sink(node_payload)
+
+        def one(r, eng, held, held_buf):
+            return eng._aggregate(eng.messages(msg_fn, token, buffer, held,
+                                               held_buf), token, d_out)
+
+        return self._reduce(self._rounds(token, buffer, one))
+
+    def push_attn(self, node_payload: torch.Tensor, logit_fn, msg_fn,
+                  d_out: int) -> torch.Tensor:
+        """Softmax-normalised (per destination) attention aggregation over
+        the ring, as the reference's: pass 1 takes every round's logits,
+        the softmax runs over each destination's edges of all rounds (its
+        shift the max over the shard and "model", without gradient; its
+        denominator ``psum``med over "model"), pass 2 weights the rounds'
+        messages, which are summed as in ``push``."""
+        token, buffer = SortedEdges._sink(node_payload)
+        n, engines = self.n, self.engines
+
+        def rows(r, eng, held, held_buf):
+            parts = [x for _, x in eng.messages(logit_fn, token, buffer, held,
+                                                held_buf)]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+        logits = torch.cat(self._rounds(token, buffer, rows))
+        dst = torch.cat([e.dst.to(torch.int64) for e in engines])
+        m = seg.segment_max(logits.detach(), dst, n)
+        m = torch.where(torch.isfinite(m), m, -3e38)
+        if self.model_axis:
+            m = self.ctx.all_gather(m, self.model_axis, tiled=False).amax(0)
+        sh = logits - m.index_select(0, dst)
+        e = torch.where(torch.isfinite(sh), torch.exp(sh), 0.0)
+        z = seg.segment_sum(e, dst, n)
+        if self.model_axis:
+            z = self.ctx.psum(z, self.model_axis)
+        w = e / torch.clamp(seg.gather_rows(z, dst), min=1e-20)
+        w = torch.split(w, [e_.n_edges for e_ in engines])
+
+        def weighted(r, eng, held, held_buf):
+            def chunks():
+                for chunk, msgs in eng.messages(msg_fn, token, buffer, held,
+                                                held_buf):
+                    e0, e1 = chunk[2], chunk[3]
+                    yield chunk, (msgs * w[r][e0:e1, :, None]).reshape(
+                        e1 - e0, d_out)
+
+            return eng._aggregate(chunks(), token, d_out)
+
+        return self._reduce(self._rounds(token, buffer, weighted))
+
+    def gather_src(self, node_payload: torch.Tensor) -> torch.Tensor:
+        """Per-edge source rows (R·cap, Dp) in slot order (round, slot), 0
+        on masked slots: each round takes from the block that has rotated
+        to the shard. Under grad the gathers' transposes add in place
+        (``sparse.segment.gather_rows``)."""
+        held, rows = node_payload, []
+        for r in range(self.rounds):
+            if r:
+                held = self.ctx.rotate(held, self.axes)
+            idx = self.esrc[r].to(torch.int64)
+            rows.append(torch.where(self.emask[r][:, None],
+                                    seg.gather_rows(held, idx), 0.0))
+        return torch.cat(rows)
+
+    def dst_index(self):
+        """Local destination row (R·cap,) and mask, in ``gather_src``'s
+        slot order (the reference's)."""
+        return self.edst.reshape(-1).to(torch.int64), self.emask.reshape(-1)
+
+
 class RingExec:
-    """The ring engine over a mesh, on one controller (the reference's
-    ``RingExec`` inside ``shard_map``, every shard at once).
-
-    Node payloads are global (N, Dp) tensors, the data shards' rows in
-    shard order; ``push`` splits one into its shards' blocks (replicated
-    over "model"), and over R rounds each shard aggregates the edges of
-    its round r from the block that has rotated to it (the source owner's,
-    ``collectives.rotate``) into its own destinations, through a
-    ``SortedEdges`` of that (shard, round): ``LocalExec``'s sort, blocks,
-    chunks and kernels, so a round's peak memory is ``LocalExec``'s and
-    its bits do not depend on the chunk budget. With a "model" axis
-    (``split_model``) each round's edge slots are split into "model"
-    pieces, one a shard, and the shards' sums are ``psum``med over
-    "model"; the rounds add in round order. The result is the shards'
-    blocks joined again. Under grad each shard reads its block through a
-    ``_GradSink``, and every gather's transpose adds in place into the
-    buffer of the shard whose block it read.
-
-    esrc, edst, emask: (S, R, cap) global arrays (``RingGraph``'s, or
-    DimeNet's triplet ring), on the mesh's first device; ``n_loc`` the
-    rows a shard owns."""
+    """The ring over a whole mesh: what callers build once (``of``, or
+    the constructor given the (S, R, cap) arrays of ``RingGraph`` or of
+    DimeNet's triplet ring, on the mesh's first device) and pass as
+    ``ex``. ``shard(ctx)`` gives each shard's ``RingShard`` inside
+    ``spmd``: shard (d, m) takes data row d of the arrays and, split over
+    "model", slot piece m of each round, moved to its device once; its
+    ``SortedEdges`` are built at first use and kept across calls.
+    ``engines`` (each shard's, in shard order), ``chunk_count`` and
+    ``block_count`` cover every shard."""
 
     def __init__(self, esrc: torch.Tensor, edst: torch.Tensor,
                  emask: torch.Tensor, n_loc: int, mesh: Mesh, *,
                  split_model: bool = True,
                  chunk_edges: Optional[int] = None):
-        self.mesh = mesh
-        self.axes = data_axes(mesh)
-        if not self.axes:
-            raise ValueError(f"RingExec: the mesh {mesh.shape} has no "
-                             "'pod' or 'data' axis to shard nodes over")
+        self.mesh = require_mesh(mesh, "RingExec")
+        self.axes = _ring_axes(mesh)
         n_shards = col.size(mesh, self.axes)
         s, r, _ = esrc.shape
         if s != n_shards:
@@ -565,206 +724,53 @@ class RingExec:
                              f"{first}")
         split = split_model and mesh.shape.get("model", 1) > 1
         self.model_axis = "model" if split else None
-        self.n, self.rounds = n_loc, r
+        self.n, self.rounds, self.chunk_edges = n_loc, r, chunk_edges
         self.esrc, self.edst, self.emask = esrc, edst, emask
-        self.chunk_edges = chunk_edges
-        self._engines = None
-        # the shard each shard's rotating block came from, by round
-        self._from = [col.ring_sources(mesh, self.axes, rr)
-                      for rr in range(r)]
+        # each shard's (slots on its device, its engines by round or None)
+        self._shards: list = [None] * len(col.shards(mesh))
+
+    def shard(self, ctx: col.ShardCtx) -> RingShard:
+        """This ring's engine for ``ctx``'s shard (inside ``spmd``)."""
+        kept = self._shards[ctx.index]
+        if kept is None:
+            d = ctx.axis_index(self.axes)
+            slots = [a[d] for a in (self.esrc, self.edst, self.emask)]
+            if self.model_axis:
+                piece = -(-slots[0].shape[1] // self.mesh.shape["model"])
+                m = ctx.shard.coords["model"]
+                slots = [a[:, m * piece:(m + 1) * piece] for a in slots]
+            kept = [[a.to(ctx.device) for a in slots], None]
+            self._shards[ctx.index] = kept
+        ex = RingShard(*kept[0], self.n, ctx,
+                       split_model=self.model_axis is not None,
+                       chunk_edges=self.chunk_edges, engines=kept[1])
+        kept[1] = ex.engines
+        return ex
 
     @property
     def engines(self) -> List[List[SortedEdges]]:
-        """Each shard's ``SortedEdges`` by round, built at first use: shard
-        (d, m) takes slot piece m of its rounds (the whole round without
-        a "model" split)."""
-        if self._engines is None:
-            s, r, cap = self.esrc.shape
-            msize = self.mesh.shape["model"] if self.model_axis else 1
-            piece = -(-cap // msize)
-
-            def build(shard):
-                d = col.axis_index(self.mesh, self.axes, shard)
-                m = shard.coords["model"] if self.model_axis else 0
-                sl = slice(m * piece, (m + 1) * piece)
-                return [SortedEdges(*(a[d, rr, sl].to(shard.device) for a in
-                                      (self.esrc, self.edst, self.emask)),
-                                    self.n, self.chunk_edges)
-                        for rr in range(r)]
-
-            self._engines = col.map_shards(build, self.mesh)
-        return self._engines
-
-    def sized(self, edge_bytes: int, row_bytes: int) -> "RingExec":
-        """This engine with every (shard, round) ``SortedEdges.sized``."""
-        ex = copy.copy(self)
-        ex._engines = col.map_shards(
-            lambda _, es: [e.sized(edge_bytes, row_bytes) for e in es],
-            self.mesh, self.engines)
-        return ex
+        """Every shard's ``SortedEdges`` by round, in shard order, built
+        (in ``spmd``, each shard on its device) where missing."""
+        if any(k is None or k[1] is None for k in self._shards):
+            col.spmd(self.mesh, self.shard)
+        return [k[1] for k in self._shards]
 
     def chunk_count(self) -> int:
-        """Segment-sum launches of one ``push``: the chunks of every
-        (shard, round)."""
-        return sum(col.map_shards(lambda _, es: sum(len(e.chunks) for e in es),
-                                  self.mesh, self.engines))
+        """Segment-sum launches of one ``push`` over the mesh: the chunks
+        of every shard's rounds."""
+        return sum(len(e.chunks) for es in self.engines for e in es)
 
     def block_count(self) -> int:
-        """Message blocks of one ``push``: every (shard, round)'s. Under
-        grad the in-place kernel launches twice a block (its gathers'
+        """Message blocks of one ``push`` over the mesh. Under grad the
+        in-place kernel launches twice a block (its gathers'
         transposes)."""
-        return sum(col.map_shards(
-            lambda _, es: sum(-(-e.n_edges // e.block) for e in es),
-            self.mesh, self.engines))
-
-    def _blocks(self, node_payload: torch.Tensor):
-        """(tokens, buffers): each shard's block of the payload and its
-        gradient buffer (``SortedEdges._sink``)."""
-        own = col.split(node_payload, self.mesh, self.axes)
-        sinks = col.map_shards(lambda _, x: SortedEdges._sink(x), self.mesh,
-                               own)
-        return [t for t, _ in sinks], [b for _, b in sinks]
-
-    def _rounds(self, tokens, buffers, fn, with_engines: bool = True):
-        """Runs ``fn(shard, r, engine, dst token, dst buffer, src token,
-        src buffer)`` for every round and shard, the blocks rotating one
-        step around the data ring between rounds; returns each shard's
-        results by round."""
-        buf, out = list(tokens), [[] for _ in tokens]
-        engines = self.engines if with_engines else [[None] * self.rounds
-                                                      for _ in tokens]
-        for r in range(self.rounds):
-            if r:
-                buf = col.rotate(buf, self.mesh, self.axes)
-            src = self._from[r]
-            col.map_shards(
-                lambda sh, es, t, b, sb, o: o.append(fn(
-                    sh, r, es[r], t, b, sb, buffers[src[sh.index]])),
-                self.mesh, engines, tokens, buffers, buf, out)
-        return out
-
-    def _reduce(self, per_round) -> torch.Tensor:
-        """Adds each shard's round sums in round order, ``psum``s over
-        "model" and joins the shards' blocks."""
-        def add(_, parts):
-            acc = None
-            for part in parts:
-                if acc is None:
-                    acc = part
-                elif acc.requires_grad or part.requires_grad:
-                    acc = acc + part
-                else:
-                    acc.add_(part)
-            return acc
-
-        acc = col.map_shards(add, self.mesh, per_round)
-        if self.model_axis:
-            acc = col.psum(acc, self.mesh, self.model_axis)
-        return col.unsplit(acc, self.mesh, self.axes)
-
-    def push(self, node_payload: torch.Tensor, msg_fn, d_out: int
-             ) -> torch.Tensor:
-        """agg[dst] = Σ_edges msg_fn(payload[src], payload[dst]) over the
-        ring: (N, Dp) -> (N, d_out)."""
-        tokens, buffers = self._blocks(node_payload)
-
-        def one(sh, r, eng, t, b, sb, sbuf):
-            return eng._aggregate(eng.messages(msg_fn, t, b, sb, sbuf), t,
-                                  d_out)
-
-        return self._reduce(self._rounds(tokens, buffers, one))
-
-    def push_attn(self, node_payload: torch.Tensor, logit_fn, msg_fn,
-                  d_out: int) -> torch.Tensor:
-        """Softmax-normalised (per destination) attention aggregation over
-        the ring, as the reference's: pass 1 takes every round's logits,
-        the softmax runs over each destination's edges of all rounds (its
-        shift the max over the shard and "model", without gradient; its
-        denominator ``psum``med over "model"), pass 2 weights the rounds'
-        messages, which are summed as in ``push``."""
-        tokens, buffers = self._blocks(node_payload)
-
-        def rows(eng, fn, t, b, sb, sbuf):
-            parts = [x for _, x in eng.messages(fn, t, b, sb, sbuf)]
-            return parts[0] if len(parts) == 1 else torch.cat(parts)
-
-        logits = self._rounds(tokens, buffers,
-                              lambda sh, r, eng, *a: rows(eng, logit_fn, *a))
-        dst = col.map_shards(lambda _, es: torch.cat(
-            [e.dst.to(torch.int64) for e in es]), self.mesh, self.engines)
-        flat = col.map_shards(lambda _, ls: torch.cat(ls), self.mesh, logits)
-        n = self.n
-
-        def shift(_, lg, d):
-            m = seg.segment_max(lg.detach(), d, n)
-            return torch.where(torch.isfinite(m), m, -3e38)
-
-        m = col.map_shards(shift, self.mesh, flat, dst)
-        if self.model_axis:
-            m = col.map_shards(lambda _, g: g.amax(0), self.mesh,
-                               col.all_gather(m, self.mesh, self.model_axis,
-                                              tiled=False))
-
-        def expo(_, lg, d, mm):
-            sh = lg - mm.index_select(0, d)
-            return torch.where(torch.isfinite(sh), torch.exp(sh), 0.0)
-
-        e = col.map_shards(expo, self.mesh, flat, dst, m)
-        z = col.map_shards(lambda _, x, d: seg.segment_sum(x, d, n),
-                           self.mesh, e, dst)
-        if self.model_axis:
-            z = col.psum(z, self.mesh, self.model_axis)
-        w = col.map_shards(
-            lambda _, x, zz, d: x / torch.clamp(seg.gather_rows(zz, d),
-                                                min=1e-20),
-            self.mesh, e, z, dst)
-        w = col.map_shards(
-            lambda _, x, es: torch.split(x, [e_.n_edges for e_ in es]),
-            self.mesh, w, self.engines)
-
-        def weighted(sh, r, eng, t, b, sb, sbuf):
-            wr = w[sh.index][r]
-
-            def chunks():
-                for chunk, msgs in eng.messages(msg_fn, t, b, sb, sbuf):
-                    e0, e1 = chunk[2], chunk[3]
-                    yield chunk, (msgs * wr[e0:e1, :, None]).reshape(
-                        e1 - e0, d_out)
-
-            return eng._aggregate(chunks(), t, d_out)
-
-        return self._reduce(self._rounds(tokens, buffers, weighted))
-
-    def gather_src(self, node_payload: torch.Tensor) -> torch.Tensor:
-        """Per-edge source rows (S·R·cap, Dp) in slot order (shard, round,
-        slot), 0 on masked slots: each round takes from the block that has
-        rotated to the shard. Under grad the gathers' transposes add in
-        place (``sparse.segment.gather_rows``)."""
-        own = col.split(node_payload, self.mesh, self.axes)
-
-        def take(sh, r, eng, t, b, sb, sbuf):
-            d = col.axis_index(self.mesh, self.axes, sh)
-            idx = self.esrc[d, r].to(sb.device, torch.int64)
-            ok = self.emask[d, r].to(sb.device)[:, None]
-            return torch.where(ok, seg.gather_rows(sb, idx), 0.0)
-
-        rows = self._rounds(own, [None] * len(own), take, False)
-        return col.unsplit(
-            col.map_shards(lambda _, rs: torch.cat(rs), self.mesh, rows),
-            self.mesh, self.axes)
-
-    def dst_index(self):
-        """Global destination index (S·R·cap,) (shard s's local row plus
-        s·n_loc) and mask, in ``gather_src``'s slot order."""
-        off = torch.arange(self.esrc.shape[0], device=self.edst.device,
-                           dtype=torch.int64) * self.n
-        return ((self.edst.to(torch.int64) + off[:, None, None]).reshape(-1),
-                self.emask.reshape(-1))
+        return sum(-(-e.n_edges // e.block) for es in self.engines
+                   for e in es)
 
     @classmethod
     def of(cls, g: RingGraph, mesh: Mesh,
            chunk_edges: Optional[int] = None) -> "RingExec":
-        """The engine over a ``RingGraph``'s edges, its nodes split evenly
+        """The ring over a ``RingGraph``'s edges, its nodes split evenly
         over the mesh's data shards."""
         n_shards = g.esrc_local.shape[0]
         if g.feats.shape[0] % n_shards:
@@ -775,20 +781,41 @@ class RingExec:
                    chunk_edges=chunk_edges)
 
 
+def run_shards(mesh: Mesh, params, nodes, body) -> dict:
+    """The reference's ``shard_map`` of a ring body: ``nodes`` (the graph's
+    (N, ...) node arrays) split into each data shard's block on its device
+    (``nspec``), ``params`` replicated (``P()``), ``body(ctx, params,
+    *blocks)`` run once per shard (``collectives.spmd``); its loss-like
+    sums are ``psum``med over the data axes in shard order, and the first
+    shard's come back (``out_specs=P()``), on its device."""
+    axes = data_axes(mesh)
+    blocks = [col.split(t, mesh, axes) for t in nodes]
+
+    def one(ctx, p, *bs):
+        out = body(ctx, p, *bs)
+        return tree_map(lambda t: ctx.psum(t, axes), out)
+
+    return col.spmd(mesh, one, col.replicate_tree(params, mesh), *blocks)[0]
+
+
 def run_flat(apply_local, g, params, mesh=None, *, ex=None):
     """Dispatch: ``apply_local(params, feats, positions, node_mask, labels,
-    ex)`` on a ``LocalExec`` over the FlatGraph ``g`` (no mesh), or on a
-    ``RingExec`` over the RingGraph ``g`` and ``mesh``. ``ex``: an engine
-    built on ``g`` once and reused. apply_local returns loss-like sums;
-    over a mesh they are the sums over every shard's nodes, what the
-    reference's closing ``psum`` over the data axes gives."""
+    ex)`` on a ``LocalExec`` over the FlatGraph ``g`` (no mesh), or once per
+    data shard over the RingGraph ``g`` and ``mesh``: on that shard's
+    (n_loc, ...) node blocks, on its device, with its ``RingShard``
+    (``RingExec.shard``, ``run_shards``). ``ex``: an engine built on ``g`` once and reused.
+    apply_local returns loss-like sums; over a mesh they are the sums over
+    every shard's nodes, the reference's closing ``psum`` over the data
+    axes."""
     if mesh is None:
         ex = LocalExec(g) if ex is None else ex
-    else:
-        require_mesh(mesh, "run_flat")
-        if not isinstance(g, RingGraph):
-            raise TypeError("run_flat over a mesh takes a RingGraph "
-                            "(models.gnn.common.to_ring)")
-        ex = RingExec.of(g, mesh) if ex is None else ex
-    return apply_local(params, g.feats, g.positions, g.node_mask, g.labels,
-                       ex)
+        return apply_local(params, g.feats, g.positions, g.node_mask,
+                           g.labels, ex)
+    require_mesh(mesh, "run_flat")
+    if not isinstance(g, RingGraph):
+        raise TypeError("run_flat over a mesh takes a RingGraph "
+                        "(models.gnn.common.to_ring)")
+    ex = RingExec.of(g, mesh) if ex is None else ex
+    return run_shards(
+        mesh, params, (g.feats, g.positions, g.node_mask, g.labels),
+        lambda ctx, p, *nodes: apply_local(p, *nodes, ex.shard(ctx)))

@@ -23,7 +23,8 @@ update, out_node}``, ``head``.
 
 The ring path (``build_triplet_ring``, ``ring_loss``,
 ``node_logits_ring``): edges become entities of a line graph laid out per
-shard as the node ring's (R·E_cap) slots; a node ring (``RingExec``
+shard as the node ring's (R·E_cap) slots; each shard runs on its own
+node blocks (``common.run_shards``), where a node ring (``RingShard``
 without a "model" split) fetches each edge's source rows, and a
 line-graph ring over the triplets (kj -> ji, grouped by the round of
 kj's owner, split over "model") aggregates the triplet messages into the
@@ -43,7 +44,7 @@ from repro_torch.equivariant.bessel import (angular_basis, radial_bessel_basis,
                                             spherical_bessel_basis)
 from repro_torch.kernels.segment_reduce import ops
 from repro_torch.kernels.segment_reduce.ref import csr_from_ids
-from repro_torch.models.gnn.common import RingExec, to_ring
+from repro_torch.models.gnn.common import RingExec, run_shards, to_ring
 from repro_torch.sparse.segment import gather_rows
 
 
@@ -263,17 +264,24 @@ def build_triplet_ring(g, n_shards: int, cap_per_edge: int = 8,
 
 def ring_loss(cfg, params, ring, t_src, t_dst, t_mask, mesh, ce_sums_fn):
     """Distributed full-graph loss for DimeNet (see ``node_logits_ring``):
-    ``ce_sums_fn(logits, labels, node_mask)`` over every shard's nodes.
-    ``t_src`` None: no triplet interaction (as ``node_logits`` without
-    triplets)."""
+    ``ce_sums_fn(logits, labels, node_mask)`` over every shard's nodes, run
+    as the reference's ``shard_map``: once per shard on its node blocks,
+    with both engines per shard (``common.run_shards``). ``t_src`` None: no
+    triplet interaction (as ``node_logits`` without triplets)."""
     s_, r_, e_cap = ring.esrc_local.shape
     ex_nodes = RingExec(ring.esrc_local, ring.edst_local, ring.edge_mask,
                         ring.feats.shape[0] // s_, mesh, split_model=False)
     ex_tri = None if t_src is None else RingExec(t_src, t_dst, t_mask,
                                                  r_ * e_cap, mesh)
-    logits = node_logits_ring(cfg, params, ring.feats, ring.positions,
-                              ring.node_mask, ex_nodes, ex_tri)
-    return ce_sums_fn(logits, ring.labels, ring.node_mask)
+
+    def body(ctx, p, feats, pos, nmask, labels):
+        logits = node_logits_ring(
+            cfg, p, feats, pos, nmask, ex_nodes.shard(ctx),
+            None if ex_tri is None else ex_tri.shard(ctx))
+        return ce_sums_fn(logits, labels, nmask)
+
+    return run_shards(mesh, params, (ring.feats, ring.positions,
+                                     ring.node_mask, ring.labels), body)
 
 
 def _triplet_msg(cfg, bp):
@@ -303,9 +311,10 @@ def _triplet_msg(cfg, bp):
 
 def node_logits_ring(cfg, params, feats, positions, node_mask, ex_nodes,
                      ex_tri):
-    """(N, n_out) logits over the ring. feats, positions, node_mask:
-    global node arrays; edge tensors are the node ring's slots
-    (S·R·E_cap), which are also the line-graph ring's entities."""
+    """(n_loc, n_out) logits of one shard over the ring (inside ``spmd``).
+    feats, positions, node_mask: the shard's node blocks; ``ex_nodes`` /
+    ``ex_tri``: its engines (``common.RingShard``). Edge tensors are the shard's node-ring slots
+    (R·E_cap), which are also the line-graph ring's entities."""
     n = feats.shape[0]
     h = feats @ params["enc"]
     pos_src = ex_nodes.gather_src(positions)                   # (E_loc, 3)

@@ -20,7 +20,9 @@ then ``adamw_update``. It returns new trees and leaves its inputs as they
 were, as the reference's functional step does. A full-graph batch may
 carry ``"exec"``, a ``LocalExec`` built on its graph once and reused
 across steps. Over a mesh the full-graph loss and step run the ring
-(``common.RingExec`` on a ``RingGraph``; its ``"exec"`` a ``RingExec``).
+(``common.RingExec`` on a ``RingGraph``; its ``"exec"`` a ``RingExec``):
+each data shard's body on its own node blocks and device, as the
+reference's ``shard_map`` (``common.run_flat``).
 """
 from __future__ import annotations
 

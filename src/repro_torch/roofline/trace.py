@@ -57,17 +57,28 @@ Two hooks report what the trace cannot see:
 ``assume(text)`` records an assumption behind the numbers (for example a
 worst case taken where meta tensors hold no data). Nothing here is active
 unless a ``Counter`` is entered: outside one, ``kernel`` and
-``collective`` cost one list lookup.
+``collective`` cost what ``active()`` does to find none, a thread-local
+lookup and a walk over the thread's dispatch-mode stack (empty outside
+a mode, so a few attribute reads a wrapper call).
+
+A counter is active where its dispatch mode is: in the thread that
+entered it, and in autograd's threads while they run that thread's
+backward (they inherit its modes). The bodies of
+``sharding.collectives.spmd`` run in threads of their own and are not
+counted, but their collectives are, since the rendezvous that computes
+them reports to the caller's counter (``attached``).
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 import weakref
 from collections import Counter as _Tally
 from typing import Callable, Dict, List, Optional
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _get_current_dispatch_mode_stack)
 from torch.utils._pytree import tree_flatten
 
 # link bytes per device of each collective, as a multiple of its bytes
@@ -94,7 +105,7 @@ _SCATTER = {"index_put_", "index_copy_", "index_add_", "scatter_",
             "scatter_add_", "scatter_reduce_", "index_reduce_", "put_",
             "_index_put_impl_"}
 
-_ACTIVE: List["Counter"] = []
+_LOCAL = threading.local()     # .lent: counters lent to this thread
 
 
 def flop_class(dtype: torch.dtype) -> str:
@@ -111,8 +122,33 @@ def tensor_bytes(t: torch.Tensor) -> int:
 
 
 def active() -> Optional["Counter"]:
-    """The innermost entered counter, or None."""
-    return _ACTIVE[-1] if _ACTIVE else None
+    """This thread's counter: one lent to it (``attached``), else the
+    innermost ``Counter`` on its dispatch-mode stack, or None."""
+    lent = getattr(_LOCAL, "lent", None)
+    if lent:
+        return lent[-1]
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if isinstance(mode, Counter):
+            return mode
+    return None
+
+
+@contextlib.contextmanager
+def attached(counter: Optional["Counter"]):
+    """``counter`` (entered in another thread) is this thread's active one
+    while the block runs, for the hooks (``collective``): its dispatch mode
+    is not entered here, so this thread's operators are not counted. The
+    caller makes sure no other thread uses the counter meanwhile."""
+    if counter is None:
+        yield
+        return
+    if not hasattr(_LOCAL, "lent"):
+        _LOCAL.lent = []
+    _LOCAL.lent.append(counter)
+    try:
+        yield
+    finally:
+        _LOCAL.lent.remove(counter)
 
 
 def _mv_flops(a, b, *rest, out_val=None, **kw) -> int:
@@ -192,16 +228,6 @@ class Counter(TorchDispatchMode):
         return self.live - before
 
     # -- the trace --------------------------------------------------------
-    def __enter__(self):
-        _ACTIVE.append(self)
-        return super().__enter__()
-
-    def __exit__(self, *exc):
-        try:
-            return super().__exit__(*exc)
-        finally:
-            _ACTIVE.remove(self)
-
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)

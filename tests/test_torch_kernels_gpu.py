@@ -32,7 +32,11 @@ steps bitwise, and ``embedding_bag``'s sum and mean on the card (the
 summing kernel) against the CPU; and the serving launcher on the card
 (durable, recovered, with RAG generation through the decode kernel); and
 the GNN ring over four shards of one card (and a (2, 2) grid) against
-the CPU, and the RAG example on its default device.
+the CPU, and with two cards or more over every card (a shard's body on its
+own card, its launches there) against ``LocalExec``; both segment sums
+launched on cuda:1 from a thread whose current device is cuda:0, and
+their launch counts under four launching threads; and the RAG example on
+its default device.
 
 Every test carries the ``gpu`` marker and skips itself when
 ``torch.cuda.is_available()`` is false (decided inside the test, so every
@@ -53,6 +57,8 @@ they must agree bitwise.
 import pytest
 
 pytest.importorskip("torch")
+
+import threading
 
 import numpy as np
 import torch
@@ -1785,6 +1791,121 @@ def test_gnn_ring_on_the_card_matches_the_cpu(shape, monkeypatch):
     for a, b in zip(grads, wgrads):
         assert (a.cpu() - b).abs().max().item() <= 1e-5 * max(
             1.0, b.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_gnn_ring_over_every_card(monkeypatch):
+    """With two cards or more, EGNN's ring with one data shard a card
+    (``Mesh(["cuda:0", ..., "cuda:n-1"])``): each shard's body gets its
+    node blocks on its own card, the loss sums are within 1e-5 of
+    ``LocalExec``'s, and each card launches the summing kernel layers x
+    rounds x chunks times of its own shard, with that card current."""
+    _need_card()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices or more")
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.models.gnn import common as gc
+    from repro_torch.models.gnn import driver as gd
+    from repro_torch.models.gnn import egnn
+    from repro_torch.sharding import Mesh
+    monkeypatch.setattr(gc, "MSG_BLOCK_EDGES", 1 << 12)
+    cfg, g, params = _egnn_train_case(n=2000, e=30_000)
+    with torch.no_grad():
+        local = gd.full_graph_loss(cfg, params, g)
+    ring = gc.to_ring(gc.pad_to_shards(g, n), n)
+    mesh = Mesh([f"cuda:{i}" for i in range(n)], ("data",))
+    ex = gc.RingExec.of(ring, mesh, 5_000)
+    lib, by_card, blocks_on = sops._lib(), [0] * n, set()
+
+    def counted(*args):
+        by_card[torch.cuda.current_device()] += 1
+        return lib(*args)
+
+    monkeypatch.setattr(sops, "_lib", lambda: counted)
+
+    def apply_local(p, f, x, nm, lb, rex):
+        blocks_on.add((str(f.device), str(rex.ctx.device), f.shape[0]))
+        return gd._ce_sums(egnn.node_logits(cfg, p, f, x, nm, rex), lb, nm)
+
+    with torch.no_grad():
+        got = gc.run_flat(apply_local, ring, params, mesh, ex=ex)
+    assert blocks_on == {(f"cuda:{i}", f"cuda:{i}", ring.feats.shape[0] // n)
+                         for i in range(n)}
+    for k in local:
+        assert abs(float(got[k]) - float(local[k])) <= 1e-5 * max(
+            1.0, abs(float(local[k])))
+    want = [cfg.n_layers * sum(len(e.chunks) for e in es)
+            for es in ex.engines]
+    assert by_card == want and min(want) > 0
+
+
+@pytest.mark.gpu
+def test_segment_sums_launch_on_their_own_card():
+    """A thread whose current device is cuda:0 launches both segment sums
+    on cuda:1 tensors: each runs on cuda:1's stream (the wrapper makes
+    the messages' device current) and gives the plain version's bits."""
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more")
+    from repro_torch.kernels.segment_reduce import ops as sops
+    from repro_torch.kernels.segment_reduce.ref import (
+        csr_from_ids, segment_sum_csr_accumulate_ref, segment_sum_csr_ref)
+    gen = torch.Generator().manual_seed(5)
+    msgs = torch.randn(50_000, 67, generator=gen)
+    ids = torch.randint(0, 3_000, (50_000,), generator=gen)
+    rowptr, perm = csr_from_ids(ids, 3_000)
+    base = torch.randn(3_000, 67, generator=gen)
+    want = segment_sum_csr_ref(msgs, rowptr, perm)
+    want_acc = segment_sum_csr_accumulate_ref(msgs, rowptr, perm,
+                                              out=base.clone())
+    box = {}
+
+    def run():
+        torch.cuda.set_device(0)
+        on = [t.to("cuda:1") for t in (msgs, rowptr, perm, base)]
+        box["sum"] = sops.segment_sum_csr(*on[:3]).cpu()
+        box["acc"] = sops.segment_sum_csr_accumulate(
+            *on[:3], out=on[3]).cpu()
+        box["current"] = torch.cuda.current_device()
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert box["current"] == 0
+    assert torch.equal(box["sum"], want) and torch.equal(box["acc"],
+                                                         want_acc)
+
+
+@pytest.mark.gpu
+def test_launch_counts_stay_exact_under_threads():
+    """Four threads launching both segment sums at once on one card leave
+    each wrapper's ``launches`` count exact."""
+    _need_card()
+    from repro_torch.kernels.segment_reduce import ops as sops
+    reps, n_threads = 300, 4
+    msgs = torch.randn(256, 8, device="cuda")
+    rowptr = torch.arange(0, 257, 4, dtype=torch.int32, device="cuda")
+    out = torch.zeros(64, 8, device="cuda")
+    start = threading.Barrier(n_threads)
+    before = (sops.segment_sum_csr.launches,
+              sops.segment_sum_csr_accumulate.launches)
+
+    def run():
+        start.wait()
+        for _ in range(reps):
+            sops.segment_sum_csr(msgs, rowptr)
+            sops.segment_sum_csr_accumulate(msgs, rowptr, out=out)
+
+    threads = [threading.Thread(target=run) for _ in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert (sops.segment_sum_csr.launches - before[0],
+            sops.segment_sum_csr_accumulate.launches - before[1]) == (
+        reps * n_threads, reps * n_threads)
 
 
 @pytest.mark.gpu

@@ -21,6 +21,11 @@ parameters (``convert.gnn_params_from_jax``, ``ring_graph_from_jax``).
   "model" axis; its DimeNet ``full_graph_loss(mesh=)`` raises; its
   triplet ring keeps other in-edges than its local triplets when the cap
   binds.
+- The layout, as ``shard_map``'s: over S = 4 each shard's body runs in a
+  thread of its own on its 16 node rows, and no operator inside a body
+  returns a tensor with the graph's 64 node rows (a dispatch hook entered
+  in each shard's thread); ``RingShard.dst_index`` gives local rows, the
+  reference's arrays.
 """
 import pytest
 
@@ -29,9 +34,12 @@ pytest.importorskip("torch")
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 from repro_torch.common.tree import leaves, tree_map
 from repro_torch.configs import smoke_config
@@ -39,6 +47,7 @@ from repro_torch.convert import gnn_params_from_jax, ring_graph_from_jax
 from repro_torch.models.gnn import common, dimenet
 from repro_torch.models.gnn import driver as td
 from repro_torch.sharding import Mesh
+from repro_torch.sharding import collectives as col
 from repro_torch.train.optimizer import init_adamw
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -288,3 +297,148 @@ def test_pad_to_shards_keeps_the_loss(graph):
                              Mesh(["cpu"] * 4, ("data",)))
     for k in want:
         assert rel(got[k], want[k]) < RTOL
+
+
+class _Rows(TorchDispatchMode):
+    """Records (operator, shape, thread) of every tensor an operator
+    returns in the thread that entered it."""
+
+    def __init__(self, seen: list):
+        super().__init__()
+        self.seen = seen
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor):
+                self.seen.append((func.overloadpacket.__name__,
+                                  tuple(t.shape), threading.get_ident()))
+        return out
+
+
+@pytest.mark.parametrize("arch", ["egnn", "equiformer-v2", "dimenet"])
+def test_each_shard_holds_only_its_own_node_rows(ref, graph, arch,
+                                                 monkeypatch):
+    """Over S = 4 on the 64-node graph (n_loc 16; blocks of 16 edges, and
+    edge caps and per-shard edge counts that are not 64), each shard's
+    body runs in a thread of its own on its 16 node rows, and no tensor an
+    operator returns inside it (EGNN's ``push``, Equiformer-v2's
+    ``push_attn``, DimeNet's node and triplet rings) has the graph's 64
+    node rows. The loss sums stay the ring's."""
+    monkeypatch.setattr(common, "MSG_BLOCK_EDGES", 16)
+    cfg = smoke_config(arch)
+    params = gnn_params_from_jax(subtree(ref, f"{arch}/params"), "cpu")
+    m4 = Mesh(["cpu"] * 4, ("data",))
+    n, n_loc = graph.n_nodes, graph.n_nodes // 4
+    ring, *tri = dimenet.build_triplet_ring(graph, 4, 100)
+    _, rounds, cap = ring.esrc_local.shape
+    per_shard = ring.edge_mask.sum((1, 2)).tolist()
+    assert n == 64 and cap != n and rounds * cap != n
+    assert n not in per_shard and n not in ring.edge_mask.sum(2).flatten()
+    seen, threads = [], set()
+
+    def node_rows(f, x, nm, lb):
+        threads.add(threading.get_ident())
+        assert all(t.shape[0] == n_loc for t in (f, x, nm, lb))
+
+    if arch == "dimenet":
+        assert n not in tri[2].sum((1, 2)).tolist()
+        assert n not in tri[2].sum(2).flatten() and tri[0].shape[2] != n
+        inner = dimenet.node_logits_ring
+
+        def logits_ring(cfg_, p, f, x, nm, ex_nodes, ex_tri):
+            node_rows(f, x, nm, nm)
+            with _Rows(seen):
+                return inner(cfg_, p, f, x, nm, ex_nodes, ex_tri)
+
+        monkeypatch.setattr(dimenet, "node_logits_ring", logits_ring)
+        got = td.full_graph_loss(cfg, params, ring, m4, tuple(tri))
+        want = subtree(ref, "dimenet/s2_100")["loss_sum"]
+    else:
+        mod = td._module(cfg)
+
+        def apply_local(p, f, x, nm, lb, ex):
+            node_rows(f, x, nm, lb)
+            with _Rows(seen):
+                return td._ce_sums(mod.node_logits(cfg, p, f, x, nm, ex),
+                                   lb, nm)
+
+        got = common.run_flat(apply_local, common.to_ring(graph, 4), params,
+                              m4)
+        want = subtree(ref, f"{arch}/s4")["loss_sum"]
+    assert rel(got["loss_sum"], want) < RTOL
+    assert len(threads) == 4 and threading.get_ident() not in threads
+    assert {tid for *_, tid in seen} == threads
+    whole = [(op, shape) for op, shape, _ in seen if shape and shape[0] == n]
+    assert len(seen) > 100 and not whole, whole[:5]
+
+
+def test_dst_index_gives_local_rows(ref, graph):
+    """``RingShard.dst_index`` of each shard's engine gives its local
+    destination rows and mask in slot order: the reference's ``edst_local``
+    and ``edge_mask`` of that shard (its ``dst_index``); with a "model"
+    split, the shard's piece of each round. The ring over the whole mesh
+    (``RingExec``) has no shard's methods."""
+    want = ring_graph_from_jax(subtree(ref, "ring4"), "cpu")
+    m4 = Mesh(["cpu"] * 4, ("data",))
+    ex = common.RingExec.of(common.to_ring(graph, 4), m4)
+    assert all(isinstance(e, common.RingShard)
+               for e in col.spmd(m4, ex.shard))
+    got = col.spmd(m4, lambda ctx: ex.shard(ctx).dst_index())
+    for d, (idx, mask) in enumerate(got):
+        assert idx.dtype == torch.int64 and int(idx.max()) < 16
+        assert torch.equal(idx, want.edst_local[d].reshape(-1).long())
+        assert torch.equal(mask, want.edge_mask[d].reshape(-1))
+    assert not any(hasattr(ex, f) for f in ("push", "push_attn",
+                                              "gather_src", "dst_index"))
+    g22 = mesh("g22")
+    ring2 = common.to_ring(graph, 2)
+    cap = ring2.esrc_local.shape[2]
+    piece = -(-cap // 2)
+    ex2 = common.RingExec.of(ring2, g22)
+    for ctx_idx, (idx, mask) in zip(
+            col.shards(g22), col.spmd(g22, lambda c: ex2.shard(c).dst_index())):
+        d, m = ctx_idx.coords["data"], ctx_idx.coords["model"]
+        sl = slice(m * piece, (m + 1) * piece)
+        assert torch.equal(idx, ring2.edst_local[d][:, sl].reshape(-1).long())
+        assert torch.equal(mask, ring2.edge_mask[d][:, sl].reshape(-1))
+
+
+def test_shards_of_one_device_add_into_the_senders_buffer(graph,
+                                                          monkeypatch):
+    """Under grad, on a mesh whose shards share one device, a block that
+    rotates in is the sender's token, and its gathers' transposes add into
+    the sender's gradient buffer: a backward makes one buffer a shard and
+    push, none for a rotated-in block, and its gradients repeat bit for
+    bit. Forced to copy each rotated block (as a move between devices
+    does), the ring makes a buffer for every block and round, and its
+    gradients agree within 1e-6."""
+    cfg = smoke_config("egnn")
+    params = td.init_model(cfg, 0, 8, device="cpu")
+    ring = common.to_ring(graph, 4)
+    m4 = Mesh(["cpu"] * 4, ("data",))
+    made, add = [0], common._GradBuffer.add
+
+    def counted(self, *a, **k):
+        made[0] += self.buf is None
+        add(self, *a, **k)
+
+    monkeypatch.setattr(common._GradBuffer, "add", counted)
+
+    def grads():
+        made[0] = 0
+        got = _grads(cfg, params, ring, m4)
+        return got, made[0]
+
+    a, n_a = grads()
+    b, _ = grads()
+    assert n_a == cfg.n_layers * 4
+    assert all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+    rotate = col.ShardCtx.rotate
+    monkeypatch.setattr(col.ShardCtx, "rotate",
+                        lambda self, x, axes: rotate(self, x, axes).clone())
+    c, n_c = grads()
+    assert n_c == cfg.n_layers * 4 * 4
+    for x, y in zip(leaves(a), leaves(c)):
+        assert rel(x, y) < 1e-6
+

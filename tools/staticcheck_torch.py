@@ -87,6 +87,10 @@ GUARDED_BY: Tuple[GuardSpec, ...] = (
     GuardSpec("MicroBatcher", "repro_torch.serving.retrieval", "_lock",
               ("_pending", "_leader"),
               (_SRC + "serving/retrieval.py",)),
+    # whose turn it is on each device that spmd shards share
+    GuardSpec("_Turns", "repro_torch.sharding.collectives", "_lock",
+              ("_next", "_aborted"),
+              (_SRC + "sharding/collectives.py",)),
     GuardSpec("DurableHMGIIndex", "repro_torch.persistence.durable",
               "_write_lock", ("_last_snapshot_seq",),
               (_SRC + "persistence/durable.py",)),
@@ -149,6 +153,7 @@ EXTRA_LOCK_WRAPS: Tuple[Tuple[str, str, Tuple[str, ...]], ...] = (
 # attribute it waits on.
 CONDITIONS: Dict[str, str] = {
     "MicroBatcher._cv": "_lock",
+    "_Turns._cv": "_lock",
 }
 
 # Locks outside the contract, each with its reason. Keys are
@@ -158,6 +163,14 @@ LOCK_EXEMPT: Dict[str, str] = {
     _SRC + "kernels/_build.py:_locks_lock": (
         "module-level leaf lock around one dict lookup; no shared object "
         "state, and nothing else is taken under it"),
+    _SRC + "kernels/segment_reduce/ops.py:_COUNT_LOCK": (
+        "module-level leaf lock around the two launch counts' increments, "
+        "which threads launching at once (spmd shards, autograd's device "
+        "threads) would otherwise lose; nothing else is taken under it"),
+    _SRC + "sharding/collectives.py:_STAGGER_LOCK": (
+        "module-level leaf lock around the two ``STAGGER`` tallies' "
+        "increments, which shards of different shared devices make at "
+        "once; nothing else is taken under it"),
     _SRC + "kernels/_build.py:load()": (
         "one lock per kernel source, held across that source's nvcc build "
         "so two threads never compile it twice; no object state is "
